@@ -1,0 +1,468 @@
+// FlashAttention-2 forward for Hopper (sm_90a), behind a plain C interface.
+//
+// Replaces the TPU kernel tpusched/jaxbridge/attention.py:_flash_kernel.
+// Same function: O = softmax(Q Kᵀ / √d) V by an online softmax over K/V
+// tiles (running max m, denominator l, f32 accumulator rescaled by
+// alpha = exp(m_prev − m_new)), plus lse = m + log l in f32. −inf-safe:
+// a fully masked row keeps p = alpha = 0 and a zero l becomes 1. As in K1,
+// the second product takes P rounded to the input type while l sums the
+// unrounded P.
+//
+// What bounds it on this card: at the serving prefill shape (b=1, 16 query
+// heads, 4 KV heads, d=128, s=1024, causal, bf16) the work is about
+// 4.3 GFLOP against about 10.5 MB that must move, some 400 FLOP per byte,
+// above the H100's bf16 ridge of about 295: operations bound it, so the
+// products belong on the tensor cores. The design keeps the (s, s) score
+// matrix out of device memory, as K1 does: one CUDA block owns 64 query
+// rows of one head, walks the K/V tiles in an in-block loop (the TPU grid's
+// sequential nk axis), stages each 64-row K/V tile through shared memory,
+// and never loads a causal tile past the diagonal; heavy (late) causal
+// tiles are scheduled first.
+//
+// - bfloat16: four warps, 16 query rows each. S = Q Kᵀ and O += P V run as
+//   mma.sync m16n8k16 (bf16 in, f32 accumulate); Q's fragments stay in
+//   registers for the whole walk, V is staged transposed so both products
+//   read their B operand as 32-bit pairs, and the S accumulator becomes the
+//   A operand of P V without leaving registers.
+// - float32: the tensor cores would round to TF32, so the products run on
+//   the CUDA cores with FMA from shared memory, four threads per row.
+// wgmma, TMA and a pipelined producer warp are the next steps toward the
+// operations bound.
+//
+// Layout: q (b, s, h, d), k/v (b, s, kv, d), read through the element
+// strides the caller gives (the head dim must be contiguous; in bf16 every
+// row must also start on 16 bytes, for vector loads). GQA is
+// resolved by index: query head hq reads KV head hq / (h / kv). A ragged
+// last tile is masked here, so any s runs. O is written (b, s, h, d)
+// contiguous in the input type; lse (b·h, s) f32.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BLOCK_M = 64;              // query rows per CUDA block
+constexpr int BLOCK_N = 64;              // key rows per K/V tile
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* lse;
+  int b, s, h, n_rep;
+  int64_t q_sb, q_ss, q_sh;
+  int64_t k_sb, k_ss, k_sh;
+  int64_t v_sb, v_ss, v_sh;
+  float scale;
+  int causal;
+};
+
+// The work of one CUDA block: its query tile (latest first), head, and the
+// K/V tiles it walks.
+struct Tile {
+  int q0, bh, bi, hi, kvi, n_tiles;
+};
+
+__device__ __forceinline__ Tile tile_of(const Params& p) {
+  Tile t;
+  const int nq = (p.s + BLOCK_M - 1) / BLOCK_M;
+  t.q0 = (nq - 1 - (int)blockIdx.x) * BLOCK_M;
+  t.bh = blockIdx.y;
+  t.bi = t.bh / p.h;
+  t.hi = t.bh % p.h;
+  t.kvi = t.hi / p.n_rep;
+  const int last_row = min(t.q0 + BLOCK_M, p.s) - 1;
+  t.n_tiles = p.causal ? last_row / BLOCK_N + 1 : (p.s + BLOCK_N - 1) / BLOCK_N;
+  return t;
+}
+
+__device__ __forceinline__ bool masked(const Params& p, int row, int col) {
+  return col >= p.s || (p.causal && col > row);
+}
+
+// ---------------------------------------------------------------------------
+// float32: CUDA-core FMA
+
+constexpr int FMA_THREADS = 256;         // four threads per query row
+constexpr int FMA_COLS = BLOCK_N / 4;    // score columns per thread
+constexpr int FMA_LDP = BLOCK_N + 1;     // padded row of the P tile
+
+// One word of padding per staged row puts the rows a warp reads at once on
+// different shared-memory banks.
+template <int D>
+__host__ __device__ constexpr int fma_ld() { return D + 1; }
+
+template <int D>
+__host__ __device__ constexpr size_t fma_smem_bytes() {
+  return (size_t)(BLOCK_M + 2 * BLOCK_N) * fma_ld<D>() * sizeof(float) +
+         (size_t)BLOCK_M * FMA_LDP * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(FMA_THREADS) flash_fwd_fma(const Params p) {
+  constexpr int LD = fma_ld<D>();
+  constexpr int DPT = D / 4;             // output dims per thread
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sK = sQ + BLOCK_M * LD;
+  float* sV = sK + BLOCK_N * LD;
+  float* sP = sV + BLOCK_N * LD;
+
+  const Tile t = tile_of(p);
+  const int tid = threadIdx.x;
+  const int r = tid >> 2;                // query row inside the tile
+  const int quad = tid & 3;              // columns quad + 4j, dims quad + 4j
+  const float* q = static_cast<const float*>(p.q) + t.bi * p.q_sb + t.hi * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + t.bi * p.k_sb + t.kvi * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + t.bi * p.v_sb + t.kvi * p.v_sh;
+
+  for (int idx = tid; idx < BLOCK_M * D; idx += FMA_THREADS) {
+    const int row = idx / D, col = idx % D;
+    const int g = t.q0 + row;
+    sQ[row * LD + col] = g < p.s ? q[g * p.q_ss + col] : 0.f;
+  }
+
+  float acc[DPT];
+#pragma unroll
+  for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
+  float m = -INFINITY;
+  float l = 0.f;
+  const int q_row = t.q0 + r;
+
+  for (int kt = 0; kt < t.n_tiles; ++kt) {
+    const int k0 = kt * BLOCK_N;
+    __syncthreads();                     // the previous tile is consumed
+    for (int idx = tid; idx < BLOCK_N * D; idx += FMA_THREADS) {
+      const int row = idx / D, col = idx % D;
+      const int g = k0 + row;
+      const bool in = g < p.s;
+      sK[row * LD + col] = in ? k[g * p.k_ss + col] : 0.f;
+      sV[row * LD + col] = in ? v[g * p.v_ss + col] : 0.f;
+    }
+    __syncthreads();
+
+    float sc[FMA_COLS];
+#pragma unroll
+    for (int j = 0; j < FMA_COLS; ++j) sc[j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float qd = sQ[r * LD + d];
+#pragma unroll
+      for (int j = 0; j < FMA_COLS; ++j) sc[j] += qd * sK[(quad + 4 * j) * LD + d];
+    }
+
+    float row_max = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < FMA_COLS; ++j) {
+      const float x = masked(p, q_row, k0 + quad + 4 * j) ? -INFINITY : sc[j] * p.scale;
+      sc[j] = x;
+      row_max = fmaxf(row_max, x);
+    }
+    // the four threads of a row are neighbouring lanes of one warp
+    row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 1));
+    row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 2));
+    const float m_new = fmaxf(m, row_max);
+    const float m_sub = m_new == -INFINITY ? 0.f : m_new;
+    const float alpha = m == -INFINITY ? 0.f : expf(m - m_new);
+
+    float row_sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < FMA_COLS; ++j) {
+      const float pj = expf(sc[j] - m_sub);
+      row_sum += pj;
+      sP[r * FMA_LDP + quad + 4 * j] = pj;
+    }
+    row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 1);
+    row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 2);
+    l = alpha * l + row_sum;
+    m = m_new;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) acc[j] *= alpha;
+    __syncwarp();                        // a row's P is written and read by one warp
+
+    for (int c = 0; c < BLOCK_N; ++c) {
+      const float pc = sP[r * FMA_LDP + c];
+      const float* vrow = sV + c * LD + quad;
+#pragma unroll
+      for (int j = 0; j < DPT; ++j) acc[j] += pc * vrow[4 * j];
+    }
+  }
+
+  if (q_row < p.s) {
+    const float safe_l = l == 0.f ? 1.f : l;
+    float* o = static_cast<float*>(p.o) + (((int64_t)t.bi * p.s + q_row) * p.h + t.hi) * D;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j) o[quad + 4 * j] = acc[j] / safe_l;
+    if (quad == 0) p.lse[(int64_t)t.bh * p.s + q_row] = m + logf(safe_l);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores through mma.sync m16n8k16
+
+constexpr int MMA_THREADS = 128;         // four warps of 16 query rows
+constexpr int LDVT = BLOCK_N + 8;        // row of the transposed V tile
+
+// 16 bytes of padding per staged row: 32-bit fragment reads by the eight
+// row groups of a warp land on distinct banks, and rows stay 16-byte
+// aligned for vector stores.
+template <int D>
+__host__ __device__ constexpr int mma_ld() { return D + 8; }
+
+template <int D>
+__host__ __device__ constexpr size_t mma_smem_bytes() {
+  return ((size_t)(BLOCK_M + BLOCK_N) * mma_ld<D>() + (size_t)D * LDVT) *
+         sizeof(__nv_bfloat16);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two floats as a bf16 pair, the lower column in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, column-major)
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Copy rows [r0, r0 + rows) of a (s, D) slice into shared memory with
+// 16-byte loads (the entry point refuses unaligned rows), zero past s; with
+// `transpose` the tile lands as dst[col * ld + row].
+template <int D>
+__device__ __forceinline__ void stage(const Params& p, const __nv_bfloat16* src,
+                                      int64_t row_stride, int r0, int rows,
+                                      __nv_bfloat16* dst, int ld, bool transpose) {
+  for (int idx = threadIdx.x * 8; idx < rows * D; idx += MMA_THREADS * 8) {
+    const int row = idx / D, col = idx % D;
+    const int g = r0 + row;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (g < p.s) val = *reinterpret_cast<const uint4*>(src + g * row_stride + col);
+    if (transpose) {
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dst[(col + j) * ld + row] = e[j];
+    } else {
+      *reinterpret_cast<uint4*>(dst + row * ld + col) = val;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma(const Params p) {
+  constexpr int LD = mma_ld<D>();
+  constexpr int KD = D / 16;             // k-steps of Q Kᵀ
+  constexpr int ND = D / 8;              // n-tiles of the output
+  constexpr int NS = BLOCK_N / 8;        // n-tiles of S
+  constexpr int KS = BLOCK_N / 16;       // k-steps of P V
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sK = sQ + BLOCK_M * LD;
+  __nv_bfloat16* sVt = sK + BLOCK_N * LD;
+
+  const Tile t = tile_of(p);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;               // fragment row group
+  const int c2 = (lane & 3) * 2;         // fragment column pair
+  const __nv_bfloat16* q =
+      static_cast<const __nv_bfloat16*>(p.q) + t.bi * p.q_sb + t.hi * p.q_sh;
+  const __nv_bfloat16* k =
+      static_cast<const __nv_bfloat16*>(p.k) + t.bi * p.k_sb + t.kvi * p.k_sh;
+  const __nv_bfloat16* v =
+      static_cast<const __nv_bfloat16*>(p.v) + t.bi * p.v_sb + t.kvi * p.v_sh;
+
+  stage<D>(p, q, p.q_ss, t.q0, BLOCK_M, sQ, LD, false);
+  __syncthreads();
+  uint32_t qf[KD][4];                    // this warp's 16 rows of Q, all of D
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    const __nv_bfloat16* base = sQ + (warp * 16 + g) * LD + kk * 16 + c2;
+    qf[kk][0] = ld32(base);
+    qf[kk][1] = ld32(base + 8 * LD);
+    qf[kk][2] = ld32(base + 8);
+    qf[kk][3] = ld32(base + 8 * LD + 8);
+  }
+
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  // this thread holds rows g and g + 8 of the warp's 16
+  const int rows[2] = {t.q0 + warp * 16 + g, t.q0 + warp * 16 + g + 8};
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < t.n_tiles; ++kt) {
+    const int k0 = kt * BLOCK_N;
+    __syncthreads();                     // the previous tile is consumed
+    stage<D>(p, k, p.k_ss, k0, BLOCK_N, sK, LD, false);
+    stage<D>(p, v, p.v_ss, k0, BLOCK_N, sVt, LDVT, true);
+    __syncthreads();
+
+    float sc[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        const __nv_bfloat16* kb = sK + (n * 8 + g) * LD + kk * 16 + c2;
+        mma_16816(sc[n], qf[kk], ld32(kb), ld32(kb + 8));
+      }
+    }
+
+    // element e of an S tile sits at row rows[e >> 1], column c2 + (e & 1)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + n * 8 + c2 + (e & 1);
+        const float x = masked(p, rows[e >> 1], col) ? -INFINITY : sc[n][e] * p.scale;
+        sc[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float m_sub[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // a row's four threads are neighbouring lanes of one warp
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      m_sub[r] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = m[r] == -INFINITY ? 0.f : expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = expf(sc[n][e] - m_sub[e >> 1]);
+        sum[e >> 1] += pe;
+        sc[n][e] = pe;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l[r] = alpha[r] * l[r] + sum[r];
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // P's accumulator layout is the A-operand layout of P V: two S tiles
+    // make one 16-key k-step
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        const __nv_bfloat16* vb = sVt + (n * 8 + g) * LDVT + kk * 16 + c2;
+        mma_16816(o[n], pa, ld32(vb), ld32(vb + 8));
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= p.s) continue;
+    const float safe_l = l[r] == 0.f ? 1.f : l[r];
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) +
+                         (((int64_t)t.bi * p.s + rows[r]) * p.h + t.hi) * D + c2;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<uint32_t*>(out + n * 8) =
+          pack_bf16(o[n][2 * r] / safe_l, o[n][2 * r + 1] / safe_l);
+    }
+    if ((lane & 3) == 0) p.lse[(int64_t)t.bh * p.s + rows[r]] = m[r] + logf(safe_l);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, int threads, size_t smem, const Params& p,
+                   cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.s + BLOCK_M - 1) / BLOCK_M, p.b * p.h);
+  kernel<<<grid, threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dim(bool bf16, const Params& p, cudaStream_t stream) {
+  if (bf16) return launch(flash_fwd_mma<D>, MMA_THREADS, mma_smem_bytes<D>(), p, stream);
+  return launch(flash_fwd_fma<D>, FMA_THREADS, fma_smem_bytes<D>(), p, stream);
+}
+
+bool aligned16(const void* ptr, int64_t sb, int64_t ss, int64_t sh) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && sb % 8 == 0 && ss % 8 == 0 &&
+         sh % 8 == 0;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+extern "C" int tpusched_flash_fwd(const void* q, const void* k, const void* v, void* o,
+                                  void* lse, int b, int s, int h, int kv, int d,
+                                  int64_t q_sb, int64_t q_ss, int64_t q_sh,
+                                  int64_t k_sb, int64_t k_ss, int64_t k_sh,
+                                  int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                                  float scale, int causal, int dtype, void* stream) {
+  if (b < 1 || s < 1 || kv < 1 || h % kv != 0 || b * h > 65535 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const bool bf16 = dtype == 1;
+  if (bf16 && !(aligned16(q, q_sb, q_ss, q_sh) && aligned16(k, k_sb, k_ss, k_sh) &&
+                aligned16(v, v_sb, v_ss, v_sh)))
+    return (int)cudaErrorMisalignedAddress;
+  Params p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.b = b;
+  p.s = s;
+  p.h = h;
+  p.n_rep = h / kv;
+  p.q_sb = q_sb;
+  p.q_ss = q_ss;
+  p.q_sh = q_sh;
+  p.k_sb = k_sb;
+  p.k_ss = k_ss;
+  p.k_sh = k_sh;
+  p.v_sb = v_sb;
+  p.v_ss = v_ss;
+  p.v_sh = v_sh;
+  p.scale = scale;
+  p.causal = causal;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32: return (int)launch_dim<32>(bf16, p, st);
+    case 64: return (int)launch_dim<64>(bf16, p, st);
+    case 128: return (int)launch_dim<128>(bf16, p, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,298 @@
+"""The Llama-style decoder LM in PyTorch: config, parameters, forward.
+
+Counterpart of ``tpusched/jaxbridge/workload.py`` (dense half). Plain
+functions on tensors over the same parameter dict as the reference: keys
+``embed``/``out``/``ln_f``/``layers[i]``, weights stored ``(in, out)`` and
+used as ``h @ W``. :class:`DecoderLM` is a thin ``nn.Module`` owning those
+tensors so ``.to()`` and ``state_dict()`` work.
+
+Every entry point runs on the CUDA card unless the caller passes
+``device="cpu"``; with no card and no explicit device it raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from . import attention
+
+Params = Dict[str, Any]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the one asked for, else the CUDA
+    card. Never falls back to the CPU unasked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: tpusched_torch runs on the "
+                               "card unless device='cpu' is passed")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        # "cuda" and "cuda:0" must compare equal to a tensor's device
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    vocab: int = 2048
+    d_model: int = 256
+    n_layers: int = 2
+    n_heads: int = 4
+    d_ff: int = 512
+    seq: int = 128
+    dtype: torch.dtype = torch.float32
+    # "naive" (materialized) or "flash" (the hand-written kernel); "ring"
+    # and "ringflash" need an sp mesh and resolve to naive without one,
+    # as in the reference
+    attn: str = "naive"
+    n_kv_heads: int = 0                  # 0 => n_heads (plain MHA)
+    # mixture-of-experts fields: not ported yet, n_experts > 0 raises
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    param_dtype: Optional[torch.dtype] = None   # master dtype when != dtype
+    vocab_parallel_loss: bool = False           # training only
+    remat: bool = False                         # training only
+    kv_cache_dtype: Any = None                  # None (exact) or "int8"
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def master_dtype(self) -> torch.dtype:
+        return self.param_dtype if self.param_dtype is not None else self.dtype
+
+    def __post_init__(self):
+        if self.n_heads % self.kv_heads:
+            raise ValueError(
+                f"n_kv_heads ({self.kv_heads}) must divide n_heads "
+                f"({self.n_heads}) — each KV head serves an equal group")
+        if self.d_model % self.n_heads:
+            raise ValueError(
+                f"n_heads ({self.n_heads}) must divide d_model ({self.d_model})")
+        if self.kv_cache_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_cache_dtype must be None or the string 'int8', got "
+                f"{self.kv_cache_dtype!r}")
+        if self.n_experts:
+            raise NotImplementedError(
+                "MoE (n_experts > 0) is not ported yet: ROADMAP 'MoE "
+                "dropless serving, then MoE training'")
+
+    @staticmethod
+    def tiny() -> "ModelConfig":
+        return ModelConfig(vocab=256, d_model=64, n_layers=2, n_heads=2,
+                           d_ff=128, seq=32)
+
+    @staticmethod
+    def llama_like(seq: int = 2048) -> "ModelConfig":
+        """Scaled-down Llama-3 proportions with 4:1 grouped-query attention."""
+        return ModelConfig(vocab=32000, d_model=1024, n_layers=8, n_heads=8,
+                           d_ff=2816, seq=seq, dtype=torch.bfloat16,
+                           n_kv_heads=2)
+
+    @staticmethod
+    def llama_like_big(seq: int = 4096) -> "ModelConfig":
+        """The representative single-card config: ~0.67B parameters, 12
+        layers, d_model 2048, 16 heads over 4 KV heads (head_dim 128),
+        SwiGLU d_ff 5632, bf16, flash attention."""
+        return ModelConfig(vocab=32000, d_model=2048, n_layers=12,
+                           n_heads=16, d_ff=5632, seq=seq,
+                           dtype=torch.bfloat16, n_kv_heads=4,
+                           attn="flash", remat=True)
+
+    @staticmethod
+    def llama_like_xl(seq: int = 4096) -> "ModelConfig":
+        """~1.55B parameters: 20 layers, d_model 2560, 20 heads over 5 KV
+        heads (head_dim 128), d_ff 6912, bf16, flash attention."""
+        return ModelConfig(vocab=32000, d_model=2560, n_layers=20,
+                           n_heads=20, d_ff=6912, seq=seq,
+                           dtype=torch.bfloat16, n_kv_heads=5,
+                           attn="flash", remat=True)
+
+    @staticmethod
+    def mixtral_like(seq: int = 2048, n_experts: int = 8) -> "ModelConfig":
+        """Scaled-down Mixtral proportions (8 experts, top-2); raises until
+        MoE is ported."""
+        return ModelConfig(vocab=32000, d_model=1024, n_layers=8, n_heads=8,
+                           d_ff=2816, seq=seq, dtype=torch.bfloat16,
+                           n_kv_heads=2, n_experts=n_experts, moe_top_k=2)
+
+
+def param_shapes(cfg: ModelConfig) -> Params:
+    """The shape of every parameter, in the parameter dict's structure."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab
+    d_kv = cfg.head_dim * cfg.kv_heads
+    layer = {"wq": (d, d), "wk": (d, d_kv), "wv": (d, d_kv), "wo": (d, d),
+             "ln_attn": (d,), "ln_mlp": (d,),
+             "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    return {"embed": (v, d), "out": (d, v), "ln_f": (d,),
+            "layers": [dict(layer) for _ in range(cfg.n_layers)]}
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> Params:
+    """Random weights, ``normal / sqrt(fan_in)``, ones for the norms, in
+    ``cfg.master_dtype``. The normals are drawn on the generator's device
+    (so a CUDA generator fills a large model on the card) and scaled in
+    float32 before the cast. Same shapes and scaling as the reference; the
+    numbers differ, as torch's generator is not JAX's."""
+    device = resolve_device(device)
+    dt = cfg.master_dtype
+
+    def dense(shape):
+        x = torch.randn(shape, generator=generator, device=generator.device)
+        return (x / math.sqrt(shape[0])).to(device=device, dtype=dt)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dt, device=device)
+
+    shapes = param_shapes(cfg)
+    params: Params = {"embed": dense(shapes["embed"]),
+                      "out": dense(shapes["out"])}
+    layers: List[Dict[str, torch.Tensor]] = []
+    for ls in shapes["layers"]:
+        layers.append({name: ones(shape) if name.startswith("ln_")
+                       else dense(shape) for name, shape in ls.items()})
+    params["layers"] = layers
+    params["ln_f"] = ones(shapes["ln_f"])
+    return params
+
+
+class DecoderLM(nn.Module):
+    """Owns a parameter dict's tensors as frozen ``nn.Parameter``s, so the
+    model moves with ``.to()`` and saves with ``state_dict()``.
+    :attr:`params` gives the dict back for the functions of this package."""
+
+    def __init__(self, cfg: ModelConfig, params: Params):
+        super().__init__()
+        self.cfg = cfg
+
+        def frozen(t):
+            return nn.Parameter(t, requires_grad=False)
+
+        self.embed = frozen(params["embed"])
+        self.out = frozen(params["out"])
+        self.ln_f = frozen(params["ln_f"])
+        self.layers = nn.ModuleList(
+            nn.ParameterDict({k: frozen(t) for k, t in layer.items()})
+            for layer in params["layers"])
+
+    @property
+    def params(self) -> Params:
+        return {"embed": self.embed, "out": self.out, "ln_f": self.ln_f,
+                "layers": [dict(layer.items()) for layer in self.layers]}
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return forward(self.params, tokens, self.cfg)
+
+
+def _rmsnorm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + 1e-6).to(x.dtype)) * w
+
+
+def _as_pos_vec(pos, device) -> torch.Tensor:
+    """A scalar position (training, uniform decode) or a (b,) vector
+    (continuous batching) as a rank-1 tensor that broadcasts over batch."""
+    off = torch.as_tensor(pos, device=device)
+    return off[None] if off.ndim == 0 else off
+
+
+def _rotary(x: torch.Tensor, pos_offset=0) -> torch.Tensor:
+    """Half-split rotary embedding over the head dim; ``pos_offset`` is a
+    scalar or a (b,) vector of absolute start positions."""
+    b, s, h, hd = x.shape
+    half = hd // 2
+    off = _as_pos_vec(pos_offset, x.device)
+    pos = off[:, None] + torch.arange(s, device=x.device)[None, :]
+    inv_freq = 1.0 / (10000 ** (
+        torch.arange(half, dtype=torch.float32, device=x.device) / half))
+    ang = pos.float()[:, :, None, None] * inv_freq   # (b or 1, s, 1, half)
+    x1, x2 = x[..., :half], x[..., half:]
+    cos, sin = torch.cos(ang).to(x.dtype), torch.sin(ang).to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def _qkv(h: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
+         pos_offset=0):
+    """Projections and rotary; K/V carry ``cfg.kv_heads`` heads (GQA)."""
+    b, s, _ = h.shape
+    hd = cfg.head_dim
+    q = _rotary((h @ p["wq"]).reshape(b, s, cfg.n_heads, hd), pos_offset)
+    k = _rotary((h @ p["wk"]).reshape(b, s, cfg.kv_heads, hd), pos_offset)
+    v = (h @ p["wv"]).reshape(b, s, cfg.kv_heads, hd)
+    return q, k, v
+
+
+def _mlp(h: torch.Tensor, p: Dict[str, torch.Tensor],
+         cfg: ModelConfig) -> torch.Tensor:
+    """Dense SwiGLU MLP."""
+    return (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
+
+
+def _finish_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
+                  o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Residual and MLP tail, shared by the forward and the decode path."""
+    b, s, d = x.shape
+    x = x + o.reshape(b, s, d) @ p["wo"]
+    return x + _mlp(_rmsnorm(x, p["ln_mlp"]), p, cfg)
+
+
+def _block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
+           attn_fn: Optional[Callable] = None) -> torch.Tensor:
+    h = _rmsnorm(x, p["ln_attn"])
+    q, k, v = _qkv(h, p, cfg)
+    if attn_fn is None:
+        attn_fn = attention.naive_attention
+    return _finish_block(x, p, attn_fn(q, k, v), cfg)
+
+
+def _resolve_attn_fn(cfg: ModelConfig, attn_fn: Optional[Callable] = None):
+    if attn_fn is not None:
+        return attn_fn
+    if cfg.attn == "flash":
+        return attention.flash_attention_gqa
+    return attention.naive_attention
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            attn_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Logits (b, s, vocab) for tokens (b, s)."""
+    attn_fn = _resolve_attn_fn(cfg, attn_fn)
+    x = params["embed"][tokens]
+    for layer in params["layers"]:
+        x = _block(x, layer, cfg, attn_fn)
+    x = _rmsnorm(x, params["ln_f"])
+    return x @ params["out"]
+
+
+def cast_params_for_compute(params: Params, cfg: ModelConfig) -> Params:
+    """Cast master-dtype weights to the compute dtype (f32 masters, bf16
+    compute); the identity when the two agree. Leaves named ``router``
+    stay f32."""
+    if cfg.master_dtype == cfg.dtype:
+        return params
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: v if k == "router" else cast(v)
+                    for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cast(v) for v in tree]
+        return tree.to(cfg.dtype)
+
+    return cast(params)
