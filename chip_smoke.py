@@ -8,17 +8,25 @@ Run from the repository root on a machine with one CUDA card and ``nvcc``:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
-   and the time to build the kernels from ``tpusched_torch/csrc``;
-2. every kernel against its plain PyTorch version on the card;
-3. the main path: ``llama_like_big`` at full width and depth (random bf16
-   weights from a seeded generator) served by ``ServeEngine`` and by
+   the time to build the kernels from ``tpusched_torch/csrc`` and each
+   kernel's registers and spills as ``ptxas`` reports them;
+2. every kernel against its plain PyTorch version on the card: the flash
+   forward (K1), then the backward's dK/dV (K2) and dQ (K3) kernels;
+3. the serving path: ``llama_like_big`` at full width and depth (random
+   bf16 weights from a seeded generator) served by ``ServeEngine`` and by
    ``measure_serving`` over 16 seeded requests, with the flash kernel's
    launch count held to 12 per slot prefill;
 4. engine == solo greedy generation, token for token, on ``tiny`` f32 with
    flash attention (TF32 off), with the kernel's launches counted for the
    engine and for each solo run;
-5. kernel timing at the main path's shape with CUDA events, beside the
-   plain version, one PyTorch library call and the card's bound.
+5. gradients on ``tiny`` f32 (flash, remat) through the kernels against
+   the same run through naive attention, launches counted;
+6. the training path: ``llama_like_big(seq=4096)``, batch 1, five AdamW
+   steps with launches counted per step and a falling loss, then
+   ``measure.measure_adamw_train_step`` (step time, tokens/s, MFU);
+7. kernel timing with CUDA events, K1 at the serving shape and K1, K2, K3
+   at the training shape, beside the plain versions, one PyTorch library
+   call and the card's bound.
 
 The second-to-last line is the ``kernels`` JSON object, the last line the
 ``ok`` JSON object. Imports neither JAX nor the JAX package.
@@ -27,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -75,11 +84,28 @@ def phase_environment(build):
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
     t0 = time.perf_counter()
-    build.build_all()
+    logs = build.build_all()
     build_s = time.perf_counter() - t0
     print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                       "device": torch.cuda.get_device_name(0),
-                      "kernel_build_s": build_s}))
+                      "kernel_build_s": build_s,
+                      "registers_spill_stores": ptxas_usage(logs)}))
+
+
+def ptxas_usage(logs) -> dict:
+    """{"kernel<head_dim>": [registers, spill store bytes]} from the
+    ``-Xptxas -v`` lines of the build logs (empty if nothing was built)."""
+    usage, name = {}, None
+    for line in "\n".join(logs.values()).splitlines():
+        m = re.search(r"\d(flash_[a-z_]+)ILi(\d+)E", line)
+        if "Compiling entry function" in line and m:
+            name = f"{m[1]}<{m[2]}>"
+            usage[name] = [None, None]
+        elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
+            usage[name][1] = int(m[1])
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            usage[name][0] = int(m[1])
+    return usage
 
 
 def tile_rel_l2(out, ref, tile: int = 64) -> float:
@@ -155,6 +181,120 @@ def phase_kernel_vs_plain(attention):
     else:
         raise RuntimeError("flash kernel took unaligned bf16 rows")
     return main_err
+
+
+def phase_backward_vs_plain(attention):
+    """K2 (dk, dv) and K3 (dq) vs their plain version: for each gradient
+    the worst 64-row tile's relative L2 error within 2e-2 in bf16 and 1e-4
+    in f32. The last case hands in a D that is not Σ dO∘O: both versions
+    must use it. Returns the training shape's max abs errors
+    (dq, max of dk and dv)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # (b, s, h, kv, d, dtype, causal, pad, given dd)
+        (1, 4096, 16, 4, 128, bf16, True, 0, False),   # the training shape
+        (1, 1024, 16, 4, 128, bf16, True, 0, False),
+        (2, 1024, 8, 8, 128, bf16, True, 0, False),    # MHA
+        (2, 512, 4, 1, 128, bf16, True, 0, False),     # MQA
+        (1, 1000, 16, 4, 128, bf16, True, 0, False),   # ragged last tile
+        (1, 1024, 16, 4, 128, bf16, False, 0, False),  # ring-flash pairs
+        (2, 200, 4, 2, 64, bf16, True, 0, False),      # head_dim 64, ragged
+        (1, 32, 2, 2, 32, f32, True, 0, False),        # tiny's shape
+        (2, 300, 4, 2, 64, f32, True, 0, False),       # f32, ragged
+        (1, 64, 2, 2, 32, f32, False, 3, False),       # f32, strided
+        (1, 512, 8, 2, 128, bf16, True, 0, True),      # caller's D
+    ]
+    main_err = None
+    for b, s, h, kv, d, dtype, causal, pad, given_dd in cases:
+        q, k, v = rand_qkv(gen, b, s, h, kv, d, dtype, pad)
+        do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+        out, lse = attention.flash_forward(q, k, v, causal)
+        dd = None
+        if given_dd:
+            dd = attention._to_bh((do.float() * out.float()).sum(
+                dim=-1, keepdim=True)) + torch.randn(
+                    (b * h, s, 1), generator=gen, device="cuda")
+        got = attention._flash_backward(q, k, v, out, lse, do, causal, dd)
+        torch.cuda.synchronize()
+        ref = attention.flash_backward_plain(q, k, v, out, lse, do, causal,
+                                             dd)
+        tol = 2e-2 if dtype == bf16 else 1e-4
+        errs = []
+        for name, x, y in zip(("dq", "dk", "dv"), got, ref):
+            check(x.shape == y.shape and x.dtype == y.dtype,
+                  f"{name} shape/dtype")
+            l2 = tile_rel_l2(x, y)
+            err = (x.float() - y.float()).abs().max().item()
+            rms = y.float().pow(2).mean().sqrt().item()
+            errs.append(err)
+            print(f"backward vs plain b={b} s={s} h={h} kv={kv} d={d} "
+                  f"{str(dtype)[6:]} causal={causal} pad={pad} "
+                  f"dd={'given' if given_dd else 'derived'} {name}: "
+                  f"worst-tile rel L2 {l2:.3e} (tol {tol}), max|err| "
+                  f"{err:.3e}, rms(plain) {rms:.3e}")
+            check(l2 < tol, f"flash backward {name} disagrees with its "
+                  f"plain version at {(b, s, h, kv, d, dtype, causal)}")
+        if main_err is None:
+            main_err = (errs[0], max(errs[1:]))
+    # a dO the kernels cannot take is refused, not run
+    q, k, v = rand_qkv(gen, 1, 64, 2, 2, 64, bf16)
+    out, lse = attention.flash_forward(q, k, v, True)
+    try:
+        attention._flash_backward(q, k, v, out, lse, out.float(), True)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("flash backward took a dO of another dtype")
+    return main_err
+
+
+def grad_rel_err(got, ref) -> float:
+    """Worst relative L2 error over the leaves of two gradient trees."""
+    return max(((a.float() - b.float()).norm() / b.float().norm()).item()
+               for a, b in zip(got, ref))
+
+
+def bwd_counts(attention):
+    return (attention.FLASH_FWD_LAUNCHES, attention.FLASH_BWD_DKDV_LAUNCHES,
+            attention.FLASH_BWD_DQ_LAUNCHES)
+
+
+def zero_counts(attention):
+    attention.FLASH_FWD_LAUNCHES = 0
+    attention.FLASH_BWD_DKDV_LAUNCHES = 0
+    attention.FLASH_BWD_DQ_LAUNCHES = 0
+
+
+def phase_grad_parity(attention, workload):
+    """loss_fn and its gradients on tiny f32 (flash, remat, TF32 off)
+    through the kernels against the same run through naive attention,
+    within 1e-4 relative; one step launches K1 twice per layer (the remat
+    recompute) and K2 and K3 once each."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(workload.ModelConfig.tiny(), attn="flash",
+                              remat=True)
+    params = workload.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, cfg.seq)), device="cuda")
+    zero_counts(attention)
+    loss, grads = workload.value_and_grad(params, tokens, cfg)
+    torch.cuda.synchronize()
+    counts = bwd_counts(attention)
+    want = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    check(counts == want, f"tiny train step launched (K1, K2, K3) = "
+          f"{counts}, wanted {want}")
+    ref_loss, ref_grads = workload.value_and_grad(
+        params, tokens, cfg, attn_fn=attention.naive_attention)
+    loss_err = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    g_err = grad_rel_err(workload.tree_leaves(grads),
+                         workload.tree_leaves(ref_grads))
+    print(f"tiny f32 flash+remat vs naive: loss {loss.item():.6f} rel err "
+          f"{loss_err:.3e}, worst grad rel L2 {g_err:.3e} (tol 1e-4), "
+          f"launches (K1, K2, K3) {counts}")
+    check(loss_err < 1e-4 and g_err < 1e-4,
+          "flash gradients disagree with naive attention's")
 
 
 def make_requests(cfg, serve):
@@ -291,23 +431,155 @@ def phase_timing(attention):
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
+def phase_training(attention, measure, optim, workload):
+    """The training path: full-width llama_like_big(seq=4096), batch 1,
+    random bf16 weights, five AdamW steps (lr 1e-4, mu f32) on one repeated
+    batch through make_optax_train_step, each step's kernel launches counted
+    (K1 2·n_layers with remat, K2 and K3 n_layers); then
+    measure_adamw_train_step on the same configuration. Returns the
+    launches of the five steps."""
+    cfg = workload.ModelConfig.llama_like_big(seq=4096)
+    batch = 1
+    params = workload.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (batch, cfg.seq)), device="cuda")
+    tx = optim.adamw(1e-4, mu_dtype=torch.float32)
+    step, init_opt, _, _ = workload.make_optax_train_step(None, cfg, tx)
+    state = init_opt(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    losses, step_s, total = [], [], [0, 0, 0]
+    for _ in range(5):
+        zero_counts(attention)
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, tokens)
+        losses.append(loss.item())             # the fence
+        step_s.append(time.perf_counter() - t0)
+        counts = bwd_counts(attention)
+        check(counts == want, f"train step launched (K1, K2, K3) = "
+              f"{counts}, wanted {want}")
+        total = [t + c for t, c in zip(total, counts)]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    del params, state, step
+    per_step, tflops, mfu, note = measure.measure_adamw_train_step(cfg, batch)
+    print(json.dumps({
+        "training": "llama_like_big", "seq": cfg.seq, "batch": batch,
+        "optimizer": "adamw lr 1e-4 mu f32", "losses": losses,
+        "step_s": step_s, "launches_per_step": dict(zip(
+            ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"), want)),
+        "peak_mem_gib": peak_gib, "per_step_s": per_step,
+        "tokens_per_s": batch * cfg.seq / per_step, "tflops": tflops,
+        "mfu": mfu, "peak_tflops": measure.device_peak_tflops(),
+        "step_flops": measure.train_step_flops(cfg, batch), "note": note}))
+    return total
+
+
+def phase_training_timing(attention):
+    """K1, K2 and K3 at the training shape with CUDA events, beside the
+    plain versions and one library call (scaled_dot_product_attention: its
+    forward for K1, its backward, which forms dq, dk and dv together, for
+    K2 and K3). Bounds: 2, 4 and 3 causal-halved (s, s, d) products. K1's
+    output at this shape is held against its plain version as in phase 2,
+    and its max abs error is returned with its times."""
+    b, s, h, kv, d, dtype = 1, 4096, 16, 4, 128, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = rand_qkv(gen, b, s, h, kv, d, dtype)
+    do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+    out, lse = attention.flash_forward(q, k, v, True)
+    ref, _ = attention.flash_attention_plain(q, k, v, True)
+    fwd_err = (out.float() - ref.float()).abs().max().item()
+    check(tile_rel_l2(out, ref) < 1e-2,
+          "flash kernel disagrees with its plain version at the training shape")
+    del ref
+    dd = attention._to_bh((do.float() * out.float()).sum(
+        dim=-1, keepdim=True)).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ms = {
+        "flash_fwd": cuda_ms(lambda: attention.flash_forward(q, k, v, True)),
+        "flash_bwd_dkdv": cuda_ms(lambda: attention._launch_bwd(
+            "dkdv", q, k, v, do, lse, dd, (dk, dv), True)),
+        "flash_bwd_dq": cuda_ms(lambda: attention._launch_bwd(
+            "dq", q, k, v, do, lse, dd, (dq,), True)),
+    }
+    fwd_plain = cuda_ms(lambda: attention.flash_attention_plain(q, k, v, True),
+                        iters=10)
+    bwd_plain = cuda_ms(lambda: attention.flash_backward_plain(
+        q, k, v, out, lse, do, True), iters=10)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    with torch.no_grad():
+        fwd_lib = cuda_ms(sdpa)
+    ot, dot = sdpa(), do.transpose(1, 2).contiguous()
+    bwd_lib = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                                  retain_graph=True))
+    pair = 2 * b * h * d * s * (s + 1) / 2       # one causal (s, s, d) product
+    el = q.element_size()
+    rows = b * h * s * 4                         # one f32 value per query row
+    work = {  # (products, bytes: each input read once, each output written)
+        "flash_fwd": (2, (2 * q.numel() + 2 * k.numel()) * el + rows),
+        "flash_bwd_dkdv": (4, (2 * q.numel() + 4 * k.numel()) * el + 2 * rows),
+        "flash_bwd_dq": (3, (3 * q.numel() + 2 * k.numel()) * el + 2 * rows),
+    }
+    timing = {}
+    for name, (products, nbytes) in work.items():
+        t_ops = products * pair / PEAK_FLOPS[dtype] * 1e3
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        fwd = name == "flash_fwd"
+        timing[name] = dict(
+            ms=ms[name], plain_ms=fwd_plain if fwd else bwd_plain,
+            library_ms=fwd_lib if fwd else bwd_lib,
+            bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+    timing["flash_fwd"]["max_abs_err"] = fwd_err
+    print(json.dumps({"timing": "training shape", "shape": [b, s, h, kv, d],
+                      **timing}))
+    return timing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
-    from tpusched_torch import _build, attention, decode, serve, workload
+    from tpusched_torch import (_build, attention, decode, measure, optim,
+                                serve, workload)
 
     phase_environment(_build)
     max_abs_err = phase_kernel_vs_plain(attention)
+    bwd_err = phase_backward_vs_plain(attention)
     launches = phase_serving(attention, serve, workload)
     phase_parity(attention, decode, serve, workload)
-    timing = phase_timing(attention)
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "tpusched_torch/csrc/flash_fwd.cu",
-        "replaces": "tpusched/jaxbridge/attention.py:91",
-        "launches": launches, "max_abs_err": max_abs_err, **timing}]}))
+    phase_grad_parity(attention, workload)
+    train_launches = phase_training(attention, measure, optim, workload)
+    serving_timing = phase_timing(attention)
+    timing = phase_training_timing(attention)
+    source = "tpusched_torch/csrc/"
+    replaces = "tpusched/jaxbridge/attention.py:"
+    # flash_fwd's own fields are the serving path's, at its (1, 1024, 16, 4,
+    # 128) shape, as in the first slice; "training_shape" holds the training
+    # path's launches, error and times at (1, 4096, 16, 4, 128).
+    print(json.dumps({"kernels": [
+        {"name": "flash_fwd", "route": "cuda", "source": source + "flash_fwd.cu",
+         "replaces": replaces + "91", "launches": launches,
+         "max_abs_err": max_abs_err, **serving_timing,
+         "training_shape": {"launches": train_launches[0],
+                            **timing["flash_fwd"]}},
+        {"name": "flash_bwd_dkdv", "route": "cuda",
+         "source": source + "flash_bwd.cu", "replaces": replaces + "218",
+         "launches": train_launches[1], "max_abs_err": bwd_err[1],
+         **timing["flash_bwd_dkdv"]},
+        {"name": "flash_bwd_dq", "route": "cuda",
+         "source": source + "flash_bwd.cu", "replaces": replaces + "265",
+         "launches": train_launches[2], "max_abs_err": bwd_err[0],
+         **timing["flash_bwd_dq"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

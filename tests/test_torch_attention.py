@@ -1,10 +1,11 @@
 """tpusched_torch.attention against tpusched.jaxbridge.attention on the CPU.
 
-The same numpy inputs go through the JAX reference (its Pallas flash kernel
-in interpret mode, as tests/test_attention.py runs it) and through the
-port's CPU path, which is the CUDA kernel's plain version."""
+The same numpy inputs go through the JAX reference (its Pallas flash kernels
+in interpret mode, as tests/test_attention.py runs them) and through the
+port's CPU path, which is the CUDA kernels' plain versions."""
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -120,7 +121,7 @@ def test_cpu_path_launches_no_kernel():
 
 
 @pytest.mark.parametrize("case,exc,match", [
-    ("grad", RuntimeError, "forward-only"),
+    ("grad", ValueError, "dO is torch.float16"),
     ("head_dim", ValueError, "head_dim"),
     ("dtype", ValueError, "flash kernel takes"),
     ("mixed", ValueError, "is torch.float16"),
@@ -133,8 +134,14 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(case, exc,
     """The CUDA wrapper's checks run before anything touches the card."""
     q, k, v = _t(*_qkv(8, b=1, s=16, h=2, kv=2, d=32))
     if case == "grad":
-        q.requires_grad_(True)
-    elif case == "head_dim":
+        # gradients are taken now; the backward wrapper refuses a dO the
+        # kernels cannot read
+        out, lse = attention.flash_attention_plain(q, k, v)
+        with pytest.raises(exc, match=match):
+            attention._flash_backward_cuda(q, k, v, out, lse, out.half(),
+                                           True, None)
+        return
+    if case == "head_dim":
         q, k, v = _t(*_qkv(8, b=1, s=16, h=2, kv=2, d=48))
     elif case == "dtype":
         q, k, v = (x.half() for x in (q, k, v))
@@ -156,3 +163,114 @@ def test_non_cuda_device_is_refused():
     q, k, v = (x.to("meta") for x in _t(*_qkv(9, b=1, s=8, h=2, kv=2)))
     with pytest.raises(ValueError, match="cuda or cpu"):
         attention.flash_forward(q, k, v)
+
+
+def _dd(q, k, v, do, causal, seed):
+    """A D that is not Σ dO∘O, as ring attention hands in."""
+    out, _ = attention.flash_attention_plain(*_t(q, k, v), causal)
+    d = (torch.from_numpy(do) * out).sum(-1, keepdim=True)
+    noise = np.random.default_rng(seed).standard_normal(d.shape)
+    return attention._to_bh(d + torch.from_numpy(noise.astype(np.float32)))
+
+
+@pytest.mark.parametrize("given_dd", [False, True], ids=["dd", "given_dd"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2), (4, 1)],
+                         ids=["mha", "gqa", "mqa"])
+def test_flash_backward_plain_matches_reference_kernels(h, kv, causal,
+                                                        given_dd):
+    """dq, dk, dv of the backward kernels' plain version vs the reference's
+    two Pallas backward kernels, multi-block (128 of 256 rows), f32, 2e-4:
+    the reference's own bar. With ``given_dd`` both take the caller's D."""
+    q, k, v = _qkv(10, h=h, kv=kv)
+    do = _qkv(11, h=h, kv=kv)[0]
+    ref_out, ref_lse = jattn._flash_forward(*_j(q, k, v), causal, 128, 128,
+                                            None)
+    out, lse = attention.flash_forward(*_t(q, k, v), causal)
+    dd = _dd(q, k, v, do, causal, 12) if given_dd else None
+    ref = jattn._flash_backward(
+        *_j(q, k, v), ref_out, ref_lse, jnp.asarray(do), causal, 128, 128,
+        None, dd=None if dd is None else jnp.asarray(dd.numpy()))
+    got = attention._flash_backward(*_t(q, k, v), out, lse,
+                                    torch.from_numpy(do), causal, dd)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=2e-4,
+                                   rtol=2e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2)], ids=["mha", "gqa"])
+def test_flash_gradients_match_jax_grad(h, kv, causal):
+    """Gradients through the port's flash_attention (the autograd Function
+    on the CPU) vs jax.grad through the reference's custom_vjp, whose
+    backward runs the Pallas kernels in interpret mode."""
+    q, k, v = _qkv(13, h=h, kv=kv)
+    w = _qkv(14, h=h, kv=kv)[0]
+
+    def jloss(q_, k_, v_):
+        return jnp.sum(jattn.flash_attention(q_, k_, v_, causal, 128, 128)
+                       * w)
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(*_j(q, k, v))
+    qt, kt, vt = (x.requires_grad_(True) for x in _t(q, k, v))
+    (attention.flash_attention(qt, kt, vt, causal)
+     * torch.from_numpy(w)).sum().backward()
+    for g, r in zip((qt.grad, kt.grad, vt.grad), ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=2e-4,
+                                   rtol=2e-4)
+
+
+def test_flash_backward_plain_matches_autograd_of_naive():
+    """The explicit backward equals autograd through naive attention, on a
+    ragged length the reference's blocks could not take."""
+    q, k, v = (x.requires_grad_(True) for x in _t(*_qkv(15, s=100, h=4,
+                                                        kv=2)))
+    w = torch.from_numpy(_qkv(16, s=100, h=4, kv=2)[0])
+    (attention.naive_attention(q, k, v) * w).sum().backward()
+    out, lse = attention.flash_attention_plain(q.detach(), k.detach(),
+                                               v.detach())
+    got = attention.flash_backward_plain(q.detach(), k.detach(), v.detach(),
+                                         out, lse, w)
+    for g, r in zip(got, (q.grad, k.grad, v.grad)):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=2e-5,
+                                   rtol=2e-5)
+
+
+def test_cpu_backward_launches_no_kernel():
+    before = (attention.FLASH_BWD_DKDV_LAUNCHES,
+              attention.FLASH_BWD_DQ_LAUNCHES)
+    q = torch.from_numpy(_qkv(17, s=16)[0]).requires_grad_(True)
+    k, v = _t(*_qkv(17, s=16)[1:])
+    attention.flash_attention(q, k, v).sum().backward()
+    assert q.grad is not None
+    assert (attention.FLASH_BWD_DKDV_LAUNCHES,
+            attention.FLASH_BWD_DQ_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("case,match", [
+    ("do_shape", "dO has shape"),
+    ("lse_dtype", "lse must be float32"),
+    ("dd_shape", "dd must be float32"),
+    ("head_dim", "head_dim"),
+])
+def test_backward_wrapper_refuses_what_the_kernels_do_not_take(case, match):
+    """The CUDA backward wrapper's checks run before anything touches the
+    card."""
+    d = 48 if case == "head_dim" else 32
+    q, k, v = _t(*_qkv(18, b=1, s=16, h=2, kv=2, d=d))
+    out, lse = attention.flash_attention_plain(q, k, v)
+    do, dd = out, None
+    if case == "do_shape":
+        do = out[:, :8]
+    elif case == "lse_dtype":
+        lse = lse.double()
+    elif case == "dd_shape":
+        dd = lse[:, :8]
+    with pytest.raises(ValueError, match=match):
+        attention._flash_backward_cuda(q, k, v, out, lse, do, True, dd)
+
+
+def test_non_cuda_backward_is_refused():
+    q, k, v = (x.to("meta") for x in _t(*_qkv(19, b=1, s=8, h=2, kv=2)))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        attention._flash_backward(q, k, v, q, q, q)

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of tpusched_torch, and not
-chip_smoke.py, imports JAX or anything of the tpusched package (the machine
-with the card has no JAX)."""
+chip_smoke.py, imports JAX, optax or anything of the tpusched package (the
+machine with the card has none of them)."""
 from __future__ import annotations
 
 import ast
@@ -17,7 +17,7 @@ MODULES = sorted(p.stem for p in PACKAGE.glob("*.py") if p.stem != "__init__")
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top.startswith("jax") or top == "tpusched"
+    return top.startswith("jax") or top in ("tpusched", "optax")
 
 
 def test_every_module_imports_without_jax_or_tpusched():
@@ -25,8 +25,8 @@ def test_every_module_imports_without_jax_or_tpusched():
         "import importlib, sys\n"
         f"for m in {['tpusched_torch'] + ['tpusched_torch.' + m for m in MODULES]!r}:\n"
         "    importlib.import_module(m)\n"
-        "print(sorted(m for m in sys.modules if m.split('.')[0] == 'tpusched'"
-        " or m.split('.')[0].startswith('jax')))\n")
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('tpusched', 'optax') or m.split('.')[0].startswith('jax')))\n")
     r = subprocess.run([sys.executable, "-c", prog], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]

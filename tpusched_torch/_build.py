@@ -2,10 +2,12 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface,
-``build/torch_kernels/<name>-<hash>.so``. The hash covers the source and the
-flags, so a library is rebuilt exactly when either changes and is reused
-otherwise. Building happens at first use, never at import: a machine
-without ``nvcc`` can import every module of the package.
+``build/torch_kernels/<name>-<hash>.so``. The hash covers the source, the
+shared headers (``csrc/*.cuh``) and the flags, so a library is rebuilt
+exactly when one of them changes and is reused otherwise. Building happens
+at first use, never at import: a machine without ``nvcc`` can import every
+module of the package. ``ptxas`` reports each kernel's registers and spills
+(``-Xptxas -v``) in the build's log.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parent.parent
              / "build" / "torch_kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,6 +34,16 @@ SIGNATURES = {
         "tpusched_flash_fwd": (
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
              _L, _L, _L, _L, _L, _L, _L, _L, _L,
+             ctypes.c_float, _I, _I, _P], _I),
+    },
+    "flash_bwd": {
+        "tpusched_flash_bwd_dkdv": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+             _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+             ctypes.c_float, _I, _I, _P], _I),
+        "tpusched_flash_bwd_dq": (
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+             _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
              ctypes.c_float, _I, _I, _P], _I),
     },
 }
@@ -51,40 +63,43 @@ def _nvcc() -> str:
 def _library_path(name: str) -> pathlib.Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # the sources' shared headers
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str]) -> None:
+def build(names: Iterable[str]) -> Dict[str, str]:
     """Compile every named source whose library is missing, one ``nvcc``
-    process per source, all started together. Raises with nvcc's output if
-    any build fails."""
+    process per source, all started together. Returns nvcc's output by
+    source for the libraries it built; raises with it if any build fails."""
     todo = [(n, _library_path(n)) for n in names]
     todo = [(n, out) for n, out in todo if not out.exists()]
     if not todo:
-        return
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs: List[tuple] = []
     for name, out in todo:
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((cmd, tmp, out, subprocess.Popen(
+        procs.append((name, cmd, tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
-    failures = []
-    for cmd, tmp, out, proc in procs:
-        log, _ = proc.communicate()
+    logs, failures = {}, []
+    for name, cmd, tmp, out, proc in procs:
+        logs[name], _ = proc.communicate()
         if proc.returncode:
-            failures.append(f"$ {' '.join(cmd)}\n{log}")
+            failures.append(f"$ {' '.join(cmd)}\n{logs[name]}")
         else:
             os.replace(tmp, out)
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return logs
 
 
-def build_all() -> None:
-    build(SIGNATURES)
+def build_all() -> Dict[str, str]:
+    return build(SIGNATURES)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -3,10 +3,13 @@
 Counterpart of ``tpusched/jaxbridge/attention.py``:
 
 - :func:`naive_attention` materializes softmax(QKᵀ/√d)V; the ground truth.
-- :func:`flash_attention` is the FlashAttention-2 forward. On a CUDA tensor
-  it launches the hand-written Hopper kernel ``csrc/flash_fwd.cu`` (the
-  port of the TPU kernel ``_flash_kernel``) or raises; on a CPU tensor it
-  runs the kernel's plain version, :func:`flash_attention_plain`.
+- :func:`flash_attention` is FlashAttention-2 as a ``torch.autograd.Function``.
+  On CUDA tensors the forward launches the hand-written Hopper kernel
+  ``csrc/flash_fwd.cu`` (the port of the TPU kernel ``_flash_kernel``) and
+  the backward the two of ``csrc/flash_bwd.cu`` (``_flash_bwd_dkdv_kernel``
+  and ``_flash_bwd_dq_kernel``), or they raise; on CPU tensors they run the
+  kernels' plain versions, :func:`flash_attention_plain` and
+  :func:`flash_backward_plain`.
 
 GQA everywhere: k/v may carry h/n_rep heads, and no path expands them.
 """
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -25,6 +29,9 @@ NEG_INF = float(np.finfo(np.float32).min)
 # Launches of the flash forward kernel since the process started (or since
 # a caller last set it to 0): proves a path went through the kernel.
 FLASH_FWD_LAUNCHES = 0
+# and of the backward kernels, K2 (dK, dV) and K3 (dQ)
+FLASH_BWD_DKDV_LAUNCHES = 0
+FLASH_BWD_DQ_LAUNCHES = 0
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (32, 64, 128)
@@ -121,55 +128,68 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _from_bh(out.reshape(b * h, s, d), b, h).to(q.dtype), lse
 
 
-def _flash_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool):
-    global FLASH_FWD_LAUNCHES
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise RuntimeError(
-            "flash_attention on CUDA is forward-only: its backward kernels "
-            "are still to be ported (ROADMAP, training slice); run under "
-            "torch.no_grad() or use naive attention for gradients")
+def _check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    **rows: torch.Tensor) -> None:
+    """What the kernels take, checked before anything touches the card:
+    k/v (b, s, kv, d) and every tensor in ``rows`` (b, s, h, d), all on
+    q's device in q's dtype; a dtype and head dim the kernels are built
+    for; contiguous head dims, and in bf16 16-byte aligned rows."""
     b, s, h, d = q.shape
     kv = k.shape[2]
-    for name, t in (("k", k), ("v", v)):
+    named = {"k": k, "v": v, **rows}
+    for name, t in named.items():
+        want = (b, s, h, d) if name in rows else (b, s, kv, d)
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
-        if t.shape != (b, s, kv, d):
+        if t.shape != want:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{(b, s, kv, d)}")
+                             f"{want}")
     if q.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"flash kernel takes {list(_KERNEL_DTYPES)}, got "
                          f"{q.dtype}")
     if d not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel takes head_dim in "
                          f"{_KERNEL_HEAD_DIMS}, got {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in {"q": q, **named}.items():
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous")
-        # the bf16 kernel stages rows with 16-byte vector loads
+        # the bf16 kernels stage rows with 16-byte vector loads
         if q.dtype == torch.bfloat16 and (
                 t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3))):
             raise ValueError(f"{name}: the bf16 kernel needs a 16-byte "
                              f"aligned start and row strides")
     if b * h > 65535:
         raise ValueError(f"batch·heads {b * h} exceeds the kernel's grid")
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _strides(*tensors: torch.Tensor):
+    """The (batch, seq, head) element strides of each tensor, in order."""
+    return [t.stride(i) for t in tensors for i in range(3)]
+
+
+def _flash_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool):
+    global FLASH_FWD_LAUNCHES
+    _check_operands(q, k, v)
+    b, s, h, d = q.shape
+    kv = k.shape[2]
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, s, 1), dtype=torch.float32, device=q.device)
     if s == 0:
         return out, lse
     lib = _build.load("flash_fwd")
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.tpusched_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, s, h, kv, d,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
+            lse.data_ptr(), b, s, h, kv, d, *_strides(q, k, v),
             ctypes.c_float(1.0 / math.sqrt(d)), int(causal),
-            _KERNEL_DTYPES[q.dtype], ctypes.c_void_p(stream))
+            _KERNEL_DTYPES[q.dtype], _stream(q.device))
     if err:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error "
                            f"{err}")
@@ -190,11 +210,131 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _flash_forward_cuda(q, k, v, causal)
 
 
+def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         out: torch.Tensor, lse: torch.Tensor,
+                         do: torch.Tensor, causal: bool = True,
+                         dd: Optional[torch.Tensor] = None):
+    """The backward kernels' plain version, written out in float32 without
+    autograd: P from the forward's lse (b·h, s, 1), then dV = Pᵀ dO,
+    dP = dO Vᵀ, dS = P ∘ (dP − D) · scale, dK = dSᵀ Q and dQ = dS K, with
+    D = Σ_d dO ∘ O unless the caller gives ``dd`` (b·h, s, 1). The GQA group
+    is a folded axis, so dK and dV come out summed over it. Returns
+    (dq, dk, dv) in the inputs' dtypes."""
+    _check_gqa(q, k, v)
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    n_rep = h // kv
+
+    def grouped(x):          # (b, s, h, d) or (b·h, s, 1) -> (b·kv, n_rep, s, .)
+        x = _to_bh(x.float()) if x.dim() == 4 else x.float()
+        return x.reshape(b * kv, n_rep, s, x.shape[-1])
+
+    qf, gf = grouped(q), grouped(do)
+    kf, vf = _to_bh(k.float()), _to_bh(v.float())
+    dd = (gf * grouped(out)).sum(dim=-1, keepdim=True) if dd is None \
+        else grouped(dd)
+    scale = 1.0 / math.sqrt(d)
+    scores = torch.einsum("grqd,gkd->grqk", qf, kf) * scale
+    if causal:
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, -math.inf)
+    p = torch.exp(scores - grouped(lse))
+    dv = torch.einsum("grqk,grqd->gkd", p, gf)
+    ds = p * (torch.einsum("grqd,gkd->grqk", gf, vf) - dd) * scale
+    dk = torch.einsum("grqk,grqd->gkd", ds, qf)
+    dq = torch.einsum("grqk,gkd->grqd", ds, kf).reshape(b * h, s, d)
+    return (_from_bh(dq, b, h).to(q.dtype), _from_bh(dk, b, kv).to(k.dtype),
+            _from_bh(dv, b, kv).to(v.dtype))
+
+
+def _launch_bwd(entry: str, q, k, v, do, lse, dd, outs, causal) -> None:
+    """Launch one backward kernel, ``"dkdv"`` (K2, outs = (dk, dv)) or
+    ``"dq"`` (K3, outs = (dq,)), on the current stream, on operands that
+    :func:`_flash_backward_cuda` has checked, and count the launch."""
+    global FLASH_BWD_DKDV_LAUNCHES, FLASH_BWD_DQ_LAUNCHES
+    b, s, h, d = q.shape
+    lib = _build.load("flash_bwd")
+    with torch.cuda.device(q.device):
+        err = getattr(lib, f"tpusched_flash_bwd_{entry}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dd.data_ptr(), *(t.data_ptr() for t in outs),
+            b, s, h, k.shape[2], d, *_strides(q, k, v, do),
+            ctypes.c_float(1.0 / math.sqrt(d)), int(causal),
+            _KERNEL_DTYPES[q.dtype], _stream(q.device))
+    if err:
+        raise RuntimeError(f"flash_bwd_{entry} kernel launch failed: CUDA "
+                           f"error {err}")
+    if entry == "dkdv":
+        FLASH_BWD_DKDV_LAUNCHES += 1
+    else:
+        FLASH_BWD_DQ_LAUNCHES += 1
+
+
+def _flash_backward_cuda(q, k, v, out, lse, do, causal, dd):
+    do = do.contiguous()     # autograd may hand in any layout: a copy if so
+    _check_operands(q, k, v, out=out, dO=do)
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    for name, t in (("lse", lse), ("dd", dd)):
+        if t is None:
+            continue
+        if t.device != q.device or t.dtype != torch.float32 or \
+                t.shape != (b * h, s, 1):
+            raise ValueError(f"{name} must be float32 (b·h, s, 1) = "
+                             f"{(b * h, s, 1)} on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if dd is None:
+        dd = _to_bh((do.float() * out.float()).sum(dim=-1, keepdim=True))
+    lse, dd = lse.contiguous(), dd.contiguous()
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, kv, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, s, kv, d), dtype=v.dtype, device=q.device)
+    if s:
+        _launch_bwd("dkdv", q, k, v, do, lse, dd, (dk, dv), causal)
+        _launch_bwd("dq", q, k, v, do, lse, dd, (dq,), causal)
+    return dq, dk, dv
+
+
+def _flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                    causal: bool = True, dd: Optional[torch.Tensor] = None):
+    """(dq, dk, dv) of flash attention from the forward's out and lse and
+    the output gradient ``do``. ``dd`` (b·h, s, 1) f32 replaces
+    D = Σ_d dO ∘ O where the caller holds a global one. A CUDA tensor goes
+    through K2 then K3 or raises; a CPU tensor through the plain version."""
+    _check_gqa(q, k, v)
+    if q.device.type == "cpu":
+        return flash_backward_plain(q, k, v, out, lse, do, causal, dd)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    return _flash_backward_cuda(q, k, v, out, lse, do, causal, dd)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its own backward: K1 forward, K2 and K3
+    backward on the card; the plain versions on the CPU. Saves q, k, v, out
+    and lse, never the score matrix."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_flash_backward(q, k, v, out, lse, do, ctx.causal), None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """FlashAttention-2 forward, GQA-native: the score matrix never reaches
-    device memory and K/V stay kv_heads-sized."""
-    return flash_forward(q, k, v, causal)[0]
+    """FlashAttention-2, GQA-native, with gradients: the score matrix never
+    reaches device memory in either direction and K/V stay
+    kv_heads-sized."""
+    return FlashAttention.apply(q, k, v, causal)
 
 
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

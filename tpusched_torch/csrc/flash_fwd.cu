@@ -35,10 +35,9 @@
 // resolved by index: query head hq reads KV head hq / (h / kv). A ragged
 // last tile is masked here, so any s runs. O is written (b, s, h, d)
 // contiguous in the input type; lse (b·h, s) f32.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -214,26 +213,6 @@ template <int D>
 __host__ __device__ constexpr size_t mma_smem_bytes() {
   return ((size_t)(BLOCK_M + BLOCK_N) * mma_ld<D>() + (size_t)D * LDVT) *
          sizeof(__nv_bfloat16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two floats as a bf16 pair, the lower column in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, column-major)
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Copy rows [r0, r0 + rows) of a (s, D) slice into shared memory with
@@ -415,11 +394,6 @@ template <int D>
 cudaError_t launch_dim(bool bf16, const Params& p, cudaStream_t stream) {
   if (bf16) return launch(flash_fwd_mma<D>, MMA_THREADS, mma_smem_bytes<D>(), p, stream);
   return launch(flash_fwd_fma<D>, FMA_THREADS, fma_smem_bytes<D>(), p, stream);
-}
-
-bool aligned16(const void* ptr, int64_t sb, int64_t ss, int64_t sh) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && sb % 8 == 0 && ss % 8 == 0 &&
-         sh % 8 == 0;
 }
 
 }  // namespace

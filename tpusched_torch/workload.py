@@ -1,10 +1,14 @@
-"""The Llama-style decoder LM in PyTorch: config, parameters, forward.
+"""The Llama-style decoder LM in PyTorch: config, parameters, forward, and
+the single-card train steps.
 
 Counterpart of ``tpusched/jaxbridge/workload.py`` (dense half). Plain
 functions on tensors over the same parameter dict as the reference: keys
 ``embed``/``out``/``ln_f``/``layers[i]``, weights stored ``(in, out)`` and
 used as ``h @ W``. :class:`DecoderLM` is a thin ``nn.Module`` owning those
-tensors so ``.to()`` and ``state_dict()`` work.
+tensors so ``.to()`` and ``state_dict()`` work. Training: ``loss_fn``,
+``value_and_grad`` (autograd over the dict's tensors), ``sgd_train_step``,
+and ``make_optax_train_step``/``make_accum_train_step`` around an optimizer
+from ``optim``; sharded steps wait for the parallelism slice.
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no explicit device it raises.
@@ -18,6 +22,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import attention
 
@@ -271,11 +276,20 @@ def _resolve_attn_fn(cfg: ModelConfig, attn_fn: Optional[Callable] = None):
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             attn_fn: Optional[Callable] = None) -> torch.Tensor:
-    """Logits (b, s, vocab) for tokens (b, s)."""
+    """Logits (b, s, vocab) for tokens (b, s). With ``cfg.remat`` and
+    gradients on, each block is checkpointed: its activations are dropped
+    after the forward and recomputed in the backward, as under the
+    reference's ``jax.checkpoint`` (so flash attention's forward kernel runs
+    twice per layer and step)."""
     attn_fn = _resolve_attn_fn(cfg, attn_fn)
+    remat = cfg.remat and torch.is_grad_enabled()
     x = params["embed"][tokens]
     for layer in params["layers"]:
-        x = _block(x, layer, cfg, attn_fn)
+        if remat:
+            x = checkpoint(_block, x, layer, cfg, attn_fn,
+                           use_reentrant=False)
+        else:
+            x = _block(x, layer, cfg, attn_fn)
     x = _rmsnorm(x, params["ln_f"])
     return x @ params["out"]
 
@@ -296,3 +310,109 @@ def cast_params_for_compute(params: Params, cfg: ModelConfig) -> Params:
         return tree.to(cfg.dtype)
 
     return cast(params)
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of a parameter tree (dicts and lists of
+    tensors), with the matching leaves of ``rest`` as further arguments."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    out: List[torch.Tensor] = []
+    tree_map(out.append, tree)
+    return out
+
+
+def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                   vocab_spec: Optional[Any] = None) -> torch.Tensor:
+    """Token-mean NLL: f32 log-softmax, the target's entry, the mean."""
+    if vocab_spec is not None:
+        raise NotImplementedError(
+            "the vocab-parallel loss needs a tp mesh: ROADMAP 'Parallelism'")
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets[..., None]).mean()
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            attn_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Next-token loss over the full sequence's logits, through the
+    compute-dtype cast (so master-dtype gradients come back). Dense only:
+    the MoE aux term is 0."""
+    params = cast_params_for_compute(params, cfg)
+    logits = forward(params, tokens, cfg, attn_fn)
+    return _cross_entropy(logits[:, :-1], tokens[:, 1:])
+
+
+def value_and_grad(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                   attn_fn: Optional[Callable] = None):
+    """(loss, grads) of :func:`loss_fn`, grads in the parameter tree's
+    structure and dtypes; ``params`` themselves are left untouched."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    it = iter(leaves)
+    loss = loss_fn(tree_map(lambda _: next(it), params), tokens, cfg, attn_fn)
+    grads = iter(torch.autograd.grad(loss, leaves))
+    return loss.detach(), tree_map(lambda _: next(grads), params)
+
+
+def sgd_train_step(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                   lr: float = 1e-3, attn_fn: Optional[Callable] = None):
+    """One plain SGD step: (new params, loss)."""
+    loss, grads = value_and_grad(params, tokens, cfg, attn_fn)
+    new = tree_map(lambda p, g: p - lr * g.to(p.dtype), params, grads)
+    return new, loss
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded train steps are not ported yet: ROADMAP 'Parallelism'")
+
+
+def make_optax_train_step(mesh, cfg: ModelConfig, tx):
+    """The train step for an optimizer ``tx`` (``optim.adamw``), as the
+    reference's: ``step(params, opt_state, tokens) -> (params, opt_state,
+    loss)``. Returns (step, init_opt, param_shardings, token_sharding);
+    ``mesh`` must be None until the parallelism slice, and both shardings
+    are then None. The step updates params and state in place."""
+    _no_mesh(mesh)
+
+    def step(params, opt_state, tokens):
+        loss, grads = value_and_grad(params, tokens, cfg)
+        tx.update_(grads, opt_state, params)
+        return params, opt_state, loss
+
+    return step, tx.init, None, None
+
+
+def make_accum_train_step(mesh, cfg: ModelConfig, tx, accum_steps: int):
+    """Gradient accumulation: one optimizer update per stack of microbatches
+    (accum, B, S), gradients summed in f32 and divided by the stack's own
+    length (a shorter final stack still averages correctly), the loss the
+    mean over microbatches. ``accum_steps`` is kept for the reference's
+    signature; as there, the stack sets the count. Returns as
+    :func:`make_optax_train_step`."""
+    _no_mesh(mesh)
+
+    def step(params, opt_state, token_stack):
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in tree_leaves(params)]
+        losses = []
+        for tokens in token_stack:
+            loss, grads = value_and_grad(params, tokens, cfg)
+            for a, g in zip(acc, tree_leaves(grads)):
+                a.add_(g.float())
+            losses.append(loss)
+        n_micro = token_stack.shape[0]
+        it = iter(acc)
+        grads = tree_map(lambda p: (next(it) / n_micro).to(p.dtype), params)
+        tx.update_(grads, opt_state, params)
+        return params, opt_state, torch.stack(losses).mean()
+
+    return step, tx.init, None, None
