@@ -9,9 +9,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    the time to build the kernels from ``tpusched_torch/csrc`` and each
-   kernel's registers and spills as ``ptxas`` reports them;
+   kernel's registers and spills as ``ptxas`` reports them; it fails if a
+   Hopper kernel (wgmma, TMA) spills or ``ptxas`` ignored ``setmaxnreg``;
 2. every kernel against its plain PyTorch version on the card: the flash
-   forward (K1), then the backward's dK/dV (K2) and dQ (K3) kernels;
+   forward (K1), then the backward's dK/dV (K2) and dQ (K3) kernels, whose
+   gradients must also come out bitwise equal when run twice;
 3. the serving path: ``llama_like_big`` at full width and depth (random
    bf16 weights from a seeded generator) served by ``ServeEngine`` and by
    ``measure_serving`` over 16 seeded requests, with the flash kernel's
@@ -24,12 +26,18 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. the training path: ``llama_like_big(seq=4096)``, batch 1, five AdamW
    steps with launches counted per step and a falling loss, then
    ``measure.measure_adamw_train_step`` (step time, tokens/s, MFU);
-7. kernel timing with CUDA events, K1 at the serving shape and K1, K2, K3
-   at the training shape, beside the plain versions, one PyTorch library
-   call and the card's bound.
+7. kernel timing with CUDA events, K1 at the serving shape (also inside a
+   CUDA graph, which leaves out the host's enqueue time) and K1, K2, K3 at
+   the training shape, beside the plain versions, one PyTorch library call
+   and the card's bound; K2's schedule balance at the training shape.
 
 The second-to-last line is the ``kernels`` JSON object, the last line the
 ``ok`` JSON object. Imports neither JAX nor the JAX package.
+
+    python3 chip_smoke.py --ab DIR
+
+instead times the flash kernels of another tree's ``tpusched_torch`` (under
+DIR) and of this one in turns on the card (:func:`ab`) and runs no phase.
 """
 from __future__ import annotations
 
@@ -46,6 +54,8 @@ import torch
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # H100 SXM, dense
 PEAK_BYTES_PER_S = 3.35e12
 SERVE_BUCKETS = (256, 1024)
+# the kernels redesigned for Hopper (wgmma, TMA, setmaxnreg), bf16 d=128
+HOPPER_KERNELS = ("flash_fwd_sm90", "flash_bwd_dkdv_sm90")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -62,6 +72,30 @@ def rand_qkv(gen, b, s, h, kv, d, dtype, pad=0):
                         device="cuda").to(dtype)
         return x[..., :d]
     return r(h), r(kv), r(kv)
+
+
+def graph_launch_ms(fn, launches: int = 20, replays: int = 10) -> float:
+    """Device time per call of ``fn``: ``launches`` calls captured in one
+    CUDA graph, replayed, timed with CUDA events; unlike :func:`cuda_ms`
+    it leaves out the host's time to enqueue each call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                # warm outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
 
 
 def cuda_ms(fn, iters: int = 50) -> float:
@@ -84,22 +118,32 @@ def phase_environment(build):
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi.splitlines()[0])
     t0 = time.perf_counter()
-    logs = build.build_all()
+    built = build.build_all()
     build_s = time.perf_counter() - t0
+    logs = build.build_logs()
+    usage = ptxas_usage(logs)
     print(json.dumps({"torch": torch.__version__, "cuda": torch.version.cuda,
                       "device": torch.cuda.get_device_name(0),
-                      "kernel_build_s": build_s,
-                      "registers_spill_stores": ptxas_usage(logs)}))
+                      "kernel_build_s": build_s, "built": sorted(built),
+                      "registers_spill_stores": usage}))
+    for name in HOPPER_KERNELS:
+        check(name in usage, f"ptxas reported nothing for {name}")
+        check(usage[name][1] == 0, f"{name} spills: {usage[name]}")
+    text = "\n".join(logs.values())
+    check("C7508" not in text and "setmaxnreg ignored" not in text,
+          "ptxas ignored setmaxnreg")
 
 
 def ptxas_usage(logs) -> dict:
-    """{"kernel<head_dim>": [registers, spill store bytes]} from the
-    ``-Xptxas -v`` lines of the build logs (empty if nothing was built)."""
+    """{"kernel<head_dim>" or "kernel": [registers, spill store bytes]} from
+    the ``-Xptxas -v`` lines of the build logs. Registers are those the
+    kernel starts with; a Hopper kernel's consumer warpgroups then take more
+    through setmaxnreg (240 in K1, 232 in K2)."""
     usage, name = {}, None
     for line in "\n".join(logs.values()).splitlines():
-        m = re.search(r"\d(flash_[a-z_]+)ILi(\d+)E", line)
+        m = re.search(r"\d(flash_\w+?)(?:ILi(\d+)E|E)", line)
         if "Compiling entry function" in line and m:
-            name = f"{m[1]}<{m[2]}>"
+            name = m[1] + (f"<{m[2]}>" if m[2] else "")
             usage[name] = [None, None]
         elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
             usage[name][1] = int(m[1])
@@ -108,10 +152,12 @@ def ptxas_usage(logs) -> dict:
     return usage
 
 
-def tile_rel_l2(out, ref, tile: int = 64) -> float:
+def tile_rel_l2(out, ref, tile: int = 64, floor: float = 0.0) -> float:
     """Worst relative L2 error over tiles of ``tile`` query rows: each tile
     of O is held to its own norm, so late causal rows, whose values are
-    small, are held to their scale and not to that of the first rows."""
+    small, are held to their scale and not to that of the first rows. A
+    tile whose norm per element is below ``floor`` is held to the floor (a
+    gradient that is zero in exact arithmetic, as dq and dk at s = 1)."""
     b, s = ref.shape[:2]
     n = -(-s // tile)
 
@@ -119,8 +165,9 @@ def tile_rel_l2(out, ref, tile: int = 64) -> float:
         rows = x.float().pow(2).reshape(b, s, -1).sum(dim=(0, 2))
         return torch.nn.functional.pad(rows, (0, n * tile - s)).reshape(
             n, tile).sum(dim=1)
-    return (per_tile(out.float() - ref.float()) / per_tile(ref)).sqrt() \
-        .max().item()
+    size = per_tile(torch.ones_like(ref, dtype=torch.float32))
+    den = torch.maximum(per_tile(ref), floor ** 2 * size)
+    return (per_tile(out.float() - ref.float()) / den).sqrt().max().item()
 
 
 def phase_kernel_vs_plain(attention):
@@ -140,6 +187,12 @@ def phase_kernel_vs_plain(attention):
         (2, 4096, 4, 4, 128, bf16, True, 0),     # long MHA
         (1, 1000, 16, 4, 128, bf16, True, 0),    # ragged last tile
         (1, 1024, 16, 4, 128, bf16, False, 0),   # non-causal
+        (1, 129, 16, 4, 128, bf16, True, 0),     # ragged at a 128-row tile
+        (1, 1, 16, 4, 128, bf16, True, 0),       # s below one tile
+        (1, 17, 16, 4, 128, bf16, True, 0),
+        (1, 1024, 8, 1, 128, bf16, True, 0),     # MQA 8:1
+        (2, 512, 8, 2, 128, bf16, True, 8),      # strided, 16-byte aligned
+        (1, 4096, 16, 4, 128, bf16, False, 0),   # non-causal, training shape
         (2, 200, 4, 2, 64, bf16, True, 0),       # head_dim 64, ragged
         (1, 96, 2, 2, 32, bf16, False, 0),       # tiny's head_dim
         (2, 300, 4, 2, 64, f32, True, 0),        # f32, ragged
@@ -186,9 +239,10 @@ def phase_kernel_vs_plain(attention):
 def phase_backward_vs_plain(attention):
     """K2 (dk, dv) and K3 (dq) vs their plain version: for each gradient
     the worst 64-row tile's relative L2 error within 2e-2 in bf16 and 1e-4
-    in f32. The last case hands in a D that is not Σ dO∘O: both versions
-    must use it. Returns the training shape's max abs errors
-    (dq, max of dk and dv)."""
+    in f32 (a tile below 1e-3 per element held to that floor). Run twice on
+    the same inputs, both kernels give bitwise equal dq, dk and dv. The
+    last case hands in a D that is not Σ dO∘O: both versions must use it.
+    Returns the training shape's max abs errors (dq, max of dk and dv)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # (b, s, h, kv, d, dtype, causal, pad, given dd)
@@ -198,6 +252,12 @@ def phase_backward_vs_plain(attention):
         (2, 512, 4, 1, 128, bf16, True, 0, False),     # MQA
         (1, 1000, 16, 4, 128, bf16, True, 0, False),   # ragged last tile
         (1, 1024, 16, 4, 128, bf16, False, 0, False),  # ring-flash pairs
+        (1, 129, 16, 4, 128, bf16, True, 0, False),    # ragged past 128 rows
+        (1, 1, 16, 4, 128, bf16, True, 0, False),      # s below one tile
+        (1, 17, 16, 4, 128, bf16, True, 0, False),
+        (1, 1024, 8, 1, 128, bf16, True, 0, False),    # MQA 8:1
+        (2, 512, 8, 2, 128, bf16, True, 8, False),     # strided, 16-byte aligned
+        (1, 4096, 16, 4, 128, bf16, False, 0, False),  # non-causal, training shape
         (2, 200, 4, 2, 64, bf16, True, 0, False),      # head_dim 64, ragged
         (1, 32, 2, 2, 32, f32, True, 0, False),        # tiny's shape
         (2, 300, 4, 2, 64, f32, True, 0, False),       # f32, ragged
@@ -215,7 +275,12 @@ def phase_backward_vs_plain(attention):
                 dim=-1, keepdim=True)) + torch.randn(
                     (b * h, s, 1), generator=gen, device="cuda")
         got = attention._flash_backward(q, k, v, out, lse, do, causal, dd)
+        again = attention._flash_backward(q, k, v, out, lse, do, causal, dd)
         torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"flash backward is not bitwise repeatable at "
+              f"{(b, s, h, kv, d, dtype, causal, pad)}")
+        del again
         ref = attention.flash_backward_plain(q, k, v, out, lse, do, causal,
                                              dd)
         tol = 2e-2 if dtype == bf16 else 1e-4
@@ -223,7 +288,7 @@ def phase_backward_vs_plain(attention):
         for name, x, y in zip(("dq", "dk", "dv"), got, ref):
             check(x.shape == y.shape and x.dtype == y.dtype,
                   f"{name} shape/dtype")
-            l2 = tile_rel_l2(x, y)
+            l2 = tile_rel_l2(x, y, floor=1e-3)
             err = (x.float() - y.float()).abs().max().item()
             rms = y.float().pow(2).mean().sqrt().item()
             errs.append(err)
@@ -231,7 +296,7 @@ def phase_backward_vs_plain(attention):
                   f"{str(dtype)[6:]} causal={causal} pad={pad} "
                   f"dd={'given' if given_dd else 'derived'} {name}: "
                   f"worst-tile rel L2 {l2:.3e} (tol {tol}), max|err| "
-                  f"{err:.3e}, rms(plain) {rms:.3e}")
+                  f"{err:.3e}, rms(plain) {rms:.3e}, bitwise repeatable")
             check(l2 < tol, f"flash backward {name} disagrees with its "
                   f"plain version at {(b, s, h, kv, d, dtype, causal)}")
         if main_err is None:
@@ -413,6 +478,7 @@ def phase_timing(attention):
     q, k, v = rand_qkv(gen, b, s, h, kv, d, dtype)
     counted = attention.FLASH_FWD_LAUNCHES
     ms = cuda_ms(lambda: attention.flash_forward(q, k, v, True))
+    graph_ms = graph_launch_ms(lambda: attention.flash_forward(q, k, v, True))
     attention.FLASH_FWD_LAUNCHES = counted   # timing launches are not counted
     plain_ms = cuda_ms(lambda: attention.flash_attention_plain(q, k, v, True))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -425,9 +491,10 @@ def phase_timing(attention):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     print(json.dumps({"timing": "flash_fwd", "shape": [b, s, h, kv, d],
                       "flops": flops, "bytes": nbytes, "ms": ms,
-                      "plain_ms": plain_ms, "library_ms": library_ms}))
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=max(t_ops, t_bytes),
+                      "graph_ms": graph_ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms}))
+    return dict(ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -539,16 +606,109 @@ def phase_training_timing(attention):
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes")
     timing["flash_fwd"]["max_abs_err"] = fwd_err
+    walks = attention._dkdv_schedule(b, s, kv, True)
+    work = (walks[:, :, 3] - walks[:, :, 2]).clip(min=0).sum(axis=1)
+    ratio = float(work.max() / work.mean())
+    print(f"K2 schedule at {(b, s, h, kv, d)} causal: {len(work)} blocks, "
+          f"longest / mean walk {ratio:.4f} (the reference's key tiles: "
+          f"1.97)")
+    check(ratio <= 1.3, "K2's schedule is out of balance")
     print(json.dumps({"timing": "training shape", "shape": [b, s, h, kv, d],
                       **timing}))
     return timing
 
 
-def main() -> int:
+def ab_turn(tree: str, other_root: str) -> None:
+    """One turn of ``--ab``, in a process of its own: builds the kernels of
+    the ``tpusched_torch`` on PYTHONPATH, then prints one JSON line of
+    their times (ms per launch, :func:`cuda_ms`) at bf16, causal, in this
+    order: K1 at the serving shape (1, 1024, 16, 4, 128), K3 at the
+    training shape (1, 4096, 16, 4, 128) before K2 was ever launched, K2,
+    K3 again, K1 at the training shape, K1 at the serving shape again; K1
+    at the serving shape inside a CUDA graph (:func:`graph_launch_ms`, the
+    device's time without the host's enqueue) first and last. Last, K3
+    four times more on the same tensors, through this tree's library and
+    then the library of the tree under ``other_root`` (built there if
+    missing), in turns: both trees' K3 share one C signature, so this holds
+    everything but the library the same."""
+    import importlib.util
+    import pathlib
+
+    from tpusched_torch import _build, attention
+    t0 = time.perf_counter()
+    _build.build_all()
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    qs, ks, vs = rand_qkv(gen, 1, 1024, 16, 4, 128, torch.bfloat16)
+    q, k, v = rand_qkv(gen, 1, 4096, 16, 4, 128, torch.bfloat16)
+    out, lse = attention.flash_forward(q, k, v, True)
+    do = torch.randn_like(q)
+    dd = attention._to_bh((do.float() * out.float()).sum(
+        dim=-1, keepdim=True)).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    runs = {
+        "k1_serving": lambda: attention.flash_forward(qs, ks, vs, True),
+        "k1_training": lambda: attention.flash_forward(q, k, v, True),
+        "k2": lambda: attention._launch_bwd("dkdv", q, k, v, do, lse, dd,
+                                            (dk, dv), True),
+        "k3": lambda: attention._launch_bwd("dq", q, k, v, do, lse, dd,
+                                            (dq,), True),
+    }
+    readings = [["k1_serving_graph", graph_launch_ms(runs["k1_serving"])]]
+    for name in ("k1_serving", "k3", "k2", "k3", "k1_training", "k1_serving"):
+        readings.append([name, cuda_ms(runs[name])])
+    readings.append(["k1_serving_graph", graph_launch_ms(runs["k1_serving"])])
+    spec = importlib.util.spec_from_file_location(
+        "_ab_other_build", pathlib.Path(other_root, "tpusched_torch", "_build.py"))
+    other_build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other_build)
+    for which, build in (("own", _build), ("other", other_build)) * 2:
+        attention._build = build          # what _launch_bwd loads K3 from
+        readings.append([f"k3_{which}_library", cuda_ms(runs["k3"])])
+    attention._build = _build
+    print(json.dumps({"tree": tree, "package": attention.__file__,
+                      "build_s": build_s, "readings": readings}))
+
+
+def ab(other: str) -> None:
+    """``--ab DIR``: the flash kernels of the ``tpusched_torch`` under DIR
+    (for example ``git archive <commit> tpusched_torch`` unpacked there)
+    and of this checkout, timed in turns on one card: DIR, this, this, DIR,
+    each turn an :func:`ab_turn` in a fresh process that builds its tree's
+    kernels under that tree's ``build/``. Two versions are compared only
+    inside one such call."""
+    import os
+    import pathlib
+    roots = {"other": pathlib.Path(other).resolve(),
+             "this": pathlib.Path(__file__).resolve().parent}
+    check((roots["other"] / "tpusched_torch").is_dir(),
+          f"no tpusched_torch under {other}")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0])
+    for tree, across in (("other", "this"), ("this", "other"),
+                         ("this", "other"), ("other", "this")):
+        env = {**os.environ, "PYTHONPATH": str(roots[tree])}
+        # this file by path, with -P: only PYTHONPATH names the package
+        subprocess.run([sys.executable, "-P", __file__, "--ab-turn", tree,
+                        str(roots[across])], env=env, check=True, timeout=600)
+
+
+def main(argv) -> int:
+    sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its lines
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    if len(argv) == 2 and argv[0] == "--ab":
+        ab(argv[1])
+        return 0
+    if len(argv) == 3 and argv[0] == "--ab-turn":
+        ab_turn(argv[1], argv[2])
+        return 0
+    if argv:
+        print(__doc__, file=sys.stderr)
+        return 2
     from tpusched_torch import (_build, attention, decode, measure, optim,
                                 serve, workload)
 
@@ -587,4 +747,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

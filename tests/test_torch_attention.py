@@ -274,3 +274,135 @@ def test_non_cuda_backward_is_refused():
     q, k, v = (x.to("meta") for x in _t(*_qkv(19, b=1, s=8, h=2, kv=2)))
     with pytest.raises(ValueError, match="cuda or cpu"):
         attention._flash_backward(q, k, v, q, q, q)
+
+
+def _reachable(j: int, i: int, causal: bool, block: int) -> bool:
+    """The reference's condition for key block j and q block i
+    (jaxbridge/attention.py:235, ``reachable`` in
+    _flash_bwd_dkdv_kernel), at K2's block of 64 rows."""
+    return (j * block < (i + 1) * block) if causal else True
+
+
+def _schedule_triples(b, s, h, kv, causal):
+    """The (b·kv, key tile, group head, q-tile) walks of K2's schedule, as
+    the kernel expands each segment, by block."""
+    table = attention._dkdv_schedule(b, s, kv, causal)
+    assert table.dtype == np.int32 and table.shape[1:] == (2, 4)
+    blocks = []
+    for segments in table:
+        walk = []
+        for bkv, key_tile, first, end in segments:
+            if key_tile < 0:
+                continue
+            walk += [(bkv, key_tile, r, qt) for r in range(h // kv)
+                     for qt in range(first, end)]
+        blocks.append(walk)
+    return blocks
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("h,kv", [(16, 4), (8, 8), (8, 1)],
+                         ids=["gqa", "mha", "mqa"])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 200, 1000, 4096])
+def test_dkdv_schedule_covers_every_reachable_triple_once(s, h, kv, causal):
+    """K2's schedule walks every (key tile, group head, q-tile) triple the
+    reference reaches exactly once, and nothing else, for every KV head."""
+    b, tile = 2, attention.DKDV_TILE
+    n = -(-s // tile)
+    blocks = _schedule_triples(b, s, h, kv, causal)
+    # the block count flash_bwd.cu's hopper::launch holds the table to
+    assert len(blocks) == b * kv * ((n + 1) // 2 if causal else n)
+    got = [t for walk in blocks for t in walk]
+    want = [(bkv, j, r, i) for bkv in range(b * kv) for j in range(n)
+            for r in range(h // kv) for i in range(n)
+            if _reachable(j, i, causal, tile)]
+    assert len(got) == len(set(got))
+    assert sorted(got) == sorted(want)
+
+
+def test_dkdv_schedule_balances_the_training_shape():
+    """At (1, 4096, 16, 4, 128, causal) the longest block walks at most
+    1.3× the mean (the reference's one block per key tile: 1.97×)."""
+    work = [len(w) for w in _schedule_triples(1, 4096, 16, 4, True)]
+    assert len(work) == 128
+    assert max(work) <= 1.3 * (sum(work) / len(work))
+
+
+class _FakeLib:
+    """Records the arguments each C entry point is called with."""
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls[name] = args
+            return 0
+        return entry
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    """The C entry points' arguments by name, recorded instead of launched;
+    the launch counters are restored afterwards."""
+    import contextlib
+    import ctypes
+
+    from tpusched_torch import _build
+    calls = {}
+    monkeypatch.setattr(_build, "load", lambda name: _FakeLib(calls))
+    monkeypatch.setattr(attention, "_stream",
+                        lambda device: ctypes.c_void_p(0))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    for name in ("FLASH_FWD_LAUNCHES", "FLASH_BWD_DKDV_LAUNCHES",
+                 "FLASH_BWD_DQ_LAUNCHES"):
+        monkeypatch.setattr(attention, name, getattr(attention, name))
+    return calls
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("path", ["forward", "backward"])
+def test_wrappers_pass_what_the_c_signatures_declare(path, causal, fake_lib):
+    """Each launch hands its entry point exactly the arguments
+    _build.SIGNATURES declares, each convertible to its C type, and K2 its
+    schedule: the table of _dkdv_schedule and its block count."""
+    from tpusched_torch import _build
+    calls = fake_lib
+    b, s, h, kv = 1, 130, 4, 2
+    q, k, v = (x.bfloat16() for x in _t(*_qkv(20, b=b, s=s, h=h, kv=kv,
+                                             d=128)))
+    if path == "forward":
+        attention._flash_forward_cuda(q, k, v, causal)
+        lib = "flash_fwd"
+    else:
+        out, lse = attention.flash_attention_plain(q, k, v, causal)
+        attention._flash_backward_cuda(q, k, v, out, lse, out, causal, None)
+        lib = "flash_bwd"
+    assert set(calls) == set(_build.SIGNATURES[lib])
+    for name, args in calls.items():
+        argtypes, _ = _build.SIGNATURES[lib][name]
+        assert len(args) == len(argtypes), name
+        for argtype, arg in zip(argtypes, args):
+            argtype.from_param(arg)
+    if path == "backward":
+        args = calls["tpusched_flash_bwd_dkdv"]
+        table = attention._dkdv_table(b, s, kv, causal, q.device)
+        assert args[-3:-1] == (table.data_ptr(), table.shape[0])
+        np.testing.assert_array_equal(
+            table.numpy(), attention._dkdv_schedule(b, s, kv, causal))
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128), (torch.bfloat16, 64),
+                                     (torch.bfloat16, 32)],
+                         ids=["f32-d128", "bf16-d64", "bf16-d32"])
+def test_k2_schedule_goes_only_to_the_kernel_that_reads_it(dtype, d,
+                                                          fake_lib):
+    """Only the bf16 d=128 K2 walks a schedule; every other K2 gets a null
+    table and a zero block count, and no table is made for it."""
+    attention._DKDV_TABLES.clear()
+    q, k, v = (x.to(dtype) for x in _t(*_qkv(21, b=1, s=70, h=4, kv=2, d=d)))
+    out, lse = attention.flash_attention_plain(q, k, v, True)
+    attention._flash_backward_cuda(q, k, v, out, lse, out, True, None)
+    assert fake_lib["tpusched_flash_bwd_dkdv"][-3:-1] == (None, 0)
+    assert not attention._DKDV_TABLES

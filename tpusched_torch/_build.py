@@ -7,7 +7,8 @@ shared headers (``csrc/*.cuh``) and the flags, so a library is rebuilt
 exactly when one of them changes and is reused otherwise. Building happens
 at first use, never at import: a machine without ``nvcc`` can import every
 module of the package. ``ptxas`` reports each kernel's registers and spills
-(``-Xptxas -v``) in the build's log.
+(``-Xptxas -v``) in the build's log, which is kept beside the library
+(``<name>-<hash>.log``) and read back by :func:`build_logs`.
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ SIGNATURES = {
         "tpusched_flash_bwd_dkdv": (
             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
-             ctypes.c_float, _I, _I, _P], _I),
+             ctypes.c_float, _I, _I, _P, _I, _P], _I),
         "tpusched_flash_bwd_dq": (
             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
@@ -92,6 +93,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         if proc.returncode:
             failures.append(f"$ {' '.join(cmd)}\n{logs[name]}")
         else:
+            out.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, out)
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
@@ -100,6 +102,17 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 
 def build_all() -> Dict[str, str]:
     return build(SIGNATURES)
+
+
+def build_logs() -> Dict[str, str]:
+    """nvcc's output for every library of the current sources that is
+    built, whether this process built it or an earlier one did."""
+    logs = {}
+    for name in SIGNATURES:
+        log = _library_path(name).with_suffix(".log")
+        if log.exists():
+            logs[name] = log.read_text()
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

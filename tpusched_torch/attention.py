@@ -9,7 +9,8 @@ Counterpart of ``tpusched/jaxbridge/attention.py``:
   the backward the two of ``csrc/flash_bwd.cu`` (``_flash_bwd_dkdv_kernel``
   and ``_flash_bwd_dq_kernel``), or they raise; on CPU tensors they run the
   kernels' plain versions, :func:`flash_attention_plain` and
-  :func:`flash_backward_plain`.
+  :func:`flash_backward_plain`. K2's work at bf16 d=128 follows a schedule
+  built here, :func:`_dkdv_schedule`.
 
 GQA everywhere: k/v may carry h/n_rep heads, and no path expands them.
 """
@@ -155,7 +156,7 @@ def _check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in {"q": q, **named}.items():
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous")
-        # the bf16 kernels stage rows with 16-byte vector loads
+        # the bf16 kernels stage rows with 16-byte vector loads or TMA
         if q.dtype == torch.bfloat16 and (
                 t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3))):
             raise ValueError(f"{name}: the bf16 kernel needs a 16-byte "
@@ -247,20 +248,70 @@ def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _from_bh(dv, b, kv).to(v.dtype))
 
 
+# K2's tile at bf16 d=128: a segment's keys and a step's query rows
+# (hopper::BK and hopper::BQ in csrc/flash_bwd.cu)
+DKDV_TILE = 64
+
+
+def _dkdv_schedule(b: int, s: int, kv: int, causal: bool) -> np.ndarray:
+    """K2's work at bf16 d=128, one row per CUDA block: two segments
+    (b·kv, key tile, first q-tile, end q-tile), key tile -1 for none. A
+    segment walks all h/kv query heads of its group over q-tiles
+    [first, end), so its keys' dK and dV leave the block whole. Causal: key
+    tile j sees q-tiles j.. (the reference's ``reachable`` at 64-row
+    blocks), and block i pairs key tile i with key tile n−1−i, so every
+    block walks n+1 q-tiles per head; a middle tile left alone goes last.
+    Non-causal: one key tile per block, every q-tile. Returns int32
+    (blocks, 2, 4)."""
+    n = -(-s // DKDV_TILE)
+    if causal:
+        pairs = [(i, n - 1 - i) for i in range(n // 2)]
+        pairs += [(n // 2, -1)] if n % 2 else []
+    else:
+        pairs = [(j, -1) for j in range(n)]
+    none = (0, -1, 0, 0)
+    rows = [[(bkv, i, i if causal else 0, n),
+             (bkv, j, j if causal else 0, n) if j >= 0 else none]
+            for i, j in pairs for bkv in range(b * kv)]
+    return np.asarray(rows, dtype=np.int32).reshape(-1, 2, 4)
+
+
+_DKDV_TABLES: dict = {}
+
+
+def _dkdv_table(b: int, s: int, kv: int, causal: bool,
+                device: torch.device) -> torch.Tensor:
+    """:func:`_dkdv_schedule` on ``device``, made once per shape."""
+    key = (b, s, kv, causal, device)
+    table = _DKDV_TABLES.get(key)
+    if table is None:
+        table = torch.as_tensor(_dkdv_schedule(b, s, kv, causal),
+                                device=device)
+        _DKDV_TABLES[key] = table
+    return table
+
+
 def _launch_bwd(entry: str, q, k, v, do, lse, dd, outs, causal) -> None:
     """Launch one backward kernel, ``"dkdv"`` (K2, outs = (dk, dv)) or
     ``"dq"`` (K3, outs = (dq,)), on the current stream, on operands that
     :func:`_flash_backward_cuda` has checked, and count the launch."""
     global FLASH_BWD_DKDV_LAUNCHES, FLASH_BWD_DQ_LAUNCHES
     b, s, h, d = q.shape
+    kv = k.shape[2]
+    sched = ()
+    if entry == "dkdv":
+        sched = (None, 0)      # only the bf16 d=128 kernel reads a schedule
+        if q.dtype == torch.bfloat16 and d == 128:
+            table = _dkdv_table(b, s, kv, causal, q.device)
+            sched = (table.data_ptr(), table.shape[0])
     lib = _build.load("flash_bwd")
     with torch.cuda.device(q.device):
         err = getattr(lib, f"tpusched_flash_bwd_{entry}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dd.data_ptr(), *(t.data_ptr() for t in outs),
-            b, s, h, k.shape[2], d, *_strides(q, k, v, do),
+            b, s, h, kv, d, *_strides(q, k, v, do),
             ctypes.c_float(1.0 / math.sqrt(d)), int(causal),
-            _KERNEL_DTYPES[q.dtype], _stream(q.device))
+            _KERNEL_DTYPES[q.dtype], *sched, _stream(q.device))
     if err:
         raise RuntimeError(f"flash_bwd_{entry} kernel launch failed: CUDA "
                            f"error {err}")

@@ -4,12 +4,11 @@
 // never reaches device memory.
 //
 // - K2, entry tpusched_flash_bwd_dkdv, replaces the TPU kernel
-//   tpusched/jaxbridge/attention.py:_flash_bwd_dkdv_kernel. One CUDA block
-//   owns 64 key rows of one KV head and walks, in an in-block loop, every
-//   (group query head r, q-tile) pair from the causal diagonal on:
-//   dV += Pᵀ dO, dS = P ∘ (dO Vᵀ − D) · scale, dK += dSᵀ Q. dK and dV stay
-//   in f32 registers for the whole walk, so the GQA group is reduced inside
-//   the block: no atomics, no (b, s, h, d)-sized intermediate.
+//   tpusched/jaxbridge/attention.py:_flash_bwd_dkdv_kernel:
+//   dV = Σ Pᵀ dO and dK = Σ dSᵀ Q with dS = P ∘ (dO Vᵀ − D) · scale, summed
+//   over the GQA group's query heads inside the kernel, as the reference
+//   does: no atomics, no (b, s, h, d)-sized intermediate, and the same bits
+//   on every run.
 // - K3, entry tpusched_flash_bwd_dq, replaces _flash_bwd_dq_kernel. One
 //   block owns 64 query rows of one query head and walks the key tiles up to
 //   the diagonal: dQ += dS K, dQ in f32 registers. Kept apart from K2 (no
@@ -20,33 +19,50 @@
 // masked by index, so a q row past s adds nothing to dK or dV whatever its
 // lse holds.
 //
-// What bounds it on this card: at the training shape (b=1, s=4096, 16 query
-// heads over 4 KV heads, d=128, causal, bf16) K2 does four causal-halved
-// (s, s, d) products per head and K3 three, about 69 and 52 GFLOP, against
-// some 50 MB that must move: operations bound both, far above the bf16
-// ridge, so the products belong on the tensor cores.
+// What bounds them on this card: operations. At the training shape (b=1,
+// s=4096, 16 query heads over 4 KV heads, d=128, causal, bf16) K2 does four
+// causal-halved (s, s, d) products per head, 137.5 GFLOP, and K3 three,
+// 103 GFLOP, against some 50 MB that must move: far above the bf16 ridge,
+// so the products belong on the tensor cores at the rate only wgmma gives.
 //
-// - bfloat16: four warps of 16 rows each, every product through mma.sync
-//   m16n8k16 (bf16 in, f32 accumulate). K2 computes Sᵀ = K Qᵀ and
-//   dPᵀ = V dOᵀ directly (key rows as the M dimension), so Pᵀ and dSᵀ are
-//   already in the accumulator layout that is the A operand of dV += Pᵀ dO
-//   and dK += dSᵀ Q; the transposes go to the staging of Q and dO, which
-//   land in shared memory twice, row-major and transposed. K3 stages K both
-//   ways for the same reason. P and dS are rounded to bf16 as A operands;
-//   every sum stays f32. K2 walks q-tiles of 32 rows at d=128 (64 below),
-//   so that two 64x128 f32 accumulators, S and dP fit the registers.
+// K2 by dtype and head dim (dispatch by shape, in the entry point):
+// - bfloat16, d = 128: hopper::flash_bwd_dkdv_sm90. Work is cut into
+//   segments (b·kv, 64-key tile, q-tile range); a segment walks every query
+//   head of the group over its q-tiles, so dK and dV of its keys leave the
+//   block complete. The schedule, built on the host by
+//   attention._dkdv_schedule and read as an int32 table, gives each causal
+//   block key tile i and key tile n − 1 − i, whose walks add up to the same
+//   length for every block (the reference's longest key tile walked 1.97×
+//   the mean); non-causal blocks take one key tile each. A block is two
+//   consumer warpgroups and a producer warpgroup (setmaxnreg 232 and 40):
+//   one producer thread loads K and V of a segment once by TMA, and the
+//   producer warp streams Q and dO tiles by TMA, lse and D by cp.async, into
+//   a four-stage ring of full/empty mbarriers. Consumer warpgroups take the
+//   steps in turn, both over all 64 keys: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ are
+//   wgmma m64n64k16 with both operands in shared memory, K-major; Pᵀ and
+//   dSᵀ are rounded to bf16 straight from their accumulators into the A
+//   registers of dV += Pᵀ dO and dK += dSᵀ Q, wgmma m64n128k16 whose B (dO,
+//   Q) is read MN-major through the transpose bit, so no tile is ever
+//   transposed by hand. At a segment's end the two warpgroups add their dK
+//   and dV through the then idle K/V bytes, in a fixed order.
+// - bfloat16, d = 32 or 64 (the tiny configuration's): four warps of 16 key
+//   rows on mma.sync m16n8k16, Q and dO staged row-major and transposed
+//   (flash_bwd_dkdv_mma), one block per (64-key tile, KV head).
 // - float32: the tensor cores would round to TF32, so the products run on
 //   the CUDA cores with FMA from shared memory, four threads per row.
-// wgmma, TMA and pipelined loads are the next steps toward the bound.
+// K3 keeps mma.sync at every head dim; it is the next kernel to redesign.
+// Left for later on K2's d = 128 path: overlap of one step's dV/dK products
+// with the next step's Sᵀ inside a warpgroup, TMA multicast of K/V or of
+// Q/dO across blocks with clusters, and fp8.
 //
 // Layout: q, dO (b, s, h, d) and k, v (b, s, kv, d), read through the
 // element strides the caller gives (the head dim contiguous; in bf16 every
-// row 16-byte aligned); lse and D (b·h, s) f32 contiguous. dq (b, s, h, d)
-// and dk, dv (b, s, kv, d) are written contiguous in the input type. Query
-// head hq reads KV head hq / (h / kv).
+// row 16-byte aligned, for vector loads and TMA); lse and D (b·h, s) f32
+// contiguous. dq (b, s, h, d) and dk, dv (b, s, kv, d) are written
+// contiguous in the input type. Query head hq reads KV head hq / (h / kv).
 #include <math.h>
 
-#include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -427,27 +443,22 @@ __global__ void __launch_bounds__(FMA_THREADS) flash_bwd_dkdv_fma(const Params p
   }
 }
 
-// K2's q-tile in bf16: 32 rows at d=128 keeps dK, dV (64 registers each),
-// Sᵀ and dPᵀ (16 each) inside a thread's registers; 64 rows below.
-template <int D>
-__host__ __device__ constexpr int kq() { return D > 64 ? 32 : 64; }
-
-template <int D>
-__host__ __device__ constexpr int kq_ldt() { return kq<D>() + 8; }
+// K2's q-tile in bf16 at d <= 64 (d = 128 runs on hopper::flash_bwd_dkdv_sm90)
+constexpr int KQ = 64;
+constexpr int KQ_LDT = KQ + 8;           // row of the transposed Q and dO tiles
 
 template <int D>
 __host__ __device__ constexpr size_t dkdv_mma_smem() {
-  return ((size_t)2 * BLOCK * mma_ld<D>() + (size_t)2 * kq<D>() * mma_ld<D>() +
-          (size_t)2 * D * kq_ldt<D>()) * sizeof(__nv_bfloat16) +
-         2 * kq<D>() * sizeof(float);
+  return ((size_t)2 * BLOCK * mma_ld<D>() + (size_t)2 * KQ * mma_ld<D>() +
+          (size_t)2 * D * KQ_LDT) * sizeof(__nv_bfloat16) +
+         2 * KQ * sizeof(float);
 }
 
 // K2 in bf16: block (k-tile, b·kv); warp w owns key rows 16w .. 16w + 15.
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dkdv_mma(const Params p) {
+  static_assert(D <= 64, "bf16 at d=128 runs on hopper::flash_bwd_dkdv_sm90");
   constexpr int LD = mma_ld<D>();
-  constexpr int KQ = kq<D>();
-  constexpr int LDT = kq_ldt<D>();
   constexpr int KD = D / 16;             // k-steps over the head dim
   constexpr int ND = D / 8;              // n-tiles of dK and dV
   constexpr int NQ = KQ / 8;             // n-tiles of Sᵀ and dPᵀ
@@ -458,8 +469,8 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dkdv_mma(const Params p
   __nv_bfloat16* sQ = sV + BLOCK * LD;
   __nv_bfloat16* sG = sQ + KQ * LD;
   __nv_bfloat16* sQt = sG + KQ * LD;
-  __nv_bfloat16* sGt = sQt + D * LDT;
-  float* sL = reinterpret_cast<float*>(sGt + D * LDT);
+  __nv_bfloat16* sGt = sQt + D * KQ_LDT;
+  float* sL = reinterpret_cast<float*>(sGt + D * KQ_LDT);
   float* sD = sL + KQ;
 
   const int k0 = blockIdx.x * BLOCK;     // early key tiles walk the most q-tiles: first
@@ -490,8 +501,8 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dkdv_mma(const Params p
     for (int qt = first; qt < nq; ++qt) {
       const int q0 = qt * KQ;
       __syncthreads();                   // the previous q-tile is consumed
-      stage_bf16<D>(q, p.q_ss, q0, KQ, p.s, sQ, LD, sQt, LDT);
-      stage_bf16<D>(gq, p.g_ss, q0, KQ, p.s, sG, LD, sGt, LDT);
+      stage_bf16<D>(q, p.q_ss, q0, KQ, p.s, sQ, LD, sQt, KQ_LDT);
+      stage_bf16<D>(gq, p.g_ss, q0, KQ, p.s, sG, LD, sGt, KQ_LDT);
       stage_rows(p.lse + bh * p.s, q0, KQ, p.s, sL);
       stage_rows(p.dd + bh * p.s, q0, KQ, p.s, sD);
       __syncthreads();
@@ -542,8 +553,8 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dkdv_mma(const Params p
                                 pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
 #pragma unroll
         for (int n = 0; n < ND; ++n) {
-          const __nv_bfloat16* gb = sGt + (n * 8 + g) * LDT + kk * 16 + c2;
-          const __nv_bfloat16* qb = sQt + (n * 8 + g) * LDT + kk * 16 + c2;
+          const __nv_bfloat16* gb = sGt + (n * 8 + g) * KQ_LDT + kk * 16 + c2;
+          const __nv_bfloat16* qb = sQt + (n * 8 + g) * KQ_LDT + kk * 16 + c2;
           mma_16816(dv[n], pa, ld32(gb), ld32(gb + 8));
           mma_16816(dk[n], da, ld32(qb), ld32(qb + 8));
         }
@@ -566,6 +577,297 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dkdv_mma(const Params p
 }
 
 // ---------------------------------------------------------------------------
+// K2 in bf16 at d = 128: wgmma and TMA with a producer warp (sm90.cuh), on
+// the balanced schedule attention._dkdv_schedule builds on the host
+
+namespace hopper {
+
+constexpr int D = 128;
+constexpr int BK = 64;                   // keys of a segment, shared by both consumer warpgroups
+constexpr int BQ = 64;                   // query rows of a step
+constexpr int STAGES = 4;                // (Q, dO, lse, D) tiles in flight: two per warpgroup
+constexpr int CONSUMERS = 2;             // consumer warpgroups; one producer warpgroup follows
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr uint32_t KV_BYTES = BK * D * 2;          // K or V of a segment
+constexpr uint32_t QT_BYTES = BQ * D * 2;          // a Q or dO tile
+constexpr size_t SMEM = 1024 + 2 * KV_BYTES + STAGES * (2 * QT_BYTES + 2 * BQ * 4) + 64;
+static_assert(2 * KV_BYTES == 64 * 128 * 4, "a warpgroup's dK or dV fits the K/V bytes");
+
+struct Params {
+  CUtensorMap tq, tk, tv, tdo;
+  const float* lse;
+  const float* dd;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  // two segments per block: (b·kv, key tile, first q-tile, end q-tile), a
+  // negative key tile for none; each walks the group's n_rep query heads
+  const int4* sched;
+  int s, kv, n_rep;
+  float scale, scale_log2;
+  int causal;
+};
+
+// Rows key0 and key0 + 8 of a warpgroup's 64 x 128 f32 accumulator as bf16
+// at dst + key · row_stride (dst already at this thread's first column).
+__device__ __forceinline__ void store_rows(const float (&x)[64], __nv_bfloat16* dst, int key0,
+                                           int s, int64_t row_stride) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= s) continue;
+    __nv_bfloat16* row = dst + key * row_stride;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(row + n * 8) = pack_bf16(x[4 * n + 2 * r], x[4 * n + 2 * r + 1]);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkdv_sm90(const __grid_constant__ Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  uint8_t* sK = smem;
+  uint8_t* sV = smem + KV_BYTES;
+  float* xchg = reinterpret_cast<float*>(smem);    // the K/V bytes once a segment's steps are done
+  uint8_t* sStage = smem + 2 * KV_BYTES;           // stage st: Q at st · 2 QT_BYTES, dO after it
+  float* sRows = reinterpret_cast<float*>(sStage + STAGES * 2 * QT_BYTES);   // stage st: lse, D
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sRows + STAGES * 2 * BQ);
+  uint64_t* kv_full = bars;
+  uint64_t* kv_empty = bars + 1;
+  uint64_t* full = bars + 2;
+  uint64_t* empty = bars + 2 + STAGES;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&full[st], 1 + 32);      // the TMA's expect-tx, then each lane's lse/D copies
+      mbar_init(&empty[st], 4);          // the warps of the warpgroup that took the step
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Step i of a segment is query head r = i / len, q-tile first + i % len;
+  // the block's steps are numbered on through both segments, step n lands
+  // in stage n % STAGES and consumer warpgroup n % 2 takes it.
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // producer: one warp streams K/V per segment and (Q, dO, lse, D) per
+    // step. setmaxnreg only moves the registers the block got at launch,
+    // 384 x 168: 2 x 128 x 232 + 128 x 40 fits (24 for the producer spills;
+    // a split over the launch's total leaves setmaxnreg.inc waiting forever)
+    setmaxnreg_dec<40>();
+    if (threadIdx.x / 32 == CONSUMERS * 4) {
+      const int lane = threadIdx.x % 32;
+      int step = 0;
+      for (int seg = 0; seg < 2; ++seg) {
+        const int4 e = p.sched[2 * blockIdx.x + seg];
+        if (e.y < 0) break;
+        const int bi = e.x / p.kv, kvi = e.x % p.kv;
+        if (lane == 0) {
+          mbar_wait(kv_empty, (seg & 1) ^ 1);
+          mbar_arrive_expect_tx(kv_full, 2 * KV_BYTES);
+          for (int c = 0; c < D / 64; ++c) {
+            tma_load_4d(sK + c * (KV_BYTES / 2), &p.tk, kv_full, c * 64, kvi, e.y * BK, bi);
+            tma_load_4d(sV + c * (KV_BYTES / 2), &p.tv, kv_full, c * 64, kvi, e.y * BK, bi);
+          }
+        }
+        for (int r = 0; r < p.n_rep; ++r) {
+          const int hq = kvi * p.n_rep + r;
+          const int64_t row = ((int64_t)bi * p.kv * p.n_rep + hq) * p.s;   // of lse and D
+          for (int qt = e.z; qt < e.w; ++qt, ++step) {
+            const int st = step % STAGES, q0 = qt * BQ;
+            uint8_t* stage = sStage + st * 2 * QT_BYTES;
+            float* rows = sRows + st * 2 * BQ;
+            mbar_wait(&empty[st], ((step / STAGES) & 1) ^ 1);
+            if (lane == 0) {
+              mbar_arrive_expect_tx(&full[st], 2 * QT_BYTES);
+              for (int c = 0; c < D / 64; ++c) {
+                tma_load_4d(stage + c * (QT_BYTES / 2), &p.tq, &full[st], c * 64, hq, q0, bi);
+                tma_load_4d(stage + QT_BYTES + c * (QT_BYTES / 2), &p.tdo, &full[st], c * 64, hq,
+                            q0, bi);
+              }
+            }
+            for (int i = lane; i < BQ; i += 32) {
+              const bool in = q0 + i < p.s;
+              const int64_t at = row + (in ? q0 + i : 0);
+              cp_async_f32(rows + i, p.lse + at, in);
+              cp_async_f32(rows + BQ + i, p.dd + at, in);
+            }
+            cp_async_arrive(&full[st]);
+          }
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup wg: every key of the segment, every other step
+    setmaxnreg_inc<232>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int c2 = (lane % 4) * 2;
+    const uint32_t k_base = smem_u32(sK), v_base = smem_u32(sV);
+    int step = 0;
+    for (int seg = 0; seg < 2; ++seg) {
+      const int4 e = p.sched[2 * blockIdx.x + seg];
+      if (e.y < 0) break;
+      const int bi = e.x / p.kv, kvi = e.x % p.kv;
+      const int k0 = e.y * BK;
+      const int key0 = k0 + warp * 16 + lane / 4;         // and key0 + 8
+      const int len = e.w - e.z, n_steps = p.n_rep * len;
+      float dk[64], dv[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+      mbar_wait(kv_full, seg & 1);
+
+      for (int i = (wg - step) & 1; i < n_steps; i += 2) {
+        const int n = step + i, st = n % STAGES, q0 = (e.z + i % len) * BQ;
+        const uint32_t q_base = smem_u32(sStage + st * 2 * QT_BYTES);
+        const uint32_t g_base = q_base + QT_BYTES;
+        const float* sL = sRows + st * 2 * BQ;
+        const float* sD = sL + BQ;
+        mbar_wait(&full[st], (n / STAGES) & 1);
+
+        // Sᵀ = K Qᵀ, then dPᵀ = V dOᵀ: A = K or V, B = the Q or dO tile,
+        // all K-major; Pᵀ is formed while dPᵀ runs
+        float sc[32], dp[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(sc, gmma_desc(k_base + (kk / 4) * (KV_BYTES / 2) + (kk % 4) * 32, 16, 1024),
+                       gmma_desc(q_base + (kk / 4) * (QT_BYTES / 2) + (kk % 4) * 32, 16, 1024),
+                       kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss_n64(dp, gmma_desc(v_base + (kk / 4) * (KV_BYTES / 2) + (kk % 4) * 32, 16, 1024),
+                       gmma_desc(g_base + (kk / 4) * (QT_BYTES / 2) + (kk % 4) * 32, 16, 1024),
+                       kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        keep(sc);
+
+        // Pᵀ = exp(Sᵀ·scale − lse), zero where the query is past s or the
+        // key past the query; element i sits at key key0 + 8 ((i >> 1) & 1),
+        // query q0 + c
+        const bool edge = q0 + BQ > p.s || (p.causal && k0 + BK - 1 > q0);
+#pragma unroll
+        for (int i2 = 0; i2 < 32; ++i2) {
+          const int c = 8 * (i2 / 4) + c2 + (i2 & 1);
+          float pe = exp2f(fmaf(sc[i2], p.scale_log2, -sL[c] * 1.4426950408889634f));
+          if (edge && (q0 + c >= p.s || (p.causal && key0 + 8 * ((i2 >> 1) & 1) > q0 + c)))
+            pe = 0.f;
+          sc[i2] = pe;
+        }
+        wgmma_wait<0>();
+        keep(dp);
+        // dSᵀ = Pᵀ ∘ (dPᵀ − D) · scale
+#pragma unroll
+        for (int i2 = 0; i2 < 32; ++i2) {
+          const int c = 8 * (i2 / 4) + c2 + (i2 & 1);
+          dp[i2] = sc[i2] * (dp[i2] - sD[c]) * p.scale;
+        }
+
+        // dV += Pᵀ dO and dK += dSᵀ Q: A from registers, B read MN-major
+        uint32_t pa[4][4], da[4][4];
+        acc_to_a<32>(pa, sc);
+        acc_to_a<32>(da, dp);
+        keep(dv);
+        keep(dk);
+        keep(pa);
+        keep(da);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs_n128(dv, pa[kk], gmma_desc(g_base + kk * 16 * 128, QT_BYTES / 2, 1024), 1);
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs_n128(dk, da[kk], gmma_desc(q_base + kk * 16 * 128, QT_BYTES / 2, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        keep(dv);
+        keep(dk);
+        keep(pa);
+        keep(da);
+        if (lane == 0) mbar_arrive(&empty[st]);
+      }
+      step += n_steps;
+
+      // dK = dK₀ + dK₁ and dV = dV₁ + dV₀ (warpgroup order, so the sums are
+      // the same on every run), exchanged through the K/V bytes that no step
+      // reads any more: warpgroup 0 writes dK, warpgroup 1 dV
+      fence_proxy_async();
+      bar_sync(1, CONSUMERS * 128);
+      if (wg == 1) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) xchg[i * 128 + t] = dk[i];
+      }
+      bar_sync(1, CONSUMERS * 128);
+      if (wg == 0) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) dk[i] += xchg[i * 128 + t];
+      }
+      bar_sync(1, CONSUMERS * 128);
+      if (wg == 0) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) xchg[i * 128 + t] = dv[i];
+      }
+      bar_sync(1, CONSUMERS * 128);
+      if (wg == 1) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) dv[i] += xchg[i * 128 + t];
+      }
+      // the next segment's K and V may land once every exchange is read
+      fence_proxy_async();
+      bar_sync(1, CONSUMERS * 128);
+      if (threadIdx.x == 0) mbar_arrive(kv_empty);
+
+      const int64_t off = ((int64_t)bi * p.s * p.kv + kvi) * D + c2;
+      if (wg == 0)
+        store_rows(dk, p.dk + off, key0, p.s, p.kv * D);
+      else
+        store_rows(dv, p.dv + off, key0, p.s, p.kv * D);
+    }
+  }
+}
+
+// The tensor maps of q, k, v, dO, then the launch: one block per entry pair
+// of the schedule. A table cut for another tile (its block count differs
+// from BK's) is refused, not walked.
+cudaError_t launch(const ::Params& a, const void* sched, int n_blocks, cudaStream_t stream) {
+  static_assert(BK == BQ, "the schedule's tiles are square");
+  const int n = (a.s + BK - 1) / BK;
+  if (!sched || n_blocks != a.b * a.kv * (a.causal ? (n + 1) / 2 : n))
+    return cudaErrorInvalidValue;
+  Params p;
+  cudaError_t err = make_tile_map(&p.tq, a.q, a.b, a.s, a.h, a.q_sb, a.q_ss, a.q_sh, BQ);
+  if (err == cudaSuccess)
+    err = make_tile_map(&p.tdo, a.dout, a.b, a.s, a.h, a.g_sb, a.g_ss, a.g_sh, BQ);
+  if (err == cudaSuccess)
+    err = make_tile_map(&p.tk, a.k, a.b, a.s, a.kv, a.k_sb, a.k_ss, a.k_sh, BK);
+  if (err == cudaSuccess)
+    err = make_tile_map(&p.tv, a.v, a.b, a.s, a.kv, a.v_sb, a.v_ss, a.v_sh, BK);
+  if (err != cudaSuccess) return err;
+  p.lse = a.lse;
+  p.dd = a.dd;
+  p.dk = static_cast<__nv_bfloat16*>(a.dk);
+  p.dv = static_cast<__nv_bfloat16*>(a.dv);
+  p.sched = static_cast<const int4*>(sched);
+  p.s = a.s;
+  p.kv = a.kv;
+  p.n_rep = a.n_rep;
+  p.scale = a.scale;
+  p.scale_log2 = a.scale * 1.4426950408889634f;
+  p.causal = a.causal;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SMEM);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_sm90<<<n_blocks, THREADS, SMEM, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
+
+// ---------------------------------------------------------------------------
 // launch
 
 template <typename Kernel>
@@ -581,8 +883,10 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Par
 template <int D>
 cudaError_t launch_dkdv(bool bf16, const Params& p, cudaStream_t stream) {
   const dim3 grid((p.s + BLOCK - 1) / BLOCK, p.b * p.kv);
-  if (bf16)
-    return launch(flash_bwd_dkdv_mma<D>, grid, MMA_THREADS, dkdv_mma_smem<D>(), p, stream);
+  if constexpr (D <= 64) {
+    if (bf16)
+      return launch(flash_bwd_dkdv_mma<D>, grid, MMA_THREADS, dkdv_mma_smem<D>(), p, stream);
+  }
   return launch(flash_bwd_dkdv_fma<D>, grid, FMA_THREADS, dkdv_fma_smem<D>(), p, stream);
 }
 
@@ -630,7 +934,10 @@ cudaError_t make_params(Params& p, const void* q, const void* k, const void* v,
 // Both entry points: q, dO (b, s, h, d) and k, v (b, s, kv, d) with the
 // element strides (batch, seq, head) of q, k, v, dO in that order; lse and
 // dd (b·h, s) f32 contiguous; outputs contiguous. dtype: 0 = float32,
-// 1 = bfloat16. Each returns the cudaError_t of its launch.
+// 1 = bfloat16. Each returns the cudaError_t of its launch. K2 in bf16 at
+// d = 128 also reads `sched`, n_blocks pairs of int4 segments on the card
+// (attention._dkdv_schedule); the other kernels ignore it, and the wrapper
+// passes null there.
 extern "C" int tpusched_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* dd,
                                        void* dk, void* dv, int b, int s, int h, int kv,
@@ -638,7 +945,8 @@ extern "C" int tpusched_flash_bwd_dkdv(const void* q, const void* k, const void*
                                        int64_t k_sb, int64_t k_ss, int64_t k_sh,
                                        int64_t v_sb, int64_t v_ss, int64_t v_sh,
                                        int64_t g_sb, int64_t g_ss, int64_t g_sh,
-                                       float scale, int causal, int dtype, void* stream) {
+                                       float scale, int causal, int dtype, const void* sched,
+                                       int n_blocks, void* stream) {
   const int64_t st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                           v_sb, v_ss, v_sh, g_sb, g_ss, g_sh};
   Params p;
@@ -652,7 +960,9 @@ extern "C" int tpusched_flash_bwd_dkdv(const void* q, const void* k, const void*
   switch (d) {
     case 32: return (int)launch_dkdv<32>(bf16, p, stm);
     case 64: return (int)launch_dkdv<64>(bf16, p, stm);
-    case 128: return (int)launch_dkdv<128>(bf16, p, stm);
+    case 128:
+      if (bf16) return (int)hopper::launch(p, sched, n_blocks, stm);
+      return (int)launch_dkdv<128>(false, p, stm);
     default: return (int)cudaErrorInvalidValue;
   }
 }

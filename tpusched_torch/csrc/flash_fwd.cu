@@ -8,36 +8,48 @@
 // the second product takes P rounded to the input type while l sums the
 // unrounded P.
 //
-// What bounds it on this card: at the serving prefill shape (b=1, 16 query
-// heads, 4 KV heads, d=128, s=1024, causal, bf16) the work is about
-// 4.3 GFLOP against about 10.5 MB that must move, some 400 FLOP per byte,
-// above the H100's bf16 ridge of about 295: operations bound it, so the
-// products belong on the tensor cores. The design keeps the (s, s) score
-// matrix out of device memory, as K1 does: one CUDA block owns 64 query
-// rows of one head, walks the K/V tiles in an in-block loop (the TPU grid's
-// sequential nk axis), stages each 64-row K/V tile through shared memory,
-// and never loads a causal tile past the diagonal; heavy (late) causal
-// tiles are scheduled first.
+// What bounds it on this card: operations. At the training shape (b=1,
+// s=4096, 16 query heads over 4 KV heads, d=128, causal, bf16) the two
+// causal-halved products are 68.7 GFLOP against about 42 MB that must move,
+// far above the H100's bf16 ridge of about 295 FLOP per byte (the serving
+// prefill shape, s=1024, is 4.3 GFLOP against 10.5 MB). So the products
+// belong on the tensor cores at their full rate, which only wgmma reaches,
+// and the loads must stay off the critical path. The (s, s) score matrix
+// never reaches device memory, as in K1.
 //
-// - bfloat16: four warps, 16 query rows each. S = Q Kᵀ and O += P V run as
-//   mma.sync m16n8k16 (bf16 in, f32 accumulate); Q's fragments stay in
-//   registers for the whole walk, V is staged transposed so both products
-//   read their B operand as 32-bit pairs, and the S accumulator becomes the
-//   A operand of P V without leaving registers.
+// The kernel by dtype and head dim (dispatch by shape, in the entry point):
+// - bfloat16, d = 128: hopper::flash_fwd_sm90, FlashAttention-2's algorithm
+//   in FlashAttention-3's shape. A block owns 128 query rows of one head:
+//   two consumer warpgroups of 64 rows each, then a producer warpgroup whose
+//   one thread issues TMA and which gives its registers up (setmaxnreg 24;
+//   the consumers take 240). Q lands once; K and V tiles of 128 keys stream
+//   through a two-stage ring with full/empty mbarriers, 128-byte swizzled.
+//   S = Q Kᵀ is wgmma m64n128k16 with both operands in shared memory,
+//   K-major; O += P V is the register-A form, P rounded to bf16 straight from
+//   the S accumulator, V read MN-major through the transpose bit, so nothing
+//   is ever transposed by hand. Online softmax runs in f32 on the
+//   accumulator layout, in base 2 on pre-scaled logits. Causal tiles past
+//   the diagonal are never loaded, only tiles that cross the diagonal or s
+//   are masked, and the grid dispatches every head's heaviest (latest)
+//   query tile first. TMA zero-fills rows past s.
+// - bfloat16, d = 32 or 64 (the tiny configuration's): four warps of 16
+//   query rows on mma.sync m16n8k16, V staged transposed (flash_fwd_mma).
 // - float32: the tensor cores would round to TF32, so the products run on
 //   the CUDA cores with FMA from shared memory, four threads per row.
-// wgmma, TMA and a pipelined producer warp are the next steps toward the
-// operations bound.
+// Left for later on the d = 128 path: ping-pong of the two consumer
+// warpgroups and overlap of one tile's softmax with the next tile's
+// wgmma inside a warpgroup, TMA multicast of K/V across the GQA group with
+// clusters, and fp8.
 //
 // Layout: q (b, s, h, d), k/v (b, s, kv, d), read through the element
 // strides the caller gives (the head dim must be contiguous; in bf16 every
-// row must also start on 16 bytes, for vector loads). GQA is
-// resolved by index: query head hq reads KV head hq / (h / kv). A ragged
-// last tile is masked here, so any s runs. O is written (b, s, h, d)
-// contiguous in the input type; lse (b·h, s) f32.
+// row must start on 16 bytes, for vector loads and TMA). GQA is resolved by
+// index: query head hq reads KV head hq / (h / kv); K and V are never
+// expanded. A ragged last tile is masked here, so any s runs. O is written
+// (b, s, h, d) contiguous in the input type; lse (b·h, s) f32.
 #include <math.h>
 
-#include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -239,6 +251,7 @@ __device__ __forceinline__ void stage(const Params& p, const __nv_bfloat16* src,
 
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma(const Params p) {
+  static_assert(D <= 64, "bf16 at d=128 runs on hopper::flash_fwd_sm90");
   constexpr int LD = mma_ld<D>();
   constexpr int KD = D / 16;             // k-steps of Q Kᵀ
   constexpr int ND = D / 8;              // n-tiles of the output
@@ -377,6 +390,219 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16, d = 128: wgmma and TMA with a producer warp (sm90.cuh)
+
+namespace hopper {
+
+constexpr int D = 128;
+constexpr int BM = 128;                  // query rows per block: 64 per consumer warpgroup
+constexpr int BN = 128;                  // keys per K/V tile
+constexpr int STAGES = 2;                // K/V tiles in flight
+constexpr int CONSUMERS = 2;             // consumer warpgroups; one producer warpgroup follows
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr uint32_t Q_BYTES = BM * D * 2;
+constexpr uint32_t KV_BYTES = BN * D * 2;          // one K or V tile
+constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 64;
+
+struct Params {
+  CUtensorMap tq, tk, tv;
+  void* o;
+  float* lse;
+  int s, h, n_rep;
+  float scale, scale_log2;
+  int causal;
+};
+
+// block (b·h, q-tile): blockIdx.y counts q-tiles from the last, so every
+// head's heaviest causal rows are dispatched before any lighter ones
+__global__ void __launch_bounds__(THREADS, 1) flash_fwd_sm90(const __grid_constant__ Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  // every box starts on 1024 bytes, the swizzle atom
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  uint8_t* sQ = smem;
+  uint8_t* sKV = smem + Q_BYTES;         // stage st: K at st * 2 * KV_BYTES, V after it
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sKV + 2 * STAGES * KV_BYTES);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+
+  const int nq = (p.s + BM - 1) / BM;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * BM;
+  const int bh = blockIdx.x, bi = bh / p.h, hi = bh % p.h;
+  // causal tiles past the diagonal are never loaded
+  const int n_tiles = p.causal ? (min(q0 + BM, p.s) - 1) / BN + 1 : (p.s + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], CONSUMERS * 4);           // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {
+    // producer: one thread keeps the K/V ring full; the split moves only the
+    // registers the block got at launch: 2 x 128 x 240 + 128 x 24 = 384 x 168
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      const int kvi = hi / p.n_rep;
+      mbar_arrive_expect_tx(q_full, Q_BYTES);
+      for (int c = 0; c < D / 64; ++c)
+        tma_load_4d(sQ + c * (Q_BYTES / 2), &p.tq, q_full, c * 64, hi, q0, bi);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % STAGES;
+        mbar_wait(&empty[st], ((j / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], 2 * KV_BYTES);
+        uint8_t* sK = sKV + st * 2 * KV_BYTES;
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(sK + c * (KV_BYTES / 2), &p.tk, &full[st], c * 64, kvi, j * BN, bi);
+          tma_load_4d(sK + KV_BYTES + c * (KV_BYTES / 2), &p.tv, &full[st], c * 64, kvi, j * BN,
+                      bi);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup wg: query rows q0 + 64 wg .. + 63
+    setmaxnreg_inc<240>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int c2 = (lane % 4) * 2;
+    const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;   // and row0 + 8
+    const uint32_t q_base = smem_u32(sQ) + wg * 64 * 128;
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+    mbar_wait(q_full, 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % STAGES;
+      const uint32_t k_base = smem_u32(sKV + st * 2 * KV_BYTES);
+      const uint32_t v_base = k_base + KV_BYTES;
+      mbar_wait(&full[st], (j / STAGES) & 1);
+
+      // S = Q Kᵀ: A = Q, B = K, both K-major
+      float sc[64];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * (Q_BYTES / 2) + (kk % 4) * 32;
+        wgmma_ss_n128(sc, gmma_desc(q_base + off, 16, 1024),
+                      gmma_desc(k_base + (kk / 4) * (KV_BYTES / 2) + (kk % 4) * 32, 16, 1024),
+                      kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(sc);
+
+      // online softmax on the accumulator layout, in base 2 on scaled
+      // logits; only a tile that crosses the diagonal or s is masked
+      const int k0 = j * BN;
+      if (k0 + BN > p.s || (p.causal && k0 + BN - 1 > q0 + wg * 64)) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int col = k0 + 8 * (i / 4) + c2 + (i & 1);
+          const int row = row0 + 8 * ((i >> 1) & 1);
+          if (col >= p.s || (p.causal && col > row)) sc[i] = -INFINITY;
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      float m_sub[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // a row's four threads are neighbouring lanes of one warp
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        // a row masked so far keeps p = alpha = 0
+        m_sub[r] = m_new == -INFINITY ? 0.f : m_new * p.scale_log2;
+        alpha[r] = m[r] == -INFINITY ? 0.f : exp2f((m[r] - m_new) * p.scale_log2);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const float pe = exp2f(fmaf(sc[i], p.scale_log2, -m_sub[(i >> 1) & 1]));
+        sum[(i >> 1) & 1] += pe;
+        sc[i] = pe;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[r] = alpha[r] * l[r] + sum[r];     // l sums the unrounded P
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+      // O += P V: A = P (bf16, from the accumulator), B = V read MN-major
+      uint32_t pa[8][4];
+      acc_to_a<64>(pa, sc);
+      keep(o);
+      keep(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs_n128(o, pa[kk], gmma_desc(v_base + kk * 16 * 128, KV_BYTES / 2, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(o);
+      keep(pa);
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= p.s) continue;
+      const float safe_l = l[r] == 0.f ? 1.f : l[r];
+      __nv_bfloat16* out =
+          static_cast<__nv_bfloat16*>(p.o) + (((int64_t)bi * p.s + row) * p.h + hi) * D + c2;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(out + n * 8) =
+            pack_bf16(o[4 * n + 2 * r] / safe_l, o[4 * n + 2 * r + 1] / safe_l);
+      if (lane % 4 == 0)
+        p.lse[(int64_t)bh * p.s + row] = (m[r] == -INFINITY ? 0.f : m[r] * p.scale) + logf(safe_l);
+    }
+  }
+}
+
+// The tensor maps of q, k, v, then the launch: one block per 128 query rows
+// of one head.
+cudaError_t launch(const ::Params& a, cudaStream_t stream) {
+  Params p;
+  const int kv = a.h / a.n_rep;
+  cudaError_t err = make_tile_map(&p.tq, a.q, a.b, a.s, a.h, a.q_sb, a.q_ss, a.q_sh, BM);
+  if (err == cudaSuccess)
+    err = make_tile_map(&p.tk, a.k, a.b, a.s, kv, a.k_sb, a.k_ss, a.k_sh, BN);
+  if (err == cudaSuccess)
+    err = make_tile_map(&p.tv, a.v, a.b, a.s, kv, a.v_sb, a.v_ss, a.v_sh, BN);
+  if (err != cudaSuccess) return err;
+  p.o = a.o;
+  p.lse = a.lse;
+  p.s = a.s;
+  p.h = a.h;
+  p.n_rep = a.n_rep;
+  p.scale = a.scale;
+  p.scale_log2 = a.scale * 1.4426950408889634f;
+  p.causal = a.causal;
+  err = cudaFuncSetAttribute(flash_fwd_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.b * a.h, (a.s + BM - 1) / BM);
+  flash_fwd_sm90<<<grid, THREADS, SMEM, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
+
+// ---------------------------------------------------------------------------
 // launch
 
 template <typename Kernel>
@@ -436,7 +662,9 @@ extern "C" int tpusched_flash_fwd(const void* q, const void* k, const void* v, v
   switch (d) {
     case 32: return (int)launch_dim<32>(bf16, p, st);
     case 64: return (int)launch_dim<64>(bf16, p, st);
-    case 128: return (int)launch_dim<128>(bf16, p, st);
+    case 128:
+      if (bf16) return (int)hopper::launch(p, st);
+      return (int)launch(flash_fwd_fma<128>, FMA_THREADS, fma_smem_bytes<128>(), p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
