@@ -10,7 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    the time to build the kernels from ``tpusched_torch/csrc`` and each
    kernel's registers and spills as ``ptxas`` reports them; it fails if a
-   Hopper kernel (wgmma, TMA) spills or ``ptxas`` ignored ``setmaxnreg``;
+   Hopper kernel (wgmma, TMA) spills, ``ptxas`` ignored ``setmaxnreg`` or
+   serialized a kernel's ``wgmma``, or a kernel's ``setmaxnreg`` split asks
+   for more registers than its launch holds;
 2. every kernel against its plain PyTorch version on the card: the flash
    forward (K1), then the backward's dK/dV (K2) and dQ (K3) kernels, whose
    gradients must also come out bitwise equal when run twice;
@@ -29,7 +31,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. kernel timing with CUDA events, K1 at the serving shape (also inside a
    CUDA graph, which leaves out the host's enqueue time) and K1, K2, K3 at
    the training shape, beside the plain versions, one PyTorch library call
-   and the card's bound; K2's schedule balance at the training shape.
+   and the card's bound, and K2 then K3 together beside the library's whole
+   backward; K2's schedule balance at the training shape.
 
 The second-to-last line is the ``kernels`` JSON object, the last line the
 ``ok`` JSON object. Imports neither JAX nor the JAX package.
@@ -54,8 +57,11 @@ import torch
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # H100 SXM, dense
 PEAK_BYTES_PER_S = 3.35e12
 SERVE_BUCKETS = (256, 1024)
-# the kernels redesigned for Hopper (wgmma, TMA, setmaxnreg), bf16 d=128
-HOPPER_KERNELS = ("flash_fwd_sm90", "flash_bwd_dkdv_sm90")
+# the kernels redesigned for Hopper (wgmma, TMA, setmaxnreg), bf16 d=128,
+# each with its setmaxnreg split: (consumer, producer) registers a thread,
+# two consumer warpgroups and one producer warpgroup of 128 threads
+HOPPER_KERNELS = {"flash_fwd_sm90": (240, 24), "flash_bwd_dkdv_sm90": (232, 40),
+                  "flash_bwd_dq_sm90": (240, 24)}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -126,19 +132,27 @@ def phase_environment(build):
                       "device": torch.cuda.get_device_name(0),
                       "kernel_build_s": build_s, "built": sorted(built),
                       "registers_spill_stores": usage}))
-    for name in HOPPER_KERNELS:
+    for name, (consumer, producer) in HOPPER_KERNELS.items():
         check(name in usage, f"ptxas reported nothing for {name}")
         check(usage[name][1] == 0, f"{name} spills: {usage[name]}")
+        # setmaxnreg moves only the registers the block got at launch; a
+        # split over them leaves setmaxnreg.inc waiting forever
+        check((2 * consumer + producer) * 128 <= 3 * 128 * usage[name][0],
+              f"{name}: setmaxnreg split {consumer}/{producer} exceeds the "
+              f"384 x {usage[name][0]} registers of its launch")
     text = "\n".join(logs.values())
     check("C7508" not in text and "setmaxnreg ignored" not in text,
           "ptxas ignored setmaxnreg")
+    serialized = [line for line in text.splitlines()
+                  if "wgmma.mma_async instructions are serialized" in line]
+    check(not serialized, f"ptxas serialized wgmma: {serialized}")
 
 
 def ptxas_usage(logs) -> dict:
     """{"kernel<head_dim>" or "kernel": [registers, spill store bytes]} from
     the ``-Xptxas -v`` lines of the build logs. Registers are those the
     kernel starts with; a Hopper kernel's consumer warpgroups then take more
-    through setmaxnreg (240 in K1, 232 in K2)."""
+    through setmaxnreg (:data:`HOPPER_KERNELS`)."""
     usage, name = {}, None
     for line in "\n".join(logs.values()).splitlines():
         m = re.search(r"\d(flash_\w+?)(?:ILi(\d+)E|E)", line)
@@ -258,6 +272,8 @@ def phase_backward_vs_plain(attention):
         (1, 1024, 8, 1, 128, bf16, True, 0, False),    # MQA 8:1
         (2, 512, 8, 2, 128, bf16, True, 8, False),     # strided, 16-byte aligned
         (1, 4096, 16, 4, 128, bf16, False, 0, False),  # non-causal, training shape
+        (1, 192, 16, 4, 128, bf16, True, 0, False),    # 64-row tiles, not 128
+        (2, 320, 8, 2, 128, bf16, False, 0, False),    # the same, non-causal
         (2, 200, 4, 2, 64, bf16, True, 0, False),      # head_dim 64, ragged
         (1, 32, 2, 2, 32, f32, True, 0, False),        # tiny's shape
         (2, 300, 4, 2, 64, f32, True, 0, False),       # f32, ragged
@@ -549,9 +565,11 @@ def phase_training_timing(attention):
     """K1, K2 and K3 at the training shape with CUDA events, beside the
     plain versions and one library call (scaled_dot_product_attention: its
     forward for K1, its backward, which forms dq, dk and dv together, for
-    K2 and K3). Bounds: 2, 4 and 3 causal-halved (s, s, d) products. K1's
-    output at this shape is held against its plain version as in phase 2,
-    and its max abs error is returned with its times."""
+    K2 and K3). Bounds: 2, 4 and 3 causal-halved (s, s, d) products. Since
+    no library call forms dq alone, K2 then K3, as the backward launches
+    them, is also timed as one and printed beside the library's backward.
+    K1's output at this shape is held against its plain version as in
+    phase 2, and its max abs error is returned with its times."""
     b, s, h, kv, d, dtype = 1, 4096, 16, 4, 128, torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(6)
     q, k, v = rand_qkv(gen, b, s, h, kv, d, dtype)
@@ -565,13 +583,22 @@ def phase_training_timing(attention):
     dd = attention._to_bh((do.float() * out.float()).sum(
         dim=-1, keepdim=True)).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+    def k2():
+        attention._launch_bwd("dkdv", q, k, v, do, lse, dd, (dk, dv), True)
+
+    def k3():
+        attention._launch_bwd("dq", q, k, v, do, lse, dd, (dq,), True)
+
+    def k2_k3():
+        k2()
+        k3()
     ms = {
         "flash_fwd": cuda_ms(lambda: attention.flash_forward(q, k, v, True)),
-        "flash_bwd_dkdv": cuda_ms(lambda: attention._launch_bwd(
-            "dkdv", q, k, v, do, lse, dd, (dk, dv), True)),
-        "flash_bwd_dq": cuda_ms(lambda: attention._launch_bwd(
-            "dq", q, k, v, do, lse, dd, (dq,), True)),
+        "flash_bwd_dkdv": cuda_ms(k2),
+        "flash_bwd_dq": cuda_ms(k3),
     }
+    pair_ms = cuda_ms(k2_k3)
     fwd_plain = cuda_ms(lambda: attention.flash_attention_plain(q, k, v, True),
                         iters=10)
     bwd_plain = cuda_ms(lambda: attention.flash_backward_plain(
@@ -615,6 +642,11 @@ def phase_training_timing(attention):
     check(ratio <= 1.3, "K2's schedule is out of balance")
     print(json.dumps({"timing": "training shape", "shape": [b, s, h, kv, d],
                       **timing}))
+    print(json.dumps({"timing": "backward at the training shape",
+                      "flash_bwd_dkdv_then_dq_ms": pair_ms,
+                      "sdpa_backward_ms": bwd_lib,
+                      "bound_ms": (timing["flash_bwd_dkdv"]["bound_ms"]
+                                   + timing["flash_bwd_dq"]["bound_ms"])}))
     return timing
 
 

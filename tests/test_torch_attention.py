@@ -200,6 +200,28 @@ def test_flash_backward_plain_matches_reference_kernels(h, kv, causal,
 
 
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [192, 320])
+def test_flash_backward_plain_matches_reference_at_64_row_blocks(s, causal):
+    """The same parity at lengths that are multiples of 64 but not of 128,
+    the edges the bf16 d=128 dQ kernel's 128-row block and 64-key tiles
+    cut: the reference runs at 64-row blocks (interpret mode), GQA 4:2,
+    f32, 2e-4."""
+    q, k, v = _qkv(17, b=1, s=s, h=4, kv=2)
+    do = _qkv(18, b=1, s=s, h=4, kv=2)[0]
+    ref_out, ref_lse = jattn._flash_forward(*_j(q, k, v), causal, 64, 64,
+                                            None)
+    out, lse = attention.flash_forward(*_t(q, k, v), causal)
+    ref = jattn._flash_backward(*_j(q, k, v), ref_out, ref_lse,
+                                jnp.asarray(do), causal, 64, 64, None)
+    got = attention._flash_backward(*_t(q, k, v), out, lse,
+                                    torch.from_numpy(do), causal)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=2e-4,
+                                   rtol=2e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("h,kv", [(4, 4), (4, 2)], ids=["mha", "gqa"])
 def test_flash_gradients_match_jax_grad(h, kv, causal):
     """Gradients through the port's flash_attention (the autograd Function

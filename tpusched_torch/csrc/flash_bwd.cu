@@ -9,10 +9,15 @@
 //   over the GQA group's query heads inside the kernel, as the reference
 //   does: no atomics, no (b, s, h, d)-sized intermediate, and the same bits
 //   on every run.
-// - K3, entry tpusched_flash_bwd_dq, replaces _flash_bwd_dq_kernel. One
-//   block owns 64 query rows of one query head and walks the key tiles up to
-//   the diagonal: dQ += dS K, dQ in f32 registers. Kept apart from K2 (no
-//   atomic dQ), so every gradient is deterministic.
+// - K3, entry tpusched_flash_bwd_dq, replaces
+//   tpusched/jaxbridge/attention.py:_flash_bwd_dq_kernel: dQ = Σ_j dS_j K_j
+//   over the key tiles a query row sees, P recomputed from lse, D given. A
+//   block owns query rows of one query head and walks the key tiles up to
+//   the diagonal with dQ in f32 registers. Kept apart from K2: dQ inside K2
+//   would save K3's two recomputed products (S and dP), but only with
+//   atomic adds into a scratch buffer, whose sums then depend on the order
+//   the blocks run in; apart, each dQ element is summed by one warpgroup in
+//   key order, and every gradient has the same bits on every run.
 //
 // Both read lse and D = Σ_d dO ∘ O from the caller and never derive them
 // (ring attention hands in global ones). Rows of a ragged last tile are
@@ -21,9 +26,10 @@
 //
 // What bounds them on this card: operations. At the training shape (b=1,
 // s=4096, 16 query heads over 4 KV heads, d=128, causal, bf16) K2 does four
-// causal-halved (s, s, d) products per head, 137.5 GFLOP, and K3 three,
-// 103 GFLOP, against some 50 MB that must move: far above the bf16 ridge,
-// so the products belong on the tensor cores at the rate only wgmma gives.
+// causal-halved (s, s, d) products per head, 137.5 GFLOP, against about
+// 51 MB that must move, and K3 three, 103.1 GFLOP, against about 59 MB (q,
+// dO, dq, k, v, lse, D): far above the bf16 ridge, so the products belong
+// on the tensor cores at the rate only wgmma gives.
 //
 // K2 by dtype and head dim (dispatch by shape, in the entry point):
 // - bfloat16, d = 128: hopper::flash_bwd_dkdv_sm90. Work is cut into
@@ -50,10 +56,37 @@
 //   (flash_bwd_dkdv_mma), one block per (64-key tile, KV head).
 // - float32: the tensor cores would round to TF32, so the products run on
 //   the CUDA cores with FMA from shared memory, four threads per row.
-// K3 keeps mma.sync at every head dim; it is the next kernel to redesign.
-// Left for later on K2's d = 128 path: overlap of one step's dV/dK products
-// with the next step's Sᵀ inside a warpgroup, TMA multicast of K/V or of
-// Q/dO across blocks with clusters, and fp8.
+//
+// K3 by dtype and head dim:
+// - bfloat16, d = 128: hopper::flash_bwd_dq_sm90. A block is one query
+//   head's 128-row q-tile, the heaviest causal tiles dispatched first, with
+//   two consumer warpgroups of 64 rows each and a producer warpgroup
+//   (setmaxnreg 240 and 24). One producer thread loads the block's Q and
+//   dO once by TMA, then streams K and V of the query head's KV head in
+//   64-key tiles, up to the block's diagonal, into a three-stage ring of
+//   full/empty mbarriers. Per key tile a consumer warpgroup runs S = Q Kᵀ
+//   and dP = dO Vᵀ as wgmma m64n64k16 from shared memory, both operands
+//   K-major, forms P = exp(S·scale − lse) while dP is still running (lse
+//   and D of its two rows sit in registers from the start), then dS =
+//   P ∘ (dP − D) · scale, rounds dS to bf16 straight from the accumulator
+//   into A registers, and adds dS K with wgmma m64n128k16 whose B, K, is
+//   read MN-major through the transpose bit: no K tile is transposed by
+//   hand. The next tile's S and dP are issued right behind dS K, so a
+//   warpgroup's products run back to back instead of draining after each
+//   tile (PERF.md has both times); barriers are touched only while no
+//   product is in flight, or ptxas serializes every wgmma (C7514, C7518).
+//   The last causal tile lies wholly above warpgroup 0's rows; it skips
+//   the products there but still releases the stage. No host table: the
+//   block's work follows from its indices, so the C signature is K3's of
+//   the mma.sync version.
+// - bfloat16, d = 32 or 64: flash_bwd_dq_mma, four warps of 16 query rows
+//   on mma.sync m16n8k16 with K staged transposed, one block per 64-row
+//   q-tile.
+// - float32: flash_bwd_dq_fma, FMA on the CUDA cores, as K2's.
+//
+// Left for later on both d = 128 paths: in K2, the same issue-ahead of the
+// next step's products that K3 does; TMA multicast of K/V or of Q/dO
+// across blocks with clusters; a persistent grid; fp8.
 //
 // Layout: q, dO (b, s, h, d) and k, v (b, s, kv, d), read through the
 // element strides the caller gives (the head dim contiguous; in bf16 every
@@ -240,9 +273,11 @@ __host__ __device__ constexpr size_t dq_mma_smem() {
          2 * BLOCK * sizeof(float);
 }
 
-// K3 in bf16: block (q-tile, b·h); warp w owns query rows 16w .. 16w + 15.
+// K3 in bf16 at d <= 64: block (q-tile, b·h); warp w owns query rows
+// 16w .. 16w + 15.
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma(const Params p) {
+  static_assert(D <= 64, "bf16 at d=128 runs on hopper::flash_bwd_dq_sm90");
   constexpr int LD = mma_ld<D>();
   constexpr int KD = D / 16;             // k-steps over the head dim
   constexpr int ND = D / 8;              // n-tiles of dQ
@@ -607,8 +642,9 @@ struct Params {
   int causal;
 };
 
-// Rows key0 and key0 + 8 of a warpgroup's 64 x 128 f32 accumulator as bf16
-// at dst + key · row_stride (dst already at this thread's first column).
+// Rows key0 and key0 + 8 of a warpgroup's 64 x 128 f32 accumulator (dK or
+// dV in K2, dQ in K3, whose rows are queries) as bf16 at
+// dst + key · row_stride (dst already at this thread's first column).
 __device__ __forceinline__ void store_rows(const float (&x)[64], __nv_bfloat16* dst, int key0,
                                            int s, int64_t row_stride) {
 #pragma unroll
@@ -865,6 +901,244 @@ cudaError_t launch(const ::Params& a, const void* sched, int n_blocks, cudaStrea
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K3 in bf16 at d = 128: wgmma and TMA with a producer warpgroup
+
+constexpr int DQ_BM = 128;               // query rows of a block: 64 per consumer warpgroup
+constexpr int DQ_BN = 64;                // keys of a K/V tile
+constexpr int DQ_STAGES = 3;             // K/V tiles in flight
+constexpr uint32_t DQ_Q_BYTES = DQ_BM * D * 2;     // the block's Q or dO
+constexpr uint32_t DQ_KV_BYTES = DQ_BN * D * 2;    // one K or V tile
+constexpr size_t DQ_SMEM = 1024 + 2 * DQ_Q_BYTES + 2 * DQ_STAGES * DQ_KV_BYTES + 64;
+
+struct DqParams {
+  CUtensorMap tq, tdo, tk, tv;
+  const float* lse;
+  const float* dd;
+  __nv_bfloat16* dq;
+  int s, h, n_rep;
+  float scale, scale_log2;
+  int causal;
+};
+
+// S = Q Kᵀ, then dP = dO Vᵀ, of the key tile whose K starts at k_base (V
+// after it), one commit group each: A = this warpgroup's rows of Q or dO,
+// B = K or V, all K-major
+__device__ __forceinline__ void dq_scores(float (&sc)[32], float (&dp)[32], uint32_t q_base,
+                                          uint32_t g_base, uint32_t k_base) {
+  const uint32_t v_base = k_base + DQ_KV_BYTES;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(sc, gmma_desc(q_base + (kk / 4) * (DQ_Q_BYTES / 2) + (kk % 4) * 32, 16, 1024),
+                 gmma_desc(k_base + (kk / 4) * (DQ_KV_BYTES / 2) + (kk % 4) * 32, 16, 1024),
+                 kk > 0);
+  wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss_n64(dp, gmma_desc(g_base + (kk / 4) * (DQ_Q_BYTES / 2) + (kk % 4) * 32, 16, 1024),
+                 gmma_desc(v_base + (kk / 4) * (DQ_KV_BYTES / 2) + (kk % 4) * 32, 16, 1024),
+                 kk > 0);
+  wgmma_commit();
+}
+
+// block (b·h, q-tile): blockIdx.y counts q-tiles from the last, so every
+// head's heaviest causal rows are dispatched before any lighter ones
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_sm90(const __grid_constant__ DqParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  // every box starts on 1024 bytes, the swizzle atom
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  uint8_t* sQ = smem;
+  uint8_t* sG = smem + DQ_Q_BYTES;                 // dO
+  uint8_t* sKV = smem + 2 * DQ_Q_BYTES;            // stage st: K at st · 2 DQ_KV_BYTES, V after it
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sKV + 2 * DQ_STAGES * DQ_KV_BYTES);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + DQ_STAGES;
+
+  const int nq = (p.s + DQ_BM - 1) / DQ_BM;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * DQ_BM;
+  const int bh = blockIdx.x, bi = bh / p.h, hi = bh % p.h;
+  // causal tiles past the block's diagonal are never loaded
+  const int n_tiles =
+      p.causal ? (min(q0 + DQ_BM, p.s) - 1) / DQ_BN + 1 : (p.s + DQ_BN - 1) / DQ_BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < DQ_STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], CONSUMERS * 4);        // one arrival per consumer warp, tile skipped or not
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // broadcast from lane 0, so ptxas knows every branch on it is warp-uniform:
+  // from threadIdx.x / 128 alone it builds, with no warning, a kernel that
+  // runs about a third slower (PERF.md has both times)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == CONSUMERS) {
+    // producer: one thread loads Q and dO, then keeps the K/V ring full; the
+    // split moves only the registers the block got at launch: 2 x 128 x 240
+    // + 128 x 24 = 384 x 168
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      const int kvi = hi / p.n_rep;
+      mbar_arrive_expect_tx(q_full, 2 * DQ_Q_BYTES);
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load_4d(sQ + c * (DQ_Q_BYTES / 2), &p.tq, q_full, c * 64, hi, q0, bi);
+        tma_load_4d(sG + c * (DQ_Q_BYTES / 2), &p.tdo, q_full, c * 64, hi, q0, bi);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % DQ_STAGES;
+        mbar_wait(&empty[st], ((j / DQ_STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], 2 * DQ_KV_BYTES);
+        uint8_t* sK = sKV + st * 2 * DQ_KV_BYTES;
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load_4d(sK + c * (DQ_KV_BYTES / 2), &p.tk, &full[st], c * 64, kvi, j * DQ_BN, bi);
+          tma_load_4d(sK + DQ_KV_BYTES + c * (DQ_KV_BYTES / 2), &p.tv, &full[st], c * 64, kvi,
+                      j * DQ_BN, bi);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup wg: query rows r0 .. r0 + 63
+    setmaxnreg_inc<240>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int c2 = (lane % 4) * 2;
+    const int r0 = q0 + wg * 64;
+    const int row0 = r0 + warp * 16 + lane / 4;    // and row0 + 8
+    // this warpgroup's half of Q and dO starts on its own 1024-byte atom
+    const uint32_t q_base = smem_u32(sQ) + wg * 64 * 128;
+    const uint32_t g_base = smem_u32(sG) + wg * 64 * 128;
+    // key tiles this warpgroup's rows see; none if every row is past s
+    const int wg_tiles =
+        r0 >= p.s ? 0 : p.causal ? (min(r0 + 64, p.s) - 1) / DQ_BN + 1 : n_tiles;
+    // lse (in base 2) and D of this thread's two rows; a row past s would
+    // read the next head's, so it reads none
+    float lse2[2], dd[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      const bool in = row < p.s;
+      lse2[r] = in ? p.lse[(int64_t)bh * p.s + row] * 1.4426950408889634f : 0.f;
+      dd[r] = in ? p.dd[(int64_t)bh * p.s + row] : 0.f;
+    }
+    float dq[64], sc[32], dp[32];
+    uint32_t da[4][4];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    mbar_wait(q_full, 0);
+
+    // Tile j + 1's S and dP are queued right behind tile j's dS K, so the
+    // warpgroup's products run back to back and the tensor cores wait only
+    // on P and dS. Commit groups complete in order. Between iterations
+    // nothing is in flight, on every path ptxas sees: it serializes every
+    // wgmma of a kernel where a product may be in flight across a branch
+    // that lanes may take apart (C7518) or while its accumulator is read
+    // (C7514).
+    const auto stage_of = [&](int j) { return smem_u32(sKV + (j % DQ_STAGES) * 2 * DQ_KV_BYTES); };
+    // P of tile j, once its S (and any dS K before it) has landed; returns
+    // once its dP has landed too
+    const auto probs = [&](int j) {
+      wgmma_wait<1>();
+      keep(sc);
+
+      // P = exp(S·scale − lse), zero where the row or key is past s or the
+      // key past the row; element i sits at row row0 + 8 ((i >> 1) & 1), key
+      // k0 + 8 (i / 4) + c2 + (i & 1); only a tile that crosses the diagonal
+      // or s is masked
+      const int k0 = j * DQ_BN;
+      const bool edge = k0 + DQ_BN > p.s || r0 + 64 > p.s || (p.causal && k0 + DQ_BN - 1 > r0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        float pe = exp2f(fmaf(sc[i], p.scale_log2, -lse2[r]));
+        const int row = row0 + 8 * r, col = k0 + 8 * (i / 4) + c2 + (i & 1);
+        if (edge && (row >= p.s || col >= p.s || (p.causal && col > row))) pe = 0.f;
+        sc[i] = pe;
+      }
+      wgmma_wait<0>();
+      keep(dp);
+      keep(dq);
+      keep(da);
+    };
+    // dS of tile j, then dQ += dS K issued (A from registers, B = K read
+    // MN-major); barriers are waited on and released only here, with
+    // nothing in flight: tile j − 1's stage is free, tile j + 1's must have
+    // landed
+    const auto update = [&](int j) {
+      if (j > 0 && lane == 0) mbar_arrive(&empty[(j - 1) % DQ_STAGES]);
+      if (j + 1 < wg_tiles) mbar_wait(&full[(j + 1) % DQ_STAGES], ((j + 1) / DQ_STAGES) & 1);
+      // dS = P ∘ (dP − D) · scale
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - dd[(i >> 1) & 1]) * p.scale;
+      acc_to_a<32>(da, dp);
+      keep(dq);
+      keep(da);
+      wgmma_fence();
+      const uint32_t k_base = stage_of(j);
+#pragma unroll
+      for (int kk = 0; kk < DQ_BN / 16; ++kk)
+        wgmma_rs_n128(dq, da[kk], gmma_desc(k_base + kk * 16 * 128, DQ_KV_BYTES / 2, 1024), 1);
+      wgmma_commit();
+    };
+    if (wg_tiles > 0) {
+      mbar_wait(&full[0], 0);
+      dq_scores(sc, dp, q_base, g_base, stage_of(0));
+      probs(0);
+      for (int j = 0; j + 1 < wg_tiles; ++j) {
+        update(j);
+        dq_scores(sc, dp, q_base, g_base, stage_of(j + 1));
+        probs(j + 1);
+      }
+      update(wg_tiles - 1);
+      wgmma_wait<0>();
+      keep(dq);
+      keep(da);
+    }
+    // the last product's stage, then the tiles that lie wholly above this
+    // warpgroup's rows: each still waited for and released
+    for (int j = max(wg_tiles - 1, 0); j < n_tiles; ++j) {
+      if (j >= wg_tiles) mbar_wait(&full[j % DQ_STAGES], (j / DQ_STAGES) & 1);
+      if (lane == 0) mbar_arrive(&empty[j % DQ_STAGES]);
+    }
+
+    const int64_t off = ((int64_t)bi * p.s * p.h + hi) * D + c2;
+    store_rows(dq, p.dq + off, row0, p.s, (int64_t)p.h * D);
+  }
+}
+
+// The tensor maps of q, dO, k, v, then the launch: one block per 128 query
+// rows of one head.
+cudaError_t launch_dq(const ::Params& a, cudaStream_t stream) {
+  DqParams p;
+  cudaError_t err = make_tile_map(&p.tq, a.q, a.b, a.s, a.h, a.q_sb, a.q_ss, a.q_sh, DQ_BM);
+  if (err == cudaSuccess)
+    err = make_tile_map(&p.tdo, a.dout, a.b, a.s, a.h, a.g_sb, a.g_ss, a.g_sh, DQ_BM);
+  if (err == cudaSuccess)
+    err = make_tile_map(&p.tk, a.k, a.b, a.s, a.kv, a.k_sb, a.k_ss, a.k_sh, DQ_BN);
+  if (err == cudaSuccess)
+    err = make_tile_map(&p.tv, a.v, a.b, a.s, a.kv, a.v_sb, a.v_ss, a.v_sh, DQ_BN);
+  if (err != cudaSuccess) return err;
+  p.lse = a.lse;
+  p.dd = a.dd;
+  p.dq = static_cast<__nv_bfloat16*>(a.dq);
+  p.s = a.s;
+  p.h = a.h;
+  p.n_rep = a.n_rep;
+  p.scale = a.scale;
+  p.scale_log2 = a.scale * 1.4426950408889634f;
+  p.causal = a.causal;
+  err = cudaFuncSetAttribute(flash_bwd_dq_sm90, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)DQ_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.b * a.h, (a.s + DQ_BM - 1) / DQ_BM);
+  flash_bwd_dq_sm90<<<grid, THREADS, DQ_SMEM, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace hopper
 
 // ---------------------------------------------------------------------------
@@ -893,7 +1167,10 @@ cudaError_t launch_dkdv(bool bf16, const Params& p, cudaStream_t stream) {
 template <int D>
 cudaError_t launch_dq(bool bf16, const Params& p, cudaStream_t stream) {
   const dim3 grid((p.s + BLOCK - 1) / BLOCK, p.b * p.h);
-  if (bf16) return launch(flash_bwd_dq_mma<D>, grid, MMA_THREADS, dq_mma_smem<D>(), p, stream);
+  if constexpr (D <= 64) {
+    if (bf16)
+      return launch(flash_bwd_dq_mma<D>, grid, MMA_THREADS, dq_mma_smem<D>(), p, stream);
+  }
   return launch(flash_bwd_dq_fma<D>, grid, FMA_THREADS, dq_fma_smem<D>(), p, stream);
 }
 
@@ -987,7 +1264,9 @@ extern "C" int tpusched_flash_bwd_dq(const void* q, const void* k, const void* v
   switch (d) {
     case 32: return (int)launch_dq<32>(bf16, p, stm);
     case 64: return (int)launch_dq<64>(bf16, p, stm);
-    case 128: return (int)launch_dq<128>(bf16, p, stm);
+    case 128:
+      if (bf16) return (int)hopper::launch_dq(p, stm);
+      return (int)launch_dq<128>(false, p, stm);
     default: return (int)cudaErrorInvalidValue;
   }
 }
