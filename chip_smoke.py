@@ -32,7 +32,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    CUDA graph, which leaves out the host's enqueue time) and K1, K2, K3 at
    the training shape, beside the plain versions, one PyTorch library call
    and the card's bound, and K2 then K3 together beside the library's whole
-   backward; K2's schedule balance at the training shape.
+   backward; K2's schedule balance at the training shape;
+8. the MoE serving path: ``mixtral_like`` at full width and depth served as
+   in phase 3; its attention is naive, so the flash kernel must not launch;
+9. engine == solo as in phase 4 on ``tiny`` f32 with 4 experts, naive and
+   flash (launches counted);
+10. the MoE training path: ``mixtral_like(seq=1024)``, batch 1, five SGD
+    steps with a falling loss and a positive aux loss, then
+    ``measure.measure_train_step``; tiny f32 MoE gradients on the card
+    against the CPU's;
+11. MoE decode: ``measure.measure_decode`` on ``mixtral_like(seq=512)`` at
+    batch 8, with its HBM bandwidth utilization.
 
 The second-to-last line is the ``kernels`` JSON object, the last line the
 ``ok`` JSON object. Imports neither JAX nor the JAX package.
@@ -388,15 +398,20 @@ def make_requests(cfg, serve):
         for i in range(16)]
 
 
-def phase_serving(attention, serve, workload):
-    """Full-width llama_like_big serving. Returns the flash launches of the
-    main path run."""
-    cfg = workload.ModelConfig.llama_like_big()
+def phase_serving(attention, serve, workload, name="llama_like_big"):
+    """Full-width serving of the preset ``name``: the flash kernel launches
+    once per layer and slot prefill where the preset's attention is flash
+    (llama_like_big), never where it is naive (mixtral_like). Returns the
+    flash launches of the main path run."""
+    cfg = getattr(workload.ModelConfig, name)()
+    per_prefill = cfg.n_layers if cfg.attn == "flash" else 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = workload.init_params(cfg, gen, "cuda")
     reqs = make_requests(cfg, serve)
     want_tokens = sum(r.max_new_tokens for r in reqs)
     geometry = dict(slots=8, max_seq=2048, prompt_bucket=SERVE_BUCKETS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     # the main path as a user drives it: engine, warmup, submit, drain
     attention.FLASH_FWD_LAUNCHES = 0
@@ -407,10 +422,11 @@ def phase_serving(attention, serve, workload):
     done = eng.run_until_drained()
     torch.cuda.synchronize()
     launches = attention.FLASH_FWD_LAUNCHES
-    check(launches > 0, "the serving path launched no flash kernel")
-    check(launches == cfg.n_layers * eng.prefills,
-          f"{launches} flash launches for {eng.prefills} prefills of "
-          f"{cfg.n_layers} layers")
+    if per_prefill:
+        check(launches > 0, "the serving path launched no flash kernel")
+    check(launches == per_prefill * eng.prefills,
+          f"{name}: {launches} flash launches for {eng.prefills} prefills "
+          f"of {cfg.n_layers} layers with attn={cfg.attn}")
     check(sorted(c.rid for c in done) == list(range(len(reqs))),
           "not every request completed")
     for c in done:
@@ -428,12 +444,14 @@ def phase_serving(attention, serve, workload):
     stats = serve.measure_serving(cfg, params, reqs, device="cuda",
                                   **geometry)
     measured_launches = attention.FLASH_FWD_LAUNCHES
-    check(measured_launches == cfg.n_layers * stats["prefills"],
+    check(measured_launches == per_prefill * stats["prefills"],
           f"measure_serving: {measured_launches} flash launches for "
           f"{stats['prefills']} prefills")
     check(stats["tokens"] == want_tokens, "measure_serving lost tokens")
+    moe = ({"n_experts": cfg.n_experts, "top_k": cfg.moe_top_k}
+           if cfg.n_experts else {})
     print(json.dumps({
-        "serving": "llama_like_big", "requests": len(reqs),
+        "serving": name, **moe, "requests": len(reqs),
         "slots": geometry["slots"], "max_seq": geometry["max_seq"],
         "buckets": list(SERVE_BUCKETS), "prefills": prefills,
         "flash_launches": launches, "tokens": stats["tokens"],
@@ -444,13 +462,17 @@ def phase_serving(attention, serve, workload):
     return launches
 
 
-def phase_parity(attention, decode, serve, workload):
-    """Engine == solo greedy generation on tiny f32 with flash attention,
-    both through the kernel (launches counted for each). TF32 is off so
+def phase_parity(attention, decode, serve, workload, attn="flash",
+                 n_experts=0):
+    """Engine == solo greedy generation on tiny f32 (with ``n_experts``
+    experts), with flash attention through the kernel (launches counted for
+    the engine and each solo run) or naive (no launch). TF32 is off so
     float32 products are full float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(workload.ModelConfig.tiny(), attn="flash")
+    cfg = dataclasses.replace(workload.ModelConfig.tiny(), attn=attn,
+                              n_experts=n_experts)
+    per_prefill = cfg.n_layers if attn == "flash" else 0
     params = workload.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     rng = np.random.default_rng(2)
@@ -465,9 +487,9 @@ def phase_parity(attention, decode, serve, workload):
     for r in reqs:
         eng.submit(r)
     done = eng.run_until_drained()
-    check(attention.FLASH_FWD_LAUNCHES == cfg.n_layers * eng.prefills,
+    check(attention.FLASH_FWD_LAUNCHES == per_prefill * eng.prefills,
           f"tiny engine: {attention.FLASH_FWD_LAUNCHES} flash launches for "
-          f"{eng.prefills} prefills of {cfg.n_layers} layers")
+          f"{eng.prefills} prefills of {cfg.n_layers} layers, attn={attn}")
     check(sorted(c.rid for c in done) == list(range(5)),
           "tiny engine lost a request")
     for c in done:
@@ -476,13 +498,16 @@ def phase_parity(attention, decode, serve, workload):
         solo = decode.generate(
             params, torch.as_tensor(req.prompt, device="cuda")[None].long(),
             cfg, steps=req.max_new_tokens - 1)[0].cpu().numpy()
-        check(attention.FLASH_FWD_LAUNCHES == cfg.n_layers,
+        check(attention.FLASH_FWD_LAUNCHES == per_prefill,
               f"solo generate: {attention.FLASH_FWD_LAUNCHES} flash "
-              f"launches for one prefill of {cfg.n_layers} layers")
+              f"launches for one prefill of {cfg.n_layers} layers, "
+              f"attn={attn}")
         check(np.array_equal(c.tokens, solo),
               f"request {c.rid}: engine {c.tokens} != solo {solo}")
-    print(f"engine == solo on tiny f32 flash: {len(done)} requests, "
-          f"{eng.prefills} engine prefills")
+    moe = f" with {n_experts} experts" if n_experts else ""
+    print(f"engine == solo on tiny f32{moe} {attn}: {len(done)} requests, "
+          f"{eng.prefills} engine prefills, flash launches "
+          f"{per_prefill} per prefill")
 
 
 def phase_timing(attention):
@@ -650,6 +675,96 @@ def phase_training_timing(attention):
     return timing
 
 
+def phase_moe_training(measure, workload):
+    """The MoE training path: full-width mixtral_like(seq=1024), batch 1
+    (the capacity path, C = 320), five SGD steps (lr 0.1) on one repeated
+    batch with a finite, falling loss and a finite, positive aux loss after
+    them; then measure.measure_train_step. Last, the card against the CPU:
+    loss and every gradient (the router's included) of tiny f32 with 4
+    experts, TF32 off, within 1e-4 relative (L2, per leaf)."""
+    cfg = workload.ModelConfig.mixtral_like(seq=1024)
+    batch = 1
+    params = workload.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (batch, cfg.seq)), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        params, loss = workload.sgd_train_step(params, tokens, cfg, lr=0.1)
+        losses.append(loss.item())             # the fence
+        step_s.append(time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    with torch.no_grad():
+        logits, aux = workload.forward(params, tokens, cfg, with_aux=True)
+    check(logits.shape == (batch, cfg.seq, cfg.vocab)
+          and bool(torch.isfinite(logits).all()), "MoE logits not finite")
+    check(all(np.isfinite(losses)), f"non-finite MoE loss: {losses}")
+    check(losses[-1] < losses[0], f"MoE loss did not fall: {losses}")
+    check(np.isfinite(aux.item()) and aux.item() > 0,
+          f"MoE aux loss {aux.item()}")
+    del params, logits
+    per_step, tflops, mfu = measure.measure_train_step(cfg, batch)
+    print(json.dumps({
+        "training": "mixtral_like", "seq": cfg.seq, "batch": batch,
+        "n_experts": cfg.n_experts, "top_k": cfg.moe_top_k,
+        "capacity": workload.moe_capacity(cfg, batch * cfg.seq),
+        "optimizer": "sgd lr 0.1", "losses": losses, "step_s": step_s,
+        "aux": aux.item(), "peak_mem_gib": peak_gib,
+        "per_step_s": per_step,
+        "tokens_per_s": batch * cfg.seq / per_step, "tflops": tflops,
+        "mfu": mfu, "peak_tflops": measure.device_peak_tflops(),
+        "step_flops": measure.train_step_flops(cfg, batch),
+        "note": measure.moe_flops_note(cfg, batch)}))
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tiny = dataclasses.replace(workload.ModelConfig.tiny(), n_experts=4)
+    params = workload.init_params(
+        tiny, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(
+        0, tiny.vocab, (2, tiny.seq)))
+    loss, grads = workload.value_and_grad(params, tokens.cuda(), tiny)
+    cpu_params = workload.tree_map(lambda t: t.cpu(), params)
+    ref_loss, ref_grads = workload.value_and_grad(cpu_params, tokens, tiny)
+    loss_err = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    leaves = [g.cpu() for g in workload.tree_leaves(grads)]
+    g_err = grad_rel_err(leaves, workload.tree_leaves(ref_grads))
+    r_err = grad_rel_err([grads["layers"][i]["router"].cpu()
+                          for i in range(tiny.n_layers)],
+                         [ref_grads["layers"][i]["router"]
+                          for i in range(tiny.n_layers)])
+    print(f"tiny f32 MoE gradients, card vs CPU: loss rel err "
+          f"{loss_err:.3e}, worst grad rel L2 {g_err:.3e}, router "
+          f"{r_err:.3e} (tol 1e-4)")
+    check(loss_err < 1e-4 and g_err < 1e-4,
+          "MoE gradients on the card disagree with the CPU's")
+
+
+def phase_moe_decode(measure, workload):
+    """Decode throughput of full-width mixtral_like(seq=512), batch 8, 128-
+    token prompts (measure.measure_decode's slope between 64 and 256 greedy
+    steps), with its HBM bandwidth utilization and the bound that the bytes
+    of one step imply at 3.35 TB/s."""
+    cfg = workload.ModelConfig.mixtral_like(seq=512)
+    batch, prompt_len = 8, 128
+    tps, ctx = measure.measure_decode(cfg, batch, prompt_len=prompt_len)
+    util = measure.decode_bandwidth_utilization(cfg, batch, ctx, tps)
+    nbytes = measure.decode_bytes_per_token(cfg, batch, ctx)
+    check(np.isfinite(tps) and tps > 0, f"decode rate {tps}")
+    check(util is not None and 0 < util < 1,
+          f"decode bandwidth utilization {util}")
+    print(json.dumps({
+        "decode": "mixtral_like", "seq": cfg.seq, "batch": batch,
+        "prompt_len": prompt_len, "tokens_per_s": tps, "mean_ctx": ctx,
+        "step_s": batch / tps, "bytes_per_step": nbytes,
+        "bound_step_s": nbytes / PEAK_BYTES_PER_S,
+        "bandwidth_utilization": util,
+        "peak_hbm_gbps": measure.device_peak_hbm_gbps()}))
+
+
 def ab_turn(tree: str, other_root: str) -> None:
     """One turn of ``--ab``, in a process of its own: builds the kernels of
     the ``tpusched_torch`` on PYTHONPATH, then prints one JSON line of
@@ -753,6 +868,12 @@ def main(argv) -> int:
     train_launches = phase_training(attention, measure, optim, workload)
     serving_timing = phase_timing(attention)
     timing = phase_training_timing(attention)
+    # the MoE family, after the kernel timings so that those run as before
+    phase_serving(attention, serve, workload, "mixtral_like")
+    phase_parity(attention, decode, serve, workload, "naive", n_experts=4)
+    phase_parity(attention, decode, serve, workload, "flash", n_experts=4)
+    phase_moe_training(measure, workload)
+    phase_moe_decode(measure, workload)
     source = "tpusched_torch/csrc/"
     replaces = "tpusched/jaxbridge/attention.py:"
     # flash_fwd's own fields are the serving path's, at its (1, 1024, 16, 4,

@@ -43,15 +43,8 @@ def test_config_validation_matches_reference():
         wl.ModelConfig(kv_cache_dtype=torch.int8)
 
 
-def test_moe_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wl.ModelConfig(n_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wl.ModelConfig.mixtral_like()
-
-
 @pytest.mark.parametrize("preset", ["tiny", "llama_like", "llama_like_big",
-                                    "llama_like_xl"])
+                                    "llama_like_xl", "mixtral_like"])
 def test_presets_match_reference(preset):
     ref, got = getattr(jwl.ModelConfig, preset)(), \
         getattr(wl.ModelConfig, preset)()
@@ -65,20 +58,37 @@ def test_presets_match_reference(preset):
     assert got.head_dim == ref.d_model // ref.n_heads
 
 
-def test_init_params_shapes_dtypes_and_scale():
-    jcfg, cfg = _pair(n_kv_heads=1)
+@pytest.mark.parametrize("n_experts", [0, 4], ids=["dense", "moe"])
+def test_init_params_shapes_dtypes_and_scale(n_experts):
+    jcfg, cfg = _pair(n_kv_heads=1, n_experts=n_experts,
+                      dtype=torch.bfloat16)
     jp = jwl.init_params(jax.random.PRNGKey(0), jcfg)
     p = wl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     jshapes = jax.tree.map(lambda a: tuple(a.shape), jp)
     assert jax.tree.map(lambda t: tuple(t.shape), p) == jshapes
-    assert all(t.dtype == torch.float32 for t in jax.tree.leaves(p))
-    assert torch.equal(p["ln_f"], torch.ones(cfg.d_model))
-    # normal / sqrt(shape[0]), as the reference: embed (256, 64) has std
-    # 1/16, wq (64, 64) 1/8
-    for t, a, want in ((p["embed"], jp["embed"], 1 / 16),
-                       (p["layers"][0]["wq"], jp["layers"][0]["wq"], 1 / 8)):
-        assert abs(float(t.std()) - want) < 0.1 * want
-        assert abs(float(jnp.std(a)) - want) < 0.1 * want
+    assert p["layers"][0].keys() == jp["layers"][0].keys()
+    # the MoE router is f32 whatever the master dtype, as in the reference
+    jdtypes = jax.tree.map(lambda a: np.dtype(a.dtype).name, jp)
+    assert jax.tree.map(lambda t: str(t.dtype).split(".")[-1], p) == jdtypes
+    assert torch.equal(p["ln_f"], torch.ones(cfg.d_model, dtype=cfg.dtype))
+    # normal / sqrt(fan_in), as the reference: embed (256, 64) has std 1/16,
+    # wq (64, 64) 1/8; each expert of a stack by its own fan-in, w_gate
+    # (E, 64, 128) 1/8 and w_down (E, 128, 64) 1/sqrt(128); the router
+    # (64, E) 1/8
+    want = [("embed", 1 / 16), ("layers/0/wq", 1 / 8)]
+    if n_experts:
+        want += [("layers/0/w_gate", 1 / 8), ("layers/1/w_down", 128**-0.5),
+                 ("layers/0/router", 1 / 8)]
+    for path, std in want:
+        t, a = p, jp
+        for key in path.split("/"):
+            t, a = (t[int(key)], a[int(key)]) if key.isdigit() else \
+                (t[key], a[key])
+        stds = [float(t.float().std())] + ([float(x.float().std())
+                                             for x in t] if t.ndim == 3
+                                            else [])
+        assert all(abs(s - std) < 0.1 * std for s in stds), path
+        assert abs(float(jnp.std(a.astype(jnp.float32))) - std) < 0.1 * std
     again = wl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     assert torch.equal(p["layers"][1]["wq"], again["layers"][1]["wq"])
 

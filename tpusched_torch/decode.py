@@ -94,7 +94,8 @@ def _layer_decode(x: torch.Tensor, layer: Dict[str, torch.Tensor], c, pos,
     cache_update(c, k, v, pos)
     ck, cv = cache_kv(c)
     o = _cached_attention(q, ck, cv, pos, cfg.n_heads // cfg.kv_heads)
-    return _finish_block(x, layer, o, cfg)
+    # dropless: a decoded token's MoE output depends on that token alone
+    return _finish_block(x, layer, o, cfg, dropless=True)[0]
 
 
 def _layer_prefill(x: torch.Tensor, layer: Dict[str, torch.Tensor], c,
@@ -105,7 +106,7 @@ def _layer_prefill(x: torch.Tensor, layer: Dict[str, torch.Tensor], c,
     h = _rmsnorm(x, layer["ln_attn"])
     q, k, v = _qkv(h, layer, cfg)
     cache_update(c, k, v, 0)
-    return _finish_block(x, layer, attn_fn(q, k, v), cfg)
+    return _finish_block(x, layer, attn_fn(q, k, v), cfg, dropless=True)[0]
 
 
 def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,

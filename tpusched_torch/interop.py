@@ -8,7 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .workload import ModelConfig, Params, param_shapes, resolve_device
+from .workload import (ModelConfig, Params, param_dtype, param_shapes,
+                       resolve_device)
 
 
 def _tensor(a, want_shape, dtype: torch.dtype, where: str,
@@ -31,14 +32,15 @@ def _tensor(a, want_shape, dtype: torch.dtype, where: str,
 
 def params_from_numpy(tree: Params, cfg: ModelConfig, device=None) -> Params:
     """The port's parameter dict from the reference's tree of numpy arrays,
-    with every shape and dtype checked against ``cfg``."""
+    with every shape and dtype checked against ``cfg`` (the MoE router as
+    float32, every other leaf as ``cfg.master_dtype``)."""
     device = resolve_device(device)
     shapes = param_shapes(cfg)
-    dt = cfg.master_dtype
     if len(tree["layers"]) != cfg.n_layers:
         raise ValueError(f"{len(tree['layers'])} layers, config says "
                          f"{cfg.n_layers}")
-    out: Params = {name: _tensor(tree[name], shapes[name], dt, name, device)
+    out: Params = {name: _tensor(tree[name], shapes[name],
+                                 param_dtype(cfg, name), name, device)
                    for name in ("embed", "out", "ln_f")}
     out["layers"] = []
     for i, (layer, want) in enumerate(zip(tree["layers"], shapes["layers"])):
@@ -46,7 +48,7 @@ def params_from_numpy(tree: Params, cfg: ModelConfig, device=None) -> Params:
             raise ValueError(f"layers[{i}]: keys {sorted(layer)}, config "
                              f"says {sorted(want)}")
         out["layers"].append({
-            name: _tensor(layer[name], want[name], dt,
+            name: _tensor(layer[name], want[name], param_dtype(cfg, name),
                           f"layers[{i}].{name}", device)
             for name in want})
     return out

@@ -69,7 +69,7 @@ def _prefill_slot(params: Params, cache: KVCache, prompt: torch.Tensor,
         h = _rmsnorm(x, layer["ln_attn"])
         q, k, v = _qkv(h, layer, cfg)
         _arena_write(c, k, v, slot, 0)
-        x = _finish_block(x, layer, attn_fn(q, k, v), cfg)
+        x, _ = _finish_block(x, layer, attn_fn(q, k, v), cfg, dropless=True)
     x = _rmsnorm(x, params["ln_f"])
     logits = x[0] @ params["out"]                      # (bucket, vocab)
     return logits[true_len - 1]

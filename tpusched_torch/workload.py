@@ -1,14 +1,16 @@
-"""The Llama-style decoder LM in PyTorch: config, parameters, forward, and
-the single-card train steps.
+"""The Llama- and Mixtral-style decoder LMs in PyTorch: config, parameters,
+forward, and the single-card train steps.
 
-Counterpart of ``tpusched/jaxbridge/workload.py`` (dense half). Plain
-functions on tensors over the same parameter dict as the reference: keys
+Counterpart of ``tpusched/jaxbridge/workload.py``. Plain functions on
+tensors over the same parameter dict as the reference: keys
 ``embed``/``out``/``ln_f``/``layers[i]``, weights stored ``(in, out)`` and
-used as ``h @ W``. :class:`DecoderLM` is a thin ``nn.Module`` owning those
-tensors so ``.to()`` and ``state_dict()`` work. Training: ``loss_fn``,
-``value_and_grad`` (autograd over the dict's tensors), ``sgd_train_step``,
-and ``make_optax_train_step``/``make_accum_train_step`` around an optimizer
-from ``optim``; sharded steps wait for the parallelism slice.
+used as ``h @ W``; an MoE layer (``n_experts > 0``) holds an f32 ``router``
+(d, E) and expert stacks with a leading E axis. :class:`DecoderLM` is a
+thin ``nn.Module`` owning those tensors so ``.to()`` and ``state_dict()``
+work. Training: ``loss_fn``, ``value_and_grad`` (autograd over the dict's
+tensors), ``sgd_train_step``, and ``make_optax_train_step``/
+``make_accum_train_step`` around an optimizer from ``optim``; sharded steps
+wait for the parallelism slice.
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no explicit device it raises.
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -58,7 +60,9 @@ class ModelConfig:
     # as in the reference
     attn: str = "naive"
     n_kv_heads: int = 0                  # 0 => n_heads (plain MHA)
-    # mixture-of-experts fields: not ported yet, n_experts > 0 raises
+    # mixture of experts (0 => dense SwiGLU): n_experts stacked SwiGLU
+    # experts behind a top-k router, capacity dispatch in training and
+    # dropless routing at inference, as in the reference
     n_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -92,10 +96,6 @@ class ModelConfig:
             raise ValueError(
                 f"kv_cache_dtype must be None or the string 'int8', got "
                 f"{self.kv_cache_dtype!r}")
-        if self.n_experts:
-            raise NotImplementedError(
-                "MoE (n_experts > 0) is not ported yet: ROADMAP 'MoE "
-                "dropless serving, then MoE training'")
 
     @staticmethod
     def tiny() -> "ModelConfig":
@@ -130,8 +130,7 @@ class ModelConfig:
 
     @staticmethod
     def mixtral_like(seq: int = 2048, n_experts: int = 8) -> "ModelConfig":
-        """Scaled-down Mixtral proportions (8 experts, top-2); raises until
-        MoE is ported."""
+        """Scaled-down Mixtral proportions: 8 SwiGLU experts, top-2, GQA."""
         return ModelConfig(vocab=32000, d_model=1024, n_layers=8, n_heads=8,
                            d_ff=2816, seq=seq, dtype=torch.bfloat16,
                            n_kv_heads=2, n_experts=n_experts, moe_top_k=2)
@@ -142,38 +141,47 @@ def param_shapes(cfg: ModelConfig) -> Params:
     d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab
     d_kv = cfg.head_dim * cfg.kv_heads
     layer = {"wq": (d, d), "wk": (d, d_kv), "wv": (d, d_kv), "wo": (d, d),
-             "ln_attn": (d,), "ln_mlp": (d,),
-             "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+             "ln_attn": (d,), "ln_mlp": (d,)}
+    if cfg.n_experts:
+        e = cfg.n_experts
+        layer.update(router=(d, e), w_gate=(e, d, f), w_up=(e, d, f),
+                     w_down=(e, f, d))
+    else:
+        layer.update(w_gate=(d, f), w_up=(d, f), w_down=(f, d))
     return {"embed": (v, d), "out": (d, v), "ln_f": (d,),
             "layers": [dict(layer) for _ in range(cfg.n_layers)]}
+
+
+def param_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
+    """The dtype a parameter is stored in: the MoE router is always float32
+    (its softmax logits are f32), every other leaf ``cfg.master_dtype``."""
+    return torch.float32 if name == "router" else cfg.master_dtype
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Params:
     """Random weights, ``normal / sqrt(fan_in)``, ones for the norms, in
-    ``cfg.master_dtype``. The normals are drawn on the generator's device
-    (so a CUDA generator fills a large model on the card) and scaled in
-    float32 before the cast. Same shapes and scaling as the reference; the
-    numbers differ, as torch's generator is not JAX's."""
+    :func:`param_dtype`. The fan-in of a matrix is its second-to-last axis,
+    so each expert of a stack (E, in, out) is scaled by its own. The normals
+    are drawn on the generator's device (so a CUDA generator fills a large
+    model on the card) and scaled in float32 before the cast. Same shapes
+    and scaling as the reference; the numbers differ, as torch's generator
+    is not JAX's."""
     device = resolve_device(device)
-    dt = cfg.master_dtype
 
-    def dense(shape):
+    def init(name, shape):
+        dt = param_dtype(cfg, name)
+        if name.startswith("ln_"):
+            return torch.ones(shape, dtype=dt, device=device)
         x = torch.randn(shape, generator=generator, device=generator.device)
-        return (x / math.sqrt(shape[0])).to(device=device, dtype=dt)
-
-    def ones(shape):
-        return torch.ones(shape, dtype=dt, device=device)
+        return (x / math.sqrt(shape[-2])).to(device=device, dtype=dt)
 
     shapes = param_shapes(cfg)
-    params: Params = {"embed": dense(shapes["embed"]),
-                      "out": dense(shapes["out"])}
-    layers: List[Dict[str, torch.Tensor]] = []
-    for ls in shapes["layers"]:
-        layers.append({name: ones(shape) if name.startswith("ln_")
-                       else dense(shape) for name, shape in ls.items()})
-    params["layers"] = layers
-    params["ln_f"] = ones(shapes["ln_f"])
+    params: Params = {name: init(name, shapes[name])
+                      for name in ("embed", "out", "ln_f")}
+    params["layers"] = [{name: init(name, shape)
+                         for name, shape in ls.items()}
+                        for ls in shapes["layers"]]
     return params
 
 
@@ -243,27 +251,114 @@ def _qkv(h: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
     return q, k, v
 
 
-def _mlp(h: torch.Tensor, p: Dict[str, torch.Tensor],
-         cfg: ModelConfig) -> torch.Tensor:
-    """Dense SwiGLU MLP."""
-    return (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
+def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Tokens each expert accepts in the capacity path, padded to a multiple
+    of 4 (Python's precedence: ``(int(...) + 3) & ~3``), at least 4; the one
+    definition ``_moe_mlp`` and ``measure.train_step_flops`` share."""
+    return max(4, int(cfg.moe_capacity_factor * cfg.moe_top_k * tokens
+                      / cfg.n_experts) + 3 & ~3)
+
+
+def _router_gates(x: torch.Tensor, p: Dict[str, torch.Tensor],
+                  cfg: ModelConfig):
+    """The routing decision, shared by the capacity and dropless paths: f32
+    router logits, softmax, top-k, gates renormalized over the k. Returns
+    (probs (n, E) f32, gate (n, k), idx (n, k)). Ties go to the lower
+    expert, as ``jax.lax.top_k`` breaks them (``torch.topk`` does not): the
+    first k of a stable descending sort."""
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)
+    idx = torch.sort(probs, dim=-1, descending=True,
+                     stable=True).indices[:, :cfg.moe_top_k]
+    gate = probs.gather(-1, idx)
+    return probs, gate / gate.sum(dim=-1, keepdim=True), idx
+
+
+def _moe_mlp(h: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE with capacity dispatch (training): positions in each expert
+    from an f32 cumsum over the k-major slots, so every top-1 slot claims
+    capacity before any top-2 slot; a slot past capacity is dropped (its
+    token keeps the residual only). One-hot dispatch and combine einsums in
+    f32, the experts as batched (E, C, d) x (E, d, f) products in
+    ``cfg.dtype``. Returns (out, aux), aux the switch load-balance loss
+    E·Σ f_e·P_e with f_e from the top-1 choices."""
+    b, s, d = h.shape
+    e, k = cfg.n_experts, cfg.moe_top_k
+    n = b * s
+    x = h.reshape(n, d)
+    cap = moe_capacity(cfg, n)
+    probs, gate, idx = _router_gates(x, p, cfg)
+
+    flat = F.one_hot(idx.t().reshape(k * n), e).float()    # (k·n, E)
+    slot_pos = ((torch.cumsum(flat, dim=0) - 1.0) * flat).sum(dim=-1)
+    keep = slot_pos < cap
+    gate_flat = gate.t().reshape(k * n) * keep
+    # a dropped slot's capacity one-hot is a zero row (F.one_hot would raise)
+    cap_onehot = (slot_pos[:, None] == torch.arange(
+        cap, device=h.device)).float()
+    dispatch = (flat * keep[:, None])[:, :, None] * cap_onehot[:, None, :]
+    x_rep = x.repeat(k, 1)                                 # k-major copies
+    expert_in = torch.einsum("tec,td->ecd", dispatch,
+                             x_rep.float()).to(cfg.dtype)
+    g = torch.einsum("ecd,edf->ecf", expert_in, p["w_gate"])
+    u = torch.einsum("ecd,edf->ecf", expert_in, p["w_up"])
+    out_e = torch.einsum("ecf,efd->ecd", F.silu(g) * u, p["w_down"])
+    combine = dispatch * gate_flat[:, None, None]
+    out = torch.einsum("ecd,tec->td", out_e.float(), combine)
+    out = out.reshape(k, n, d).sum(dim=0).reshape(b, s, d).to(h.dtype)
+
+    f_e = F.one_hot(idx[:, 0], e).float().mean(dim=0)
+    aux = e * (f_e * probs.mean(dim=0)).sum()
+    return out, aux
+
+
+def _moe_mlp_dropless(h: torch.Tensor, p: Dict[str, torch.Tensor],
+                      cfg: ModelConfig) -> Tuple[torch.Tensor, float]:
+    """Inference MoE: every expert runs on every token and the top-k gates,
+    scattered into an (n, E) f32 weight, combine them, so a token's output
+    depends on that token alone (what a KV-cache decode of one token must
+    reproduce from the prefill). Returns (out, 0.0)."""
+    b, s, d = h.shape
+    x = h.reshape(b * s, d)
+    _, gate, idx = _router_gates(x, p, cfg)
+    w = torch.zeros(b * s, cfg.n_experts, dtype=torch.float32,
+                    device=h.device).scatter(1, idx, gate)
+    xc = x.to(cfg.dtype)
+    g = torch.einsum("nd,edf->enf", xc, p["w_gate"])
+    u = torch.einsum("nd,edf->enf", xc, p["w_up"])
+    oe = torch.einsum("enf,efd->end", F.silu(g) * u, p["w_down"])
+    out = torch.einsum("end,ne->nd", oe.float(), w)
+    return out.reshape(b, s, d).to(h.dtype), 0.0
+
+
+def _mlp(h: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
+         dropless: bool = False):
+    """SwiGLU MLP, dense or MoE by config. Returns (out, aux); aux is 0.0
+    but for the MoE capacity path."""
+    if cfg.n_experts:
+        if dropless:
+            return _moe_mlp_dropless(h, p, cfg)
+        return _moe_mlp(h, p, cfg)
+    return (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"], 0.0
 
 
 def _finish_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
-                  o: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Residual and MLP tail, shared by the forward and the decode path."""
+                  o: torch.Tensor, cfg: ModelConfig, dropless: bool = False):
+    """Residual and MLP tail, shared by the forward and the decode path;
+    ``dropless`` selects the inference MoE routing. Returns (x, aux)."""
     b, s, d = x.shape
     x = x + o.reshape(b, s, d) @ p["wo"]
-    return x + _mlp(_rmsnorm(x, p["ln_mlp"]), p, cfg)
+    out, aux = _mlp(_rmsnorm(x, p["ln_mlp"]), p, cfg, dropless)
+    return x + out, aux
 
 
 def _block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
-           attn_fn: Optional[Callable] = None) -> torch.Tensor:
+           attn_fn: Optional[Callable] = None, dropless: bool = False):
     h = _rmsnorm(x, p["ln_attn"])
     q, k, v = _qkv(h, p, cfg)
     if attn_fn is None:
         attn_fn = attention.naive_attention
-    return _finish_block(x, p, attn_fn(q, k, v), cfg)
+    return _finish_block(x, p, attn_fn(q, k, v), cfg, dropless)
 
 
 def _resolve_attn_fn(cfg: ModelConfig, attn_fn: Optional[Callable] = None):
@@ -275,23 +370,28 @@ def _resolve_attn_fn(cfg: ModelConfig, attn_fn: Optional[Callable] = None):
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-            attn_fn: Optional[Callable] = None) -> torch.Tensor:
-    """Logits (b, s, vocab) for tokens (b, s). With ``cfg.remat`` and
-    gradients on, each block is checkpointed: its activations are dropped
-    after the forward and recomputed in the backward, as under the
-    reference's ``jax.checkpoint`` (so flash attention's forward kernel runs
-    twice per layer and step)."""
+            attn_fn: Optional[Callable] = None, with_aux: bool = False,
+            dropless: bool = False):
+    """Logits (b, s, vocab) for tokens (b, s), and with ``with_aux`` also
+    the MoE aux loss summed over layers (an f32 scalar, 0 for a dense
+    model). ``dropless`` routes MoE layers as inference does. With
+    ``cfg.remat`` and gradients on, each block is checkpointed: its
+    activations are dropped after the forward and recomputed in the
+    backward, as under the reference's ``jax.checkpoint`` (so flash
+    attention's forward kernel runs twice per layer and step)."""
     attn_fn = _resolve_attn_fn(cfg, attn_fn)
     remat = cfg.remat and torch.is_grad_enabled()
     x = params["embed"][tokens]
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params["layers"]:
         if remat:
-            x = checkpoint(_block, x, layer, cfg, attn_fn,
-                           use_reentrant=False)
+            x, aux = checkpoint(_block, x, layer, cfg, attn_fn, dropless,
+                                use_reentrant=False)
         else:
-            x = _block(x, layer, cfg, attn_fn)
-    x = _rmsnorm(x, params["ln_f"])
-    return x @ params["out"]
+            x, aux = _block(x, layer, cfg, attn_fn, dropless)
+        aux_total = aux_total + aux
+    logits = _rmsnorm(x, params["ln_f"]) @ params["out"]
+    return (logits, aux_total) if with_aux else logits
 
 
 def cast_params_for_compute(params: Params, cfg: ModelConfig) -> Params:
@@ -342,12 +442,13 @@ def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             attn_fn: Optional[Callable] = None) -> torch.Tensor:
-    """Next-token loss over the full sequence's logits, through the
-    compute-dtype cast (so master-dtype gradients come back). Dense only:
-    the MoE aux term is 0."""
+    """Next-token loss over the full sequence's logits plus
+    ``cfg.moe_aux_weight`` times the MoE aux loss (0 for a dense model),
+    through the compute-dtype cast (so master-dtype gradients come back)."""
     params = cast_params_for_compute(params, cfg)
-    logits = forward(params, tokens, cfg, attn_fn)
-    return _cross_entropy(logits[:, :-1], tokens[:, 1:])
+    logits, aux = forward(params, tokens, cfg, attn_fn, with_aux=True)
+    return (_cross_entropy(logits[:, :-1], tokens[:, 1:])
+            + cfg.moe_aux_weight * aux)
 
 
 def value_and_grad(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
