@@ -42,7 +42,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``measure.measure_train_step``; tiny f32 MoE gradients on the card
     against the CPU's;
 11. MoE decode: ``measure.measure_decode`` on ``mixtral_like(seq=512)`` at
-    batch 8, with its HBM bandwidth utilization.
+    batch 8, with its HBM bandwidth utilization;
+12. chunked serving: ``llama_like_big`` as in phase 3 with
+    ``chunk_prefill=256`` (the flash kernel must not launch: chunks attend
+    through the cached attention), printed beside phase 3's monolithic
+    numbers; one tick mid-drain is traced with ``torch.profiler``;
+13. the SLO harness: ``measure_serving_slo`` on 32 requests arriving by
+    tick with a 300-token shared prefix, monolithic, chunked on full
+    prompts, and chunked with the prefix registered (kernel launches
+    counted for each: 34 prefills, none, the registration's);
+14. the int8 arena: phase 3's requests served with
+    ``kv_cache_dtype="int8"`` (arena bytes, launches per prefill, first
+    tokens equal to phase 3's exact engine's), then phase 11's decode with
+    an int8 cache;
+15. engine == solo on ``tiny`` f32 as in phase 4, chunked (5 rows), with a
+    registered prefix and mixed tenants, with an int8 arena, and with 4
+    experts chunked;
+16. ``torch.profiler`` traces of one ``mixtral_like(seq=512)`` decode step
+    at batch 8 and one ``mixtral_like(seq=1024)`` SGD step: launches,
+    host-to-device copies, synchronizations, device-busy against wall time
+    and the five longest device operations (phase 12 prints the same for
+    its tick; the traces go to ``build/torch_kernels/traces/``).
 
 The second-to-last line is the ``kernels`` JSON object, the last line the
 ``ok`` JSON object. Imports neither JAX nor the JAX package.
@@ -56,6 +76,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import pathlib
 import re
 import subprocess
 import sys
@@ -67,6 +88,10 @@ import torch
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # H100 SXM, dense
 PEAK_BYTES_PER_S = 3.35e12
 SERVE_BUCKETS = (256, 1024)
+SERVE_GEOMETRY = dict(slots=8, max_seq=2048, prompt_bucket=SERVE_BUCKETS)
+CHUNK = 256          # worst chunk-aligned span 1024 <= max_seq 2048
+TRACE_DIR = (pathlib.Path(__file__).resolve().parent / "build" / "torch_kernels"
+             / "traces")
 # the kernels redesigned for Hopper (wgmma, TMA, setmaxnreg), bf16 d=128,
 # each with its setmaxnreg split: (consumer, producer) registers a thread,
 # two consumer warpgroups and one producer warpgroup of 128 threads
@@ -221,9 +246,10 @@ def phase_kernel_vs_plain(attention):
         (1, 96, 2, 2, 32, bf16, False, 0),       # tiny's head_dim
         (2, 300, 4, 2, 64, f32, True, 0),        # f32, ragged
         (1, 64, 2, 2, 32, f32, False, 3),        # f32, strided
-        (1, 16, 2, 2, 32, f32, True, 0),         # phase 4's engine prefill
-        (1, 13, 2, 2, 32, f32, True, 0),         # phase 4's solo prefill
-    ]
+        (1, 300, 16, 4, 128, bf16, True, 0),     # phase 13's prefix
+    ] + [  # every length the tiny f32 phases prefill: prompts 4-13, the
+           # bucket 16, phase 15's 12-token prefix and prefix + suffix 16-25
+        (1, s, 2, 2, 32, f32, True, 0) for s in range(4, 26)]
     main_err = None
     for b, s, h, kv, d, dtype, causal, pad in cases:
         q, k, v = rand_qkv(gen, b, s, h, kv, d, dtype, pad)
@@ -398,18 +424,36 @@ def make_requests(cfg, serve):
         for i in range(16)]
 
 
+def seeded_params(workload, cfg):
+    """Random weights for ``cfg`` from a generator on the card seeded 0: the
+    same weights in every phase that asks for the same shapes."""
+    return workload.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+
+
+def check_completions(done, reqs, vocab, what):
+    check(sorted(c.rid for c in done) == list(range(len(reqs))),
+          f"{what}: not every request completed")
+    for c in done:
+        want = reqs[c.rid].max_new_tokens
+        check(len(c.tokens) == want, f"{what}: request {c.rid}: "
+              f"{len(c.tokens)} tokens, wanted {want}")
+        check(bool(((c.tokens >= 0) & (c.tokens < vocab)).all()),
+              f"{what}: request {c.rid}: token outside the vocabulary")
+
+
 def phase_serving(attention, serve, workload, name="llama_like_big"):
     """Full-width serving of the preset ``name``: the flash kernel launches
     once per layer and slot prefill where the preset's attention is flash
     (llama_like_big), never where it is naive (mixtral_like). Returns the
-    flash launches of the main path run."""
+    flash launches of the main path run, measure_serving's numbers, the
+    peak memory and each request's tokens."""
     cfg = getattr(workload.ModelConfig, name)()
     per_prefill = cfg.n_layers if cfg.attn == "flash" else 0
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = workload.init_params(cfg, gen, "cuda")
+    params = seeded_params(workload, cfg)
     reqs = make_requests(cfg, serve)
     want_tokens = sum(r.max_new_tokens for r in reqs)
-    geometry = dict(slots=8, max_seq=2048, prompt_bucket=SERVE_BUCKETS)
+    geometry = SERVE_GEOMETRY
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -427,14 +471,7 @@ def phase_serving(attention, serve, workload, name="llama_like_big"):
     check(launches == per_prefill * eng.prefills,
           f"{name}: {launches} flash launches for {eng.prefills} prefills "
           f"of {cfg.n_layers} layers with attn={cfg.attn}")
-    check(sorted(c.rid for c in done) == list(range(len(reqs))),
-          "not every request completed")
-    for c in done:
-        want = reqs[c.rid].max_new_tokens
-        check(len(c.tokens) == want, f"request {c.rid}: {len(c.tokens)} "
-              f"tokens, wanted {want}")
-        check(bool(((c.tokens >= 0) & (c.tokens < cfg.vocab)).all()),
-              f"request {c.rid}: token outside the vocabulary")
+    check_completions(done, reqs, cfg.vocab, name)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     prefills = eng.prefills
     del eng
@@ -459,44 +496,62 @@ def phase_serving(attention, serve, workload, name="llama_like_big"):
         "occupancy": stats["occupancy"], "ticks": stats["ticks"],
         "max_tick_gap_s": stats["max_tick_gap_s"],
         "elapsed_s": stats["elapsed_s"], "peak_mem_gib": peak_gib}))
-    return launches
+    return dict(launches=launches, stats=stats, peak_mem_gib=peak_gib,
+                tokens={c.rid: c.tokens for c in done})
 
 
 def phase_parity(attention, decode, serve, workload, attn="flash",
-                 n_experts=0):
+                 n_experts=0, chunk_prefill=None, prefix_len=0,
+                 kv_cache_dtype=None):
     """Engine == solo greedy generation on tiny f32 (with ``n_experts``
-    experts), with flash attention through the kernel (launches counted for
-    the engine and each solo run) or naive (no launch). TF32 is off so
+    experts, ``chunk_prefill`` rows a chunk, a registered prefix of
+    ``prefix_len`` tokens that every other request follows, an int8 arena),
+    with flash attention through the kernel (launches counted for the
+    engine, the prefix's registration and each solo run) or naive (no
+    launch). A prefix request is held against solo generation on its whole
+    prompt, an int8 engine against solo int8 generation. TF32 is off so
     float32 products are full float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(workload.ModelConfig.tiny(), attn=attn,
-                              n_experts=n_experts)
+                              n_experts=n_experts,
+                              kv_cache_dtype=kv_cache_dtype)
     per_prefill = cfg.n_layers if attn == "flash" else 0
-    params = workload.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    params = seeded_params(workload, cfg)
     rng = np.random.default_rng(2)
     reqs = [serve.Request(
         rid=i, prompt=rng.integers(0, cfg.vocab,
                                    size=int(rng.integers(4, 14)),
                                    dtype=np.int32),
         max_new_tokens=int(rng.integers(3, 8))) for i in range(5)]
+    prefix = rng.integers(0, cfg.vocab, prefix_len, dtype=np.int32)
+    if prefix_len:
+        reqs = [dataclasses.replace(r, prefix_id="sys") if r.rid % 2 == 0
+                else r for r in reqs]
     eng = serve.ServeEngine(params, cfg, slots=2, max_seq=64,
-                            prompt_bucket=16, device="cuda")
+                            prompt_bucket=16, chunk_prefill=chunk_prefill,
+                            device="cuda")
     attention.FLASH_FWD_LAUNCHES = 0
+    if prefix_len:
+        eng.register_prefix("sys", prefix)
     for r in reqs:
         eng.submit(r)
     done = eng.run_until_drained()
-    check(attention.FLASH_FWD_LAUNCHES == per_prefill * eng.prefills,
+    engine_prefills = eng.prefills + (1 if prefix_len else 0)
+    check(attention.FLASH_FWD_LAUNCHES == per_prefill * engine_prefills,
           f"tiny engine: {attention.FLASH_FWD_LAUNCHES} flash launches for "
-          f"{eng.prefills} prefills of {cfg.n_layers} layers, attn={attn}")
+          f"{engine_prefills} prefills of {cfg.n_layers} layers, attn={attn}")
     check(sorted(c.rid for c in done) == list(range(5)),
           "tiny engine lost a request")
     for c in done:
         req = reqs[c.rid]
+        full = (np.concatenate([prefix, req.prompt]) if req.prefix_id
+                else req.prompt)
+        check(c.prompt_len == len(full), f"request {c.rid}: prompt_len "
+              f"{c.prompt_len}, wanted {len(full)}")
         attention.FLASH_FWD_LAUNCHES = 0
         solo = decode.generate(
-            params, torch.as_tensor(req.prompt, device="cuda")[None].long(),
+            params, torch.as_tensor(full, device="cuda")[None].long(),
             cfg, steps=req.max_new_tokens - 1)[0].cpu().numpy()
         check(attention.FLASH_FWD_LAUNCHES == per_prefill,
               f"solo generate: {attention.FLASH_FWD_LAUNCHES} flash "
@@ -504,9 +559,13 @@ def phase_parity(attention, decode, serve, workload, attn="flash",
               f"attn={attn}")
         check(np.array_equal(c.tokens, solo),
               f"request {c.rid}: engine {c.tokens} != solo {solo}")
-    moe = f" with {n_experts} experts" if n_experts else ""
-    print(f"engine == solo on tiny f32{moe} {attn}: {len(done)} requests, "
-          f"{eng.prefills} engine prefills, flash launches "
+    opts = "".join([f" with {n_experts} experts" if n_experts else "",
+                    f" chunk_prefill={chunk_prefill}" if chunk_prefill else "",
+                    f" prefix {prefix_len} (rids 0, 2, 4)" if prefix_len
+                    else "", f" kv {kv_cache_dtype}" if kv_cache_dtype
+                    else ""])
+    print(f"engine == solo on tiny f32{opts} {attn}: {len(done)} requests, "
+          f"{engine_prefills} engine prefills, flash launches "
           f"{per_prefill} per prefill")
 
 
@@ -743,12 +802,14 @@ def phase_moe_training(measure, workload):
           "MoE gradients on the card disagree with the CPU's")
 
 
-def phase_moe_decode(measure, workload):
+def phase_moe_decode(measure, workload, kv_cache_dtype=None):
     """Decode throughput of full-width mixtral_like(seq=512), batch 8, 128-
     token prompts (measure.measure_decode's slope between 64 and 256 greedy
     steps), with its HBM bandwidth utilization and the bound that the bytes
-    of one step imply at 3.35 TB/s."""
-    cfg = workload.ModelConfig.mixtral_like(seq=512)
+    of one step imply at 3.35 TB/s; the cache exact or int8. Returns the
+    printed numbers."""
+    cfg = dataclasses.replace(workload.ModelConfig.mixtral_like(seq=512),
+                              kv_cache_dtype=kv_cache_dtype)
     batch, prompt_len = 8, 128
     tps, ctx = measure.measure_decode(cfg, batch, prompt_len=prompt_len)
     util = measure.decode_bandwidth_utilization(cfg, batch, ctx, tps)
@@ -756,13 +817,330 @@ def phase_moe_decode(measure, workload):
     check(np.isfinite(tps) and tps > 0, f"decode rate {tps}")
     check(util is not None and 0 < util < 1,
           f"decode bandwidth utilization {util}")
+    out = {"decode": "mixtral_like", "kv_cache_dtype": kv_cache_dtype,
+           "seq": cfg.seq, "batch": batch, "prompt_len": prompt_len,
+           "tokens_per_s": tps, "mean_ctx": ctx, "step_s": batch / tps,
+           "bytes_per_step": nbytes,
+           "bound_step_s": nbytes / PEAK_BYTES_PER_S,
+           "bandwidth_utilization": util,
+           "peak_hbm_gbps": measure.device_peak_hbm_gbps()}
+    print(json.dumps(out))
+    return out
+
+
+def trace_summary(prof, label: str, wall_s: float,
+                  unprofiled_s: float = None, **extra) -> dict:
+    """One JSON line from a ``torch.profiler`` trace (written to
+    :data:`TRACE_DIR`): kernel launches the host issued, host-to-device
+    copies on the card, stream and device synchronizations, the card's busy
+    time (the union of its kernels, copies and sets) against the wall time
+    of the traced work, so its idle share, and the five device operations
+    with the most time. The profiler slows the host, so where the same work
+    was also timed without it (``unprofiled_s``) the idle share is given
+    against that time too. Fails if the trace holds no CUDA kernel."""
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / (re.sub(r"\W+", "_", label) + ".json")
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    host = [e["name"] for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    check(any(e["cat"] == "kernel" for e in device),
+          f"trace of {label}: the profiler recorded no CUDA kernel")
+    busy_us, end = 0.0, -np.inf
+    for e in sorted(device, key=lambda e: e["ts"]):
+        start, stop = e["ts"], e["ts"] + e["dur"]
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    by_name: dict = {}
+    for e in device:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    out = {"trace": label, **extra,
+           "kernels": sum(e["cat"] == "kernel" for e in device),
+           "kernel_launch_calls": sum("LaunchKernel" in n for n in host),
+           "htod_copies": sum(e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]
+                              for e in device),
+           "syncs": sum(n in ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+                        for n in host),
+           "device_busy_s": busy_us / 1e6, "wall_s": wall_s,
+           "idle_share": 1.0 - busy_us / 1e6 / wall_s,
+           **({"wall_unprofiled_s": unprofiled_s,
+               "idle_share_unprofiled": 1.0 - busy_us / 1e6 / unprofiled_s}
+              if unprofiled_s else {}),
+           "top5_device_s": [[n[:100], t] for n, t in top],
+           "file": str(path.relative_to(TRACE_DIR.parents[2]))}
+    print(json.dumps(out))
+    return out
+
+
+def profiler():
+    return torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+
+
+def fenced_s(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def traced(fn, label: str) -> dict:
+    """:func:`trace_summary` of one call of ``fn``, already warm, fenced by
+    ``torch.cuda.synchronize()`` on both sides, after the median of three
+    calls timed without the profiler."""
+    unprofiled = float(np.median([fenced_s(fn) for _ in range(3)]))
+    with profiler() as prof:
+        wall = fenced_s(fn)
+    return trace_summary(prof, label, wall, unprofiled)
+
+
+def phase_chunked_serving(attention, serve, workload, mono):
+    """Phase 3's traffic and geometry with chunk_prefill=256, driven as a
+    user does and then through measure_serving: every request completes
+    with its tokens, and the flash kernel launches 0 times (chunks attend
+    through the cached attention, as the reference's chunk program runs no
+    Pallas call). Each tick of the user's run is timed (fenced) with the
+    chunk programs it runs, to test the reference's claim that chunking
+    bounds a tick near one chunk and the decode step; one tick mid-drain,
+    with slots both prefilling and decoding, is traced (and left out of
+    those times). Prints beside phase 3's monolithic ``mono``."""
+    cfg = workload.ModelConfig.llama_like_big()
+    params = seeded_params(workload, cfg)
+    reqs = make_requests(cfg, serve)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.FLASH_FWD_LAUNCHES = 0
+    eng = serve.ServeEngine(params, cfg, chunk_prefill=CHUNK, device="cuda",
+                            **SERVE_GEOMETRY)
+    eng.warmup()
+    for r in reqs:
+        eng.submit(r)
+    tick_s, trace = [], None          # (chunk programs, wall s) per tick
+    while eng.queue or any(r is not None for r in eng.req):
+        # a tick runs one chunk for each slot prefilling after admission
+        chunks = (sum(o is not None for o in eng.prefill_off)
+                  + min(len(eng.queue), sum(r is None for r in eng.req)))
+        decoding = sum(r is not None and o is None
+                       for r, o in zip(eng.req, eng.prefill_off))
+        if trace is None and eng.tick_count >= 10 and chunks and decoding:
+            tick = eng.tick_count
+            with profiler() as prof:
+                wall = fenced_s(eng.tick)
+            trace = trace_summary(
+                prof, "llama_like_big chunked serving tick", wall, tick=tick,
+                prefilling=chunks, decoding=decoding)
+        else:
+            tick_s.append((chunks, fenced_s(eng.tick)))
+        check(eng.tick_count < 100_000, "chunked serving did not drain")
+    done = eng.completions
+    torch.cuda.synchronize()
+    launches = attention.FLASH_FWD_LAUNCHES
+    check(launches == 0, f"chunked serving launched the flash kernel "
+          f"{launches} times; chunks attend through the cached attention")
+    check(eng.prefills == 0, "chunked serving ran a monolithic prefill")
+    check(trace is not None, "no tick mid-drain was traced")
+    check_completions(done, reqs, cfg.vocab, "chunked llama_like_big")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del eng
+    attention.FLASH_FWD_LAUNCHES = 0
+    stats = serve.measure_serving(cfg, params, reqs, chunk_prefill=CHUNK,
+                                  device="cuda", **SERVE_GEOMETRY)
+    check(attention.FLASH_FWD_LAUNCHES == 0,
+          "chunked measure_serving launched the flash kernel")
+    check(stats["tokens"] == sum(r.max_new_tokens for r in reqs),
+          "chunked measure_serving lost tokens")
+    keys = ("tokens_per_s", "ticks", "occupancy", "max_tick_gap_s",
+            "elapsed_s")
+    by_chunks = {}
+    for n in sorted({n for n, _ in tick_s}):
+        ts = [t for m, t in tick_s if m == n]
+        by_chunks[str(n)] = {"ticks": len(ts), "median_s": float(
+            np.median(ts)), "max_s": max(ts)}
     print(json.dumps({
-        "decode": "mixtral_like", "seq": cfg.seq, "batch": batch,
-        "prompt_len": prompt_len, "tokens_per_s": tps, "mean_ctx": ctx,
-        "step_s": batch / tps, "bytes_per_step": nbytes,
-        "bound_step_s": nbytes / PEAK_BYTES_PER_S,
-        "bandwidth_utilization": util,
-        "peak_hbm_gbps": measure.device_peak_hbm_gbps()}))
+        "serving": "llama_like_big", "chunk_prefill": CHUNK,
+        "requests": len(reqs), "flash_launches": launches,
+        "peak_mem_gib": peak_gib, **{k: stats[k] for k in keys},
+        "tick_s_by_chunk_programs": by_chunks,
+        "monolithic": {**{k: mono["stats"][k] for k in keys},
+                       "peak_mem_gib": mono["peak_mem_gib"]}}))
+
+
+def slo_traffic(vocab: int):
+    """Phase 13's traffic: a 300-token shared prefix (a ragged flash tile),
+    then 32 requests of 64-640-token suffixes and 16-128 new tokens
+    arriving by tick with Poisson gaps of mean 2, from one seeded
+    generator."""
+    rng = np.random.default_rng(6)
+    prefix = rng.integers(0, vocab, 300, dtype=np.int32)
+    suffixes = [rng.integers(0, vocab, int(rng.integers(64, 641)),
+                             dtype=np.int32) for _ in range(32)]
+    gens = [int(rng.integers(16, 129)) for _ in range(32)]
+    arrivals = np.cumsum(rng.poisson(2.0, 32)).tolist()
+    return prefix, suffixes, gens, arrivals
+
+
+SLO_TICKS = 16
+
+
+def phase_slo(attention, serve, workload):
+    """measure_serving_slo on full-width llama_like_big with phase 13's
+    traffic, three ways: (a) monolithic on the full prompts (prefix +
+    suffix <= 940 < 1024), (b) chunk_prefill=256 on the full prompts, (c)
+    chunk_prefill=256 with the prefix registered, on the suffixes. All
+    three serve the same count of tokens; (c) drains in fewer ticks than
+    (b), with a TTFT p50 in ticks no higher; the flash kernel launches once a layer
+    per monolithic prefill in (a) (32 admissions and warmup's 2 buckets),
+    never in (b), and only for the prefix's registration in (c). Returns
+    (c)'s launches."""
+    cfg = workload.ModelConfig.llama_like_big()
+    params = seeded_params(workload, cfg)
+    prefix, suffixes, gens, arrivals = slo_traffic(cfg.vocab)
+
+    def requests(prompts):
+        return [serve.Request(rid=i, prompt=p, max_new_tokens=gens[i])
+                for i, p in enumerate(prompts)]
+    full = [np.concatenate([prefix, s]) for s in suffixes]
+    runs = {"monolithic": (full, {}, cfg.n_layers * (len(full) + 2)),
+            "chunked": (full, dict(chunk_prefill=CHUNK), 0),
+            "prefix": (suffixes, dict(chunk_prefill=CHUNK,
+                                      prefix_tokens=prefix), cfg.n_layers)}
+    out, launches = {}, {}
+    for name, (prompts, kw, want) in runs.items():
+        attention.FLASH_FWD_LAUNCHES = 0
+        out[name] = serve.measure_serving_slo(
+            cfg, params, requests(prompts), arrivals,
+            ttft_slo_ticks=SLO_TICKS, device="cuda", **SERVE_GEOMETRY, **kw)
+        launches[name] = attention.FLASH_FWD_LAUNCHES
+        check(launches[name] == want, f"SLO {name}: {launches[name]} flash "
+              f"launches, wanted {want}")
+    counts = {name: r["tokens"] for name, r in out.items()}
+    check(len(set(counts.values())) == 1 and counts["chunked"] == sum(gens),
+          f"SLO runs served different token counts: {counts}")
+    check(out["prefix"]["ticks"] < out["chunked"]["ticks"]
+          and out["prefix"]["ttft_ticks_p50"]
+          <= out["chunked"]["ttft_ticks_p50"],
+          "the registered prefix did not help against chunked full prompts")
+    print(json.dumps({
+        "slo": "llama_like_big", "requests": len(full),
+        "prefix_tokens": len(prefix), "ttft_slo_ticks": SLO_TICKS,
+        "chunk_prefill": CHUNK, "flash_launches": launches, **out}))
+    return launches["prefix"]
+
+
+def phase_int8_serving(attention, serve, workload, exact, exact_decode,
+                       measure):
+    """Phase 3's requests on an int8 arena (monolithic admission): the
+    flash kernel launches once a layer per prefill, the arena takes about
+    half the exact one's bytes, and each request's first token is phase 3's
+    exact engine's (prefill attends the fresh K/V and reads no cache). The
+    share of all tokens that agree is printed, not checked: random weights
+    leave near-ties. Then phase 11's decode with an int8 cache, beside
+    phase 11's exact numbers. Returns the flash launches."""
+    cfg = dataclasses.replace(workload.ModelConfig.llama_like_big(),
+                              kv_cache_dtype="int8")
+    params = seeded_params(workload, cfg)
+    reqs = make_requests(cfg, serve)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.FLASH_FWD_LAUNCHES = 0
+    eng = serve.ServeEngine(params, cfg, device="cuda", **SERVE_GEOMETRY)
+    eng.warmup()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    launches = attention.FLASH_FWD_LAUNCHES
+    check(launches == cfg.n_layers * eng.prefills, f"int8 serving: "
+          f"{launches} flash launches for {eng.prefills} prefills")
+    check_completions(done, reqs, cfg.vocab, "int8 llama_like_big")
+    arena = sum(t.numel() * t.element_size()
+                for layer in eng.cache for t in layer.values())
+    exact_arena = (cfg.n_layers * 2 * SERVE_GEOMETRY["slots"]
+                   * SERVE_GEOMETRY["max_seq"] * cfg.kv_heads * cfg.head_dim
+                   * torch.finfo(cfg.dtype).bits // 8)
+    check(arena < 0.55 * exact_arena, f"int8 arena {arena} bytes against "
+          f"the exact {exact_arena}")
+    differ = [c.rid for c in done
+              if int(c.tokens[0]) != int(exact["tokens"][c.rid][0])]
+    check(not differ, f"int8 first tokens differ from the exact engine's "
+          f"for requests {differ}")
+    agree = np.concatenate([c.tokens == exact["tokens"][c.rid]
+                            for c in done])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del eng
+    attention.FLASH_FWD_LAUNCHES = 0
+    stats = serve.measure_serving(cfg, params, reqs, device="cuda",
+                                  **SERVE_GEOMETRY)
+    check(attention.FLASH_FWD_LAUNCHES == cfg.n_layers * stats["prefills"],
+          "int8 measure_serving: flash launches against prefills")
+    check(stats["tokens"] == sum(r.max_new_tokens for r in reqs),
+          "int8 measure_serving lost tokens")
+    keys = ("tokens_per_s", "max_tick_gap_s", "elapsed_s")
+    print(json.dumps({
+        "serving": "llama_like_big", "kv_cache_dtype": "int8",
+        **{k: stats[k] for k in keys},
+        "exact": {k: exact["stats"][k] for k in keys},
+        "requests": len(reqs), "prefills": int(launches // cfg.n_layers),
+        "flash_launches": launches, "arena_bytes": arena,
+        "exact_arena_bytes": exact_arena,
+        "first_tokens_equal": len(done) - len(differ),
+        "token_agreement_with_exact": float(agree.mean()),
+        "peak_mem_gib": peak_gib,
+        "exact_peak_mem_gib": exact["peak_mem_gib"]}))
+    i8 = phase_moe_decode(measure, workload, "int8")
+    keys = ("tokens_per_s", "step_s", "bytes_per_step", "bound_step_s",
+            "bandwidth_utilization")
+    print(json.dumps({"decode": "mixtral_like", "int8": {
+        k: i8[k] for k in keys}, "exact": {k: exact_decode[k] for k in keys}}))
+    return launches
+
+
+def phase_trace(decode, workload):
+    """torch.profiler traces, after warm-up, of one greedy decode step of
+    full-width mixtral_like(seq=512) at batch 8 (128-token prompts, as
+    phases 11 and 14), with an exact and with an int8 cache, and of one
+    mixtral_like(seq=1024) SGD step (as phase 10)."""
+    for kv_cache_dtype in (None, "int8"):
+        cfg = dataclasses.replace(workload.ModelConfig.mixtral_like(seq=512),
+                                  kv_cache_dtype=kv_cache_dtype)
+        params = seeded_params(workload, cfg)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        prompt = torch.randint(0, cfg.vocab, (8, 128), generator=gen,
+                               device="cuda")
+        cache = decode.init_kv_cache(cfg, 8, cfg.seq, "cuda")
+        state = {"pos": 128}
+        with torch.no_grad():
+            logits, _ = decode.prefill(params, cache, prompt, cfg)
+            state["tok"] = logits[:, -1].argmax(-1)
+
+            def step():               # one step of decode.sample's loop
+                logits, _ = decode.decode_step(params, cache, state["tok"],
+                                               state["pos"], cfg)
+                state["tok"] = decode.sample_token(logits, None, 0.0)
+                state["pos"] += 1
+            for _ in range(3):
+                step()
+            traced(step, f"mixtral_like decode step batch 8 kv "
+                   f"{kv_cache_dtype or 'exact'}")
+        del params, cache, logits
+    cfg = workload.ModelConfig.mixtral_like(seq=1024)
+    params = seeded_params(workload, cfg)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, cfg.seq)), device="cuda")
+    state = {"params": params}
+
+    def sgd():
+        state["params"], loss = workload.sgd_train_step(
+            state["params"], tokens, cfg, lr=0.1)
+        check(np.isfinite(loss.item()), "non-finite MoE loss")
+    sgd()
+    traced(sgd, "mixtral_like SGD step seq 1024")
 
 
 def ab_turn(tree: str, other_root: str) -> None:
@@ -862,7 +1240,8 @@ def main(argv) -> int:
     phase_environment(_build)
     max_abs_err = phase_kernel_vs_plain(attention)
     bwd_err = phase_backward_vs_plain(attention)
-    launches = phase_serving(attention, serve, workload)
+    t_start = time.perf_counter()
+    mono = phase_serving(attention, serve, workload)
     phase_parity(attention, decode, serve, workload)
     phase_grad_parity(attention, workload)
     train_launches = phase_training(attention, measure, optim, workload)
@@ -873,7 +1252,26 @@ def main(argv) -> int:
     phase_parity(attention, decode, serve, workload, "naive", n_experts=4)
     phase_parity(attention, decode, serve, workload, "flash", n_experts=4)
     phase_moe_training(measure, workload)
-    phase_moe_decode(measure, workload)
+    exact_decode = phase_moe_decode(measure, workload)
+    # int8 KV, chunked prefill, prefix caching and the SLO harness, then
+    # the profiler traces, after every earlier phase so that those run as
+    # before
+    t_new = time.perf_counter()
+    phase_chunked_serving(attention, serve, workload, mono)
+    prefix_launches = phase_slo(attention, serve, workload)
+    int8_launches = phase_int8_serving(attention, serve, workload, mono,
+                                       exact_decode, measure)
+    phase_parity(attention, decode, serve, workload, "flash",
+                 chunk_prefill=5)
+    phase_parity(attention, decode, serve, workload, "flash",
+                 chunk_prefill=5, prefix_len=12)
+    phase_parity(attention, decode, serve, workload, "flash",
+                 kv_cache_dtype="int8")
+    phase_parity(attention, decode, serve, workload, "flash", n_experts=4,
+                 chunk_prefill=5)
+    phase_trace(decode, workload)
+    print(json.dumps({"phases_s": time.perf_counter() - t_start,
+                      "phases_12_16_s": time.perf_counter() - t_new}))
     source = "tpusched_torch/csrc/"
     replaces = "tpusched/jaxbridge/attention.py:"
     # flash_fwd's own fields are the serving path's, at its (1, 1024, 16, 4,
@@ -881,8 +1279,10 @@ def main(argv) -> int:
     # path's launches, error and times at (1, 4096, 16, 4, 128).
     print(json.dumps({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": source + "flash_fwd.cu",
-         "replaces": replaces + "91", "launches": launches,
+         "replaces": replaces + "91", "launches": mono["launches"],
          "max_abs_err": max_abs_err, **serving_timing,
+         "prefix_launches": prefix_launches,
+         "int8_prefill_launches": int8_launches,
          "training_shape": {"launches": train_launches[0],
                             **timing["flash_fwd"]}},
         {"name": "flash_bwd_dkdv", "route": "cuda",

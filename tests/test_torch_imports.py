@@ -33,6 +33,46 @@ def test_every_module_imports_without_jax_or_tpusched():
     assert r.stdout.strip().splitlines()[-1] == "[]"
 
 
+def test_serving_paths_run_with_jax_unimportable():
+    """With jax, optax and tpusched refused at import, the engine serves on
+    the CPU through chunked prefill with a registered prefix and through an
+    int8 arena, and measure_serving_slo runs."""
+    prog = (
+        "import importlib.abc, sys\n"
+        "class Refuse(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        top = name.split('.')[0]\n"
+        "        if top.startswith('jax') or top in ('tpusched', 'optax'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Refuse())\n"
+        "import dataclasses, numpy as np, torch\n"
+        "from tpusched_torch import serve, workload as wl\n"
+        "cfg = wl.ModelConfig.tiny()\n"
+        "p = wl.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "reqs = [serve.Request(rid=i, prompt=np.arange(3 + i, dtype=np.int32),"
+        " max_new_tokens=3) for i in range(3)]\n"
+        "eng = serve.ServeEngine(p, cfg, slots=2, max_seq=32, prompt_bucket=8,"
+        " chunk_prefill=4, device='cpu')\n"
+        "eng.register_prefix('sys', np.arange(5, dtype=np.int32))\n"
+        "for r in reqs:\n"
+        "    eng.submit(dataclasses.replace(r, prefix_id='sys'))\n"
+        "assert len(eng.run_until_drained()) == 3\n"
+        "i8 = dataclasses.replace(cfg, kv_cache_dtype='int8')\n"
+        "eng = serve.ServeEngine(p, i8, slots=2, max_seq=32, prompt_bucket=8,"
+        " device='cpu')\n"
+        "for r in reqs:\n"
+        "    eng.submit(r)\n"
+        "assert len(eng.run_until_drained()) == 3\n"
+        "out = serve.measure_serving_slo(cfg, p, reqs, [0, 1, 2], slots=2,"
+        " max_seq=32, prompt_bucket=8, chunk_prefill=4, device='cpu')\n"
+        "assert out['tokens'] == 9.0\n"
+        "print('served')\n")
+    r = subprocess.run([sys.executable, "-c", prog], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().splitlines()[-1] == "served"
+
+
 def _imports(path: pathlib.Path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):

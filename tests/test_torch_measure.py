@@ -43,8 +43,10 @@ def test_moe_flops_note_matches_reference():
 
 @pytest.mark.parametrize("preset,changes", [
     ("llama_like", {}), ("mixtral_like", {}),
-    ("mixtral_like", {"kv_cache_dtype": "int8"})],
-    ids=["llama_like", "mixtral_like", "mixtral_like-int8"])
+    ("mixtral_like", {"kv_cache_dtype": "int8"}),
+    ("llama_like_big", {"kv_cache_dtype": "int8"})],
+    ids=["llama_like", "mixtral_like", "mixtral_like-int8",
+         "llama_like_big-int8"])
 def test_decode_bytes_per_token_match_reference(preset, changes):
     cfg = dataclasses.replace(getattr(wl.ModelConfig, preset)(seq=512),
                               **changes)
@@ -63,10 +65,21 @@ def test_measure_decode_on_the_cpu():
     """A positive rate and the reference's mean context; no bandwidth
     utilization without a card."""
     cfg = dataclasses.replace(wl.ModelConfig.tiny(), n_experts=4)
-    tps, ctx = measure.measure_decode(cfg, 2, prompt_len=8, k1=2, k2=6,
-                                      repeats=1, device="cpu")
-    assert tps > 0 and ctx == 8 + (2 + 6) // 2
+    # a slope over 16 steps, the median of three: a loaded CPU cannot
+    # turn it negative as it could one over 4 steps
+    tps, ctx = measure.measure_decode(cfg, 2, prompt_len=8, k1=2, k2=18,
+                                      repeats=3, device="cpu")
+    assert tps > 0 and ctx == 8 + (2 + 18) // 2
     assert measure.decode_bandwidth_utilization(cfg, 2, ctx, tps) is None
+
+
+def test_measure_decode_int8_cache_on_the_cpu():
+    """measure_decode builds its cache from cfg, so an int8 cache needs no
+    argument of its own."""
+    cfg = dataclasses.replace(wl.ModelConfig.tiny(), kv_cache_dtype="int8")
+    tps, ctx = measure.measure_decode(cfg, 2, prompt_len=8, k1=2, k2=18,
+                                      repeats=3, device="cpu")
+    assert tps > 0 and ctx == 18
 
 
 def test_time_chained_is_the_reference_slope():
@@ -82,14 +95,14 @@ def test_time_chained_is_the_reference_slope():
 def test_measure_adamw_train_step_on_the_cpu():
     """Four fields as the reference returns them; no MFU without a card."""
     per_step, tflops, mfu, note = measure.measure_adamw_train_step(
-        wl.ModelConfig.tiny(), 2, k1=1, k2=2, repeats=1, device="cpu")
+        wl.ModelConfig.tiny(), 2, k1=1, k2=4, repeats=3, device="cpu")
     assert per_step > 0 and tflops > 0 and mfu is None
     assert "params+AdamW state" in note and "remat=False" in note
 
 
 def test_measure_train_step_on_the_cpu():
     per_step, tflops, mfu = measure.measure_train_step(
-        wl.ModelConfig.tiny(), 2, k1=1, k2=2, repeats=1, device="cpu")
+        wl.ModelConfig.tiny(), 2, k1=1, k2=4, repeats=3, device="cpu")
     assert per_step > 0 and np.isfinite(tflops) and mfu is None
 
 

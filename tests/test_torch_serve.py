@@ -1,7 +1,9 @@
 """tpusched_torch.serve on the CPU. The load-bearing law, as for the
 reference engine (tests/test_serve.py): continuous batching gives every
 request exactly the tokens it gets alone — here held three ways, the port's
-engine == the port's solo generate == the JAX reference's generate."""
+engine == the port's solo generate == the JAX reference's generate (or the
+reference's engine, whose solo parity tests/test_serve.py pins), for
+monolithic, chunked, prefix-cached and int8 admission alike."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from tpusched.jaxbridge import decode as jdec, workload as jwl
+from tpusched.jaxbridge import decode as jdec, serve as jserve
+from tpusched.jaxbridge import workload as jwl
 from tpusched_torch import decode, interop, serve, workload as wl
 from tpusched_torch.serve import Request, ServeEngine, measure_serving
 
@@ -29,9 +32,13 @@ def _prompt(rng, lo, hi, vocab):
     return rng.integers(0, vocab, size=rng.integers(lo, hi), dtype=np.int32)
 
 
+def _solo_full(params, cfg, prompt, n):
+    return decode.generate(params, torch.from_numpy(prompt)[None].long(), cfg,
+                           steps=n - 1)[0].numpy()
+
+
 def _solo(params, cfg, req):
-    return decode.generate(params, torch.from_numpy(req.prompt)[None].long(),
-                           cfg, steps=req.max_new_tokens - 1)[0].numpy()
+    return _solo_full(params, cfg, req.prompt, req.max_new_tokens)
 
 
 @pytest.mark.parametrize("attn", ["naive", "flash"])
@@ -182,7 +189,7 @@ def test_sampled_engine_is_seeded(model):
 
 
 @pytest.mark.parametrize("option", [
-    dict(mesh=object()), dict(chunk_prefill=4),
+    dict(mesh=object()),
     dict(draft_params={}), dict(draft_cfg=wl.ModelConfig.tiny()),
     dict(request_keyed=True, temperature=1.0)])
 def test_options_not_ported_yet_raise(model, option):
@@ -201,3 +208,284 @@ def test_engine_needs_a_device(model, monkeypatch):
     with pytest.raises(ValueError, match="params are on meta"):
         ServeEngine(meta, cfg, slots=1, max_seq=32, prompt_bucket=8,
                     device="cpu")
+
+
+# -- chunked prefill, prefix caching and the int8 arena -----------------------
+
+
+def _pair(seed=0, **changes):
+    """The reference's tiny model and the port's, with the same weights."""
+    jcfg = dataclasses.replace(jwl.ModelConfig.tiny(), **changes)
+    cfg = dataclasses.replace(wl.ModelConfig.tiny(), **changes)
+    jp = jwl.init_params(jax.random.PRNGKey(seed), jcfg)
+    p = interop.params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    return jcfg, jp, cfg, p
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair()
+
+
+def _reference_engine(jcfg, jp, reqs, prefix=None, **geometry):
+    """The reference engine's tokens by rid, and its ticks."""
+    eng = jserve.ServeEngine(jp, jcfg, **geometry)
+    if prefix is not None:
+        eng.register_prefix("sys", prefix)
+    for r in reqs:
+        eng.submit(jserve.Request(rid=r.rid, prompt=r.prompt,
+                                  max_new_tokens=r.max_new_tokens,
+                                  eos_token=r.eos_token,
+                                  prefix_id=r.prefix_id))
+    return ({c.rid: c.tokens for c in eng.run_until_drained()},
+            eng.tick_count)
+
+
+def _serve_three_ways(pair, reqs, prefix=None, **geometry):
+    """Serve ``reqs`` on the port's engine and the reference's with the
+    same geometry: every completion equals the port's solo generate on its
+    full prompt and the reference engine's tokens, in as many ticks.
+    Returns the port's completions by rid."""
+    jcfg, jp, cfg, p = pair
+    eng = ServeEngine(p, cfg, device="cpu", **geometry)
+    if prefix is not None:
+        eng.register_prefix("sys", prefix)
+    for r in reqs:
+        eng.submit(r)
+    done = {c.rid: c for c in eng.run_until_drained()}
+    ref, ref_ticks = _reference_engine(jcfg, jp, reqs, prefix, **geometry)
+    assert sorted(done) == sorted(r.rid for r in reqs)
+    assert eng.tick_count == ref_ticks
+    for r in reqs:
+        full = (np.concatenate([prefix, r.prompt]) if r.prefix_id
+                else r.prompt)
+        c = done[r.rid]
+        assert c.prompt_len == len(full)
+        solo = _solo_full(p, cfg, full, r.max_new_tokens)
+        if r.eos_token is not None and r.eos_token in solo.tolist():
+            solo = solo[:solo.tolist().index(r.eos_token) + 1]
+        np.testing.assert_array_equal(c.tokens, solo, err_msg=f"rid {r.rid}")
+        np.testing.assert_array_equal(c.tokens, ref[r.rid])
+    return done
+
+
+@pytest.mark.parametrize("chunk", [4, 7, 16])
+def test_chunked_prefill_matches_solo_and_reference(pair, chunk):
+    """Chunk sizes straddle the prompt lengths: single-chunk,
+    ragged-final-chunk and exact-multiple prompts all occur."""
+    rng = np.random.default_rng(11)
+    reqs = [Request(rid=i, prompt=_prompt(rng, 3, 17, 256),
+                    max_new_tokens=int(rng.integers(2, 9)))
+            for i in range(8)]
+    _serve_three_ways(pair, reqs, slots=3, max_seq=64, prompt_bucket=24,
+                      chunk_prefill=chunk)
+
+
+def test_chunked_prefill_interleaves_with_resident_decode(pair):
+    """A resident sequence decodes on every tick while a long prompt
+    streams in, chunk by chunk, where a monolithic prefill would stall it;
+    a prefilling slot is not active."""
+    jcfg, jp, cfg, p = pair
+    geometry = dict(slots=2, max_seq=64, prompt_bucket=32, chunk_prefill=4)
+    eng = ServeEngine(p, cfg, device="cpu", **geometry)
+    rng = np.random.default_rng(3)
+    resident = Request(rid=0, prompt=rng.integers(0, 256, 4, dtype=np.int32),
+                       max_new_tokens=40)
+    eng.submit(resident)
+    for _ in range(4):
+        eng.tick()
+    assert eng.req[0] is not None and eng.prefill_off[0] is None
+    long_req = Request(rid=1, prompt=rng.integers(0, 256, 32, dtype=np.int32),
+                       max_new_tokens=2)
+    eng.submit(long_req)
+    before = len(eng.generated[0])
+    assert eng.tick() == 1                   # admits and streams chunk one
+    prefill_ticks = 1
+    while any(off is not None for off in eng.prefill_off):
+        eng.tick()
+        prefill_ticks += 1
+    assert prefill_ticks == 32 // 4
+    assert len(eng.generated[0]) - before >= prefill_ticks
+    done = {c.rid: c.tokens for c in eng.run_until_drained()}
+    ref, _ = _reference_engine(jcfg, jp, [resident, long_req], **geometry)
+    for r in (resident, long_req):
+        np.testing.assert_array_equal(
+            done[r.rid], _solo_full(p, cfg, r.prompt, r.max_new_tokens))
+        np.testing.assert_array_equal(done[r.rid], ref[r.rid])
+
+
+def test_chunk_geometry_is_refused_before_any_write(model):
+    """The reference's clamp guards, which keep every in-place write in
+    range: a last chunk past max_seq at construction, chunk_prefill < 1,
+    and a prefix + chunk-aligned suffix past max_seq at submit."""
+    cfg, params = model
+    with pytest.raises(ValueError, match="chunk-aligned"):
+        ServeEngine(params, cfg, slots=2, max_seq=64, prompt_bucket=60,
+                    chunk_prefill=48, device="cpu")   # ceil(60/48)*48 > 64
+    ServeEngine(params, cfg, slots=2, max_seq=128, prompt_bucket=60,
+                chunk_prefill=48, device="cpu")
+    with pytest.raises(ValueError, match="chunk_prefill must be >= 1"):
+        ServeEngine(params, cfg, slots=2, max_seq=64, prompt_bucket=16,
+                    chunk_prefill=0, device="cpu")
+    eng = ServeEngine(params, cfg, slots=1, max_seq=32, prompt_bucket=8,
+                      chunk_prefill=6, device="cpu")
+    eng.register_prefix("sys", np.zeros(22, np.int32))
+    with pytest.raises(ValueError, match="chunk-aligned prompt span 34"):
+        eng.submit(Request(rid=0, prompt=np.zeros(7, np.int32),
+                           max_new_tokens=1, prefix_id="sys"))
+    assert not eng.queue
+
+
+def test_prefix_caching_matches_solo_on_full_prompt(pair):
+    """Prefix tenants and plain tenants take turns in the same slots; a
+    stale prefix length must never leak into a plain tenant."""
+    rng = np.random.default_rng(21)
+    prefix = rng.integers(0, 256, 12, dtype=np.int32)
+    reqs = [Request(rid=i, prompt=_prompt(rng, 4, 10, 256),
+                    max_new_tokens=int(rng.integers(2, 6)),
+                    prefix_id="sys" if i % 2 == 0 else None)
+            for i in range(6)]
+    _serve_three_ways(pair, reqs, prefix, slots=2, max_seq=64,
+                      prompt_bucket=16, chunk_prefill=5)
+
+
+def test_prefix_caching_validation(model):
+    cfg, params = model
+    prefix = np.random.default_rng(23).integers(0, 256, 8, dtype=np.int32)
+    mono = ServeEngine(params, cfg, slots=1, max_seq=64, prompt_bucket=16,
+                       device="cpu")
+    with pytest.raises(ValueError, match="chunk"):
+        mono.register_prefix("sys", prefix)
+    with pytest.raises(ValueError, match="chunked engine"):
+        mono.submit(Request(rid=0, prompt=np.zeros(4, np.int32),
+                            max_new_tokens=1, prefix_id="sys"))
+    eng = ServeEngine(params, cfg, slots=1, max_seq=32, prompt_bucket=8,
+                      chunk_prefill=4, device="cpu")
+    eng.register_prefix("sys", prefix)
+    with pytest.raises(ValueError, match="unknown prefix_id"):
+        eng.submit(Request(rid=0, prompt=np.zeros(4, np.int32),
+                           max_new_tokens=1, prefix_id="nope"))
+    with pytest.raises(ValueError, match="non-empty suffix"):
+        eng.submit(Request(rid=0, prompt=np.zeros(0, np.int32),
+                           max_new_tokens=1, prefix_id="sys"))
+    with pytest.raises(ValueError, match="max_seq"):
+        # prefix 8 + suffix 8 + 17 generated > 32
+        eng.submit(Request(rid=0, prompt=np.zeros(8, np.int32),
+                           max_new_tokens=17, prefix_id="sys"))
+
+
+def test_prefix_reregistration_does_not_affect_queued_requests(pair):
+    """The resolved prefix is pinned at submit: registering the id again,
+    longer, before admission leaves the queued request as it was."""
+    jcfg, jp, cfg, p = pair
+    rng = np.random.default_rng(31)
+    old = rng.integers(0, 256, 8, dtype=np.int32)
+    suffix = _prompt(rng, 4, 8, 256)
+    new = rng.integers(0, 256, 20, dtype=np.int32)
+    req = Request(rid=0, prompt=suffix, max_new_tokens=4, prefix_id="sys")
+    geometry = dict(slots=1, max_seq=64, prompt_bucket=16, chunk_prefill=4)
+    eng = ServeEngine(p, cfg, device="cpu", **geometry)
+    jeng = jserve.ServeEngine(jp, jcfg, **geometry)
+    for e, r in ((eng, req), (jeng, jserve.Request(
+            rid=0, prompt=suffix, max_new_tokens=4, prefix_id="sys"))):
+        e.register_prefix("sys", old)
+        e.submit(r)
+        e.register_prefix("sys", new)
+    [done] = eng.run_until_drained()
+    [ref] = jeng.run_until_drained()
+    full = np.concatenate([old, suffix])
+    assert done.prompt_len == ref.prompt_len == len(full)
+    np.testing.assert_array_equal(done.tokens, _solo_full(p, cfg, full, 4))
+    np.testing.assert_array_equal(done.tokens, ref.tokens)
+
+
+def test_register_prefix_rejects_unusable_length(model):
+    """A prefix that leaves no room for a chunk-aligned suffix and one
+    generated token fails at registration, before any K/V is computed."""
+    cfg, params = model
+    eng = ServeEngine(params, cfg, slots=1, max_seq=32, prompt_bucket=8,
+                      chunk_prefill=8, device="cpu")
+    for bad in (26, 0):
+        with pytest.raises(ValueError, match="room"):
+            eng.register_prefix("big", np.zeros(bad, np.int32))
+    eng.register_prefix("ok", np.zeros(24, np.int32))        # 24 + 8 == 32
+    assert eng._prefixes["ok"]["len"] == 24
+    assert eng._prefixes["ok"]["kv"][0]["k"].shape == (1, 24, cfg.kv_heads,
+                                                       cfg.head_dim)
+
+
+@pytest.fixture(scope="module")
+def moe_pair():
+    return _pair(seed=3, n_experts=4, moe_top_k=2)
+
+
+@pytest.mark.parametrize("chunk", [None, 5])
+def test_moe_engine_matches_solo_and_reference(moe_pair, chunk):
+    """Monolithic and chunked admission over the dropless MoE block."""
+    rng = np.random.default_rng(37)
+    reqs = [Request(rid=i, prompt=_prompt(rng, 3, 14, 256),
+                    max_new_tokens=int(rng.integers(2, 7)))
+            for i in range(6)]
+    _serve_three_ways(moe_pair, reqs, slots=3, max_seq=64, prompt_bucket=16,
+                      chunk_prefill=chunk)
+
+
+@pytest.mark.parametrize("seed", [51, 77, 1234])
+def test_serving_soak_composed_features(pair, seed):
+    """Chunked prefill, prefix caching, EOS mid-generation, mixed lengths
+    and slot churn in one engine run."""
+    jcfg, jp, cfg, p = pair
+    rng = np.random.default_rng(seed)
+    chunk = int(rng.integers(3, 8))
+    prefix = rng.integers(0, 256, int(rng.integers(6, 12)), dtype=np.int32)
+    reqs = []
+    for i in range(10):
+        use_prefix = bool(rng.integers(0, 2))
+        prompt = _prompt(rng, 3, 14, 256)
+        gen = int(rng.integers(2, 9))
+        full = np.concatenate([prefix, prompt]) if use_prefix else prompt
+        eos = None
+        if rng.integers(0, 3) == 0 and gen >= 3:
+            eos = int(_solo_full(p, cfg, full, gen)[1])
+        reqs.append(Request(rid=i, prompt=prompt, max_new_tokens=gen,
+                            eos_token=eos,
+                            prefix_id="sys" if use_prefix else None))
+    _serve_three_ways(pair, reqs, prefix, slots=3, max_seq=64,
+                      prompt_bucket=20, chunk_prefill=chunk)
+
+
+def test_int8_arena_matches_solo_int8():
+    """Monolithic admission quantizes slot inserts as solo prefill does, so
+    the int8 arena keeps engine == solo int8 generate == the reference."""
+    rng = np.random.default_rng(29)
+    reqs = [Request(rid=i, prompt=_prompt(rng, 3, 15, 256),
+                    max_new_tokens=int(rng.integers(2, 9)))
+            for i in range(8)]
+    _serve_three_ways(_pair(kv_cache_dtype="int8"), reqs, slots=3,
+                      max_seq=64, prompt_bucket=16)
+
+
+def test_int8_arena_refuses_chunked_prefill(model):
+    cfg, params = model
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    eng = ServeEngine(params, cfg8, slots=2, max_seq=64, prompt_bucket=16,
+                      device="cpu")
+    assert eng.cache[0]["k"].dtype == torch.int8 and "ks" in eng.cache[0]
+    with pytest.raises(ValueError, match="monolithic admission"):
+        ServeEngine(params, cfg8, slots=2, max_seq=64, prompt_bucket=16,
+                    chunk_prefill=4, device="cpu")
+
+
+def test_measure_serving_chunked_counts_tokens(model):
+    """Chunked measure_serving serves every token; its warmup and chunks
+    run no monolithic prefill."""
+    cfg, params = model
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, prompt=_prompt(rng, 3, 9, cfg.vocab),
+                    max_new_tokens=int(rng.integers(2, 7)))
+            for i in range(6)]
+    out = measure_serving(cfg, params, reqs, slots=2, max_seq=48,
+                          prompt_bucket=16, chunk_prefill=4, device="cpu")
+    assert out["tokens"] == sum(r.max_new_tokens for r in reqs)
+    assert 0 < out["occupancy"] <= 1.0 and out["prefills"] == 0
+    assert out["tokens_per_s"] > 0 and out["max_tick_gap_s"] > 0

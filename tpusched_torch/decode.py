@@ -1,10 +1,11 @@
 """KV-cache inference: prefill, single-token decode, sampling, generation.
 
 Counterpart of ``tpusched/jaxbridge/decode.py``. One (b, max_seq, kv_heads,
-head_dim) K and V per layer; queries attend the cache through a position
-mask. Unlike the reference, whose arrays are immutable, the cache is
-written IN PLACE: ``cache_update`` and every function that takes a cache
-mutate it and return the same object.
+head_dim) K and V per layer, exact or (``cfg.kv_cache_dtype="int8"``) int8
+with one f32 scale per (row, KV head) in planes ``ks``/``vs``; queries
+attend the cache through a position mask. Unlike the reference, whose
+arrays are immutable, the cache is written IN PLACE: ``cache_update`` and
+every function that takes a cache mutate it and return the same object.
 """
 from __future__ import annotations
 
@@ -23,24 +24,44 @@ KVCache = List[Dict[str, torch.Tensor]]
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
                   device=None) -> KVCache:
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            "int8 KV cache is not ported yet: ROADMAP 'int8 KV, chunked "
-            "prefill and prefix caching'")
+    """Zeroed cache, one entry per layer: ``k``/``v`` (batch, max_seq,
+    kv_heads, head_dim) in ``cfg.dtype``, or int8 with f32 scale planes
+    ``ks``/``vs`` (batch, max_seq, kv_heads) when ``cfg.kv_cache_dtype`` is
+    "int8" (half the bytes a decode step streams for the cache)."""
     device = resolve_device(device)
     shape = (batch, max_seq, cfg.kv_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        return [{"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "ks": torch.zeros(shape[:3], dtype=torch.float32,
+                                   device=device),
+                 "vs": torch.zeros(shape[:3], dtype=torch.float32,
+                                   device=device)}
+                for _ in range(cfg.n_layers)]
     return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
              "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
             for _ in range(cfg.n_layers)]
 
 
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over head_dim, one f32 scale per (row, KV head):
+    (b, s, kv, hd) -> (int8 (b, s, kv, hd), f32 (b, s, kv)). The 1e-8 floor
+    applies to max|x| before the division, rounding is half to even
+    (``torch.round``), and the clip is ±127, as in the reference."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
 def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
     """Write ``new`` (b, n, ...) into ``cache`` IN PLACE at sequence offset
     ``pos``: a scalar (the whole batch aligned) or a (b,) vector (each row
-    at its own offset). Rows must fit: unlike the reference's
-    dynamic_update_slice, which clamps an out-of-range start, plain
-    indexing raises; the serving engine's submit() guards keep every write
-    in range."""
+    at its own offset). Any rank past (batch, seq), so the int8 scale
+    planes (b, s, kv) take the path of the values. Rows must fit: unlike
+    the reference's dynamic_update_slice, which clamps an out-of-range
+    start, plain indexing raises; the serving engine's guards keep every
+    write in range."""
     n = new.shape[1]
     off = torch.as_tensor(pos)
     if off.ndim == 0:
@@ -55,14 +76,28 @@ def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
 
 def cache_update(c: Dict[str, torch.Tensor], k: torch.Tensor,
                  v: torch.Tensor, pos) -> Dict[str, torch.Tensor]:
-    """Write fresh K/V rows into the cache entry at ``pos``, in place; the
-    one write path of decode, prefill and span scoring."""
+    """Write fresh K/V rows into the cache entry at ``pos``, in place,
+    quantized when the entry is int8; the one write path of decode, prefill
+    and span scoring."""
+    if "ks" in c:
+        k, ks = _quantize_kv(k)
+        v, vs = _quantize_kv(v)
+        _cache_write(c["ks"], ks, pos)
+        _cache_write(c["vs"], vs, pos)
     _cache_write(c["k"], k, pos)
     _cache_write(c["v"], v, pos)
     return c
 
 
-def cache_kv(c: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+def cache_kv(c: Dict[str, torch.Tensor], dtype: torch.dtype
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The entry's K/V in the compute ``dtype``. An int8 entry is
+    dequantized as the reference does it: the scale is cast to ``dtype``
+    first and the product taken in ``dtype`` (in bf16 the scale is rounded
+    before the multiply)."""
+    if "ks" in c:
+        return (c["k"].to(dtype) * c["ks"].to(dtype)[..., None],
+                c["v"].to(dtype) * c["vs"].to(dtype)[..., None])
     return c["k"], c["v"]
 
 
@@ -92,7 +127,7 @@ def _layer_decode(x: torch.Tensor, layer: Dict[str, torch.Tensor], c, pos,
     h = _rmsnorm(x, layer["ln_attn"])
     q, k, v = _qkv(h, layer, cfg, pos_offset=pos)
     cache_update(c, k, v, pos)
-    ck, cv = cache_kv(c)
+    ck, cv = cache_kv(c, q.dtype)
     o = _cached_attention(q, ck, cv, pos, cfg.n_heads // cfg.kv_heads)
     # dropless: a decoded token's MoE output depends on that token alone
     return _finish_block(x, layer, o, cfg, dropless=True)[0]
@@ -102,7 +137,8 @@ def _layer_prefill(x: torch.Tensor, layer: Dict[str, torch.Tensor], c,
                    cfg: ModelConfig, attn_fn) -> torch.Tensor:
     """Prefill layer: attention over the prompt through the configured
     implementation (the flash kernel when cfg.attn == 'flash'), K/V
-    recorded into the cache from position 0."""
+    recorded into the cache from position 0. Attention takes the FRESH
+    K/V, so an int8 cache's error enters only at later cached reads."""
     h = _rmsnorm(x, layer["ln_attn"])
     q, k, v = _qkv(h, layer, cfg)
     cache_update(c, k, v, 0)
