@@ -62,7 +62,23 @@ Phases, in order; any failure raises and the script exits non-zero:
     at batch 8 and one ``mixtral_like(seq=1024)`` SGD step: launches,
     host-to-device copies, synchronizations, device-busy against wall time
     and the five longest device operations (phase 12 prints the same for
-    its tick; the traces go to ``build/torch_kernels/traces/``).
+    its tick; the traces go to ``build/torch_kernels/traces/``);
+17. solo speculation at full width: ``llama_like_big`` from a 64-token
+    prompt, 127 steps, k = 4, through ``decode.generate`` and
+    ``speculative_generate`` with a self-draft and with ``llama_like`` as
+    the draft (launches counted, tokens/s, accept rates), then a sampled
+    self-draft run twice with one key (identical tokens);
+18. speculative serving at full width: phase 3's requests with spec_k = 4,
+    a self-draft (fewer rounds than phase 3's ticks) and a ``llama_like``
+    draft, as a user drives the engine and through ``measure_serving``
+    (launches per target and draft prefill), then request-keyed sampled
+    speculative serving drained twice (identical tokens). The greedy
+    streams of phases 17 and 18 equal plain decoding's, or differ first
+    where the plain stream's two top logits lie within 1/32 (a near tie);
+19. speculation on ``tiny`` f32 (flash, TF32 off), exact: the speculative
+    engine == the plain engine == solo ``speculative_generate`` for random,
+    truncated and self drafts on an exact and an int8 target arena;
+    request-keyed and sampled speculative engines == their solo samplers.
 
 The second-to-last line is the ``kernels`` JSON object, the last line the
 ``ok`` JSON object. Imports neither JAX nor the JAX package.
@@ -247,8 +263,10 @@ def phase_kernel_vs_plain(attention):
         (2, 300, 4, 2, 64, f32, True, 0),        # f32, ragged
         (1, 64, 2, 2, 32, f32, False, 3),        # f32, strided
         (1, 300, 16, 4, 128, bf16, True, 0),     # phase 13's prefix
+        (1, 64, 16, 4, 128, bf16, True, 0),      # phase 17's prompt
     ] + [  # every length the tiny f32 phases prefill: prompts 4-13, the
-           # bucket 16, phase 15's 12-token prefix and prefix + suffix 16-25
+           # bucket 16, phase 15's 12-token prefix and prefix + suffix 16-25;
+           # phase 19's drafts (one and two layers of tiny's heads) too
         (1, s, 2, 2, 32, f32, True, 0) for s in range(4, 26)]
     main_err = None
     for b, s, h, kv, d, dtype, causal, pad in cases:
@@ -424,11 +442,12 @@ def make_requests(cfg, serve):
         for i in range(16)]
 
 
-def seeded_params(workload, cfg):
-    """Random weights for ``cfg`` from a generator on the card seeded 0: the
-    same weights in every phase that asks for the same shapes."""
+def seeded_params(workload, cfg, device="cuda", seed=0):
+    """Random weights for ``cfg`` from a generator on ``device`` seeded
+    ``seed`` (0 unless a phase needs a second model): the same weights in
+    every phase that asks for the same shapes."""
     return workload.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        cfg, torch.Generator(device=device).manual_seed(seed), device)
 
 
 def check_completions(done, reqs, vocab, what):
@@ -1143,6 +1162,365 @@ def phase_trace(decode, workload):
     traced(sgd, "mixtral_like SGD step seq 1024")
 
 
+# -- speculative decoding and request-keyed sampling (phases 17-19) -----------
+
+SPEC_K = 4
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def flash_layers(cfg) -> int:
+    """K1 launches of one prefill of ``cfg``: one a layer under flash."""
+    return cfg.n_layers if cfg.attn == "flash" else 0
+
+
+def near_tie(decode, params, cfg, prompt, plain, spec, device):
+    """The near-tie rule for greedy bf16 speculation. Greedy speculation
+    emits the target's argmax exactly, but its verify span (k + 1 rows) and
+    plain decoding (1 row) are different GEMM shapes, so an argmax whose
+    top two logits nearly tie may flip. Where ``spec`` differs from
+    ``plain``, the plain stream's prefix up to the first differing index is
+    scored by a solo ``prefill``; the two tokens' logits there must lie
+    within 1/32 of the larger one's magnitude, else the run fails. Returns
+    None for equal streams, else that index, both tokens, their logits and
+    the relative margin."""
+    plain, spec = [int(t) for t in plain], [int(t) for t in spec]
+    check(len(plain) == len(spec),
+          f"speculative stream of {len(spec)} tokens against {len(plain)}")
+    i = next((i for i, (a, b) in enumerate(zip(plain, spec)) if a != b), None)
+    if i is None:
+        return None
+    ctx = torch.as_tensor(np.concatenate([np.asarray(prompt), plain[:i]]),
+                          device=device)[None].long()
+    with torch.no_grad():
+        logits, _ = decode.prefill(params, decode.init_kv_cache(
+            cfg, 1, ctx.shape[1], device), ctx, cfg)
+    row = logits[0, -1].float()
+    a, b = row[plain[i]].item(), row[spec[i]].item()
+    margin = abs(a - b) / max(abs(a), abs(b), 1e-30)
+    tie = {"index": i, "plain": [plain[i], a], "spec": [spec[i], b],
+           "margin": margin}
+    print(json.dumps({"near_tie": tie}))
+    check(margin <= 1 / 32, f"speculation diverged from plain decoding at "
+          f"token {i} without a near tie: {tie}")
+    return tie
+
+
+def timed(fn, device):
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - t0
+
+
+def phase_spec_solo(attention, decode, spec_decode, workload,
+                    target="llama_like_big", draft="llama_like", prompt_len=64,
+                    steps=127, device="cuda"):
+    """Solo speculation at full width: ``target`` (bf16, flash) from a
+    seeded ``prompt_len``-token prompt, ``steps`` steps, k = 4, through
+    ``decode.generate``, ``speculative_generate`` with a self-draft (the
+    ceiling) and with ``draft`` as the draft (same vocabulary), each timed
+    (fenced) with its K1 launches counted: one a layer for each prefill of
+    a flash model, after an untimed 8-step run of the same call (the first
+    use of a span shape pays set-up the steady state does not). The greedy
+    streams meet :func:`near_tie`. Then a self-draft ``speculative_sample``
+    (temperature 0.8, top_p 0.95) run twice with one key gives identical
+    tokens. Returns the launches."""
+    cfg = getattr(workload.ModelConfig, target)()
+    dcfg = getattr(workload.ModelConfig, draft)()
+    params = seeded_params(workload, cfg, device)
+    dparams = seeded_params(workload, dcfg, device, seed=1)
+    prompt_np = np.random.default_rng(17).integers(0, cfg.vocab, prompt_len)
+    prompt = torch.as_tensor(prompt_np, device=device)[None].long()
+    runs, launches = {}, {}
+    decode.generate(params, prompt, cfg, 8)
+    attention.FLASH_FWD_LAUNCHES = 0
+    plain, elapsed = timed(lambda: decode.generate(params, prompt, cfg,
+                                                   steps), device)
+    launches["generate"] = attention.FLASH_FWD_LAUNCHES
+    check(launches["generate"] == flash_layers(cfg),
+          f"generate: {launches['generate']} flash launches")
+    plain = plain[0].cpu().numpy()
+    runs["generate"] = {"target_calls": steps + 1,
+                        "tokens_per_s": (steps + 1) / elapsed,
+                        "elapsed_s": elapsed}
+    for name, (dp, dc) in (("self_draft", (params, cfg)),
+                           (draft, (dparams, dcfg))):
+        spec_decode.speculative_generate(params, cfg, dp, dc, prompt, 8,
+                                         k=SPEC_K)
+        attention.FLASH_FWD_LAUNCHES = 0
+        (toks, stats), elapsed = timed(
+            lambda: spec_decode.speculative_generate(
+                params, cfg, dp, dc, prompt, steps, k=SPEC_K), device)
+        launches[name] = attention.FLASH_FWD_LAUNCHES
+        check(launches[name] == flash_layers(cfg) + flash_layers(dc),
+              f"speculative_generate ({name}): {launches[name]} flash "
+              f"launches")
+        check(toks.shape == (1, steps + 1)
+              and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+              f"speculative_generate ({name}): tokens {toks.shape}")
+        check(stats["plain_calls"] == steps + 1
+              and stats["accepted"] <= stats["drafted"], f"stats {stats}")
+        runs[name] = {**stats, "tokens_per_s": (steps + 1) / elapsed,
+                      "elapsed_s": elapsed, "near_tie": near_tie(
+                          decode, params, cfg, prompt_np, plain, toks[0],
+                          device)}
+    check(runs["self_draft"]["target_calls"] < steps + 1,
+          "a self-draft saved no target call")
+    sampled = []
+    for _ in range(2):
+        attention.FLASH_FWD_LAUNCHES = 0
+        (toks, stats), elapsed = timed(
+            lambda: spec_decode.speculative_sample(
+                params, cfg, params, cfg, prompt, steps, 2024, k=SPEC_K,
+                temperature=0.8, top_p=0.95), device)
+        launches["sampled_self_draft"] = attention.FLASH_FWD_LAUNCHES
+        check(launches["sampled_self_draft"] == 2 * flash_layers(cfg),
+              "speculative_sample: flash launches")
+        sampled.append((toks, {**stats, "tokens_per_s": (steps + 1) / elapsed,
+                               "elapsed_s": elapsed}))
+    check(np.array_equal(sampled[0][0], sampled[1][0]),
+          "speculative_sample is not repeatable for one key")
+    print(json.dumps({
+        "speculative": target, "draft": draft, "prompt_len": prompt_len,
+        "steps": steps, "k": SPEC_K, "flash_launches": launches, **runs,
+        "sampled_self_draft": [st for _, st in sampled]}))
+    return launches
+
+
+def drain_traced(eng, label, device, at=10):
+    """Drain ``eng`` tick by tick as ``run_until_drained`` does, tracing the
+    tick numbered ``at`` (:func:`trace_summary`, with the active slots);
+    returns the trace and the fenced wall time of the untraced ticks."""
+    trace, untraced_s = None, 0.0
+    while eng.queue or any(r is not None for r in eng.req):
+        if eng.tick_count == at and label:
+            with profiler() as prof:
+                wall = fenced_s(eng.tick)
+            trace = trace_summary(prof, label, wall, tick=at, active=sum(
+                r is not None for r in eng.req))
+        else:
+            untraced_s += fenced_s(eng.tick)
+        check(eng.tick_count < 100_000, "serving did not drain")
+    return trace, untraced_s
+
+
+def serve_speculative(attention, serve, params, cfg, dparams, dcfg, reqs,
+                      geometry, device, trace_label=None, **kw):
+    """One drain of ``reqs`` through a warmed speculative engine, as a user
+    drives it, K1 launches counted (one a layer for each target and each
+    draft prefill of a flash model); with ``trace_label`` its tenth round
+    is traced (:func:`drain_traced`). Returns the completions' tokens by
+    rid, the engine's spec_stats, ticks and fenced drain seconds (the
+    traced round left out), the launches and the trace."""
+    attention.FLASH_FWD_LAUNCHES = 0
+    eng = serve.ServeEngine(params, cfg, draft_params=dparams,
+                            draft_cfg=dcfg, spec_k=SPEC_K, device=device,
+                            **geometry, **kw)
+    eng.warmup()
+    for r in reqs:
+        eng.submit(r)
+    trace, drain_s = drain_traced(eng, trace_label, device)
+    done = eng.completions
+    sync(device)
+    launches = attention.FLASH_FWD_LAUNCHES
+    want = flash_layers(cfg) * eng.prefills + flash_layers(
+        dcfg) * eng.draft_prefills
+    check(launches == want, f"speculative serving: {launches} flash launches "
+          f"for {eng.prefills} target and {eng.draft_prefills} draft "
+          f"prefills")
+    check_completions(done, reqs, cfg.vocab, "speculative serving")
+    return ({c.rid: c.tokens for c in done}, dict(eng.spec_stats),
+            eng.tick_count, drain_s,
+            {"target": flash_layers(cfg) * eng.prefills,
+             "draft": flash_layers(dcfg) * eng.draft_prefills}, trace)
+
+
+def phase_spec_serving(attention, decode, serve, workload, mono,
+                       target="llama_like_big", draft="llama_like",
+                       geometry=SERVE_GEOMETRY, device="cuda"):
+    """Speculative serving at full width: phase 3's requests and geometry,
+    spec_k = 4, with a self-draft and with ``draft``, each drained once as a
+    user drives it (launches counted; tokens against phase 3's plain
+    engine's ``mono`` by :func:`near_tie`) and once through
+    ``measure_serving`` (rounds, accepted/drafted, tokens/s, max tick gap).
+    A self-draft needs fewer rounds than plain serving ticks. The tenth
+    round of each user drain, and the tenth tick of a plain engine's drain
+    of the same traffic, are traced. Then request-keyed sampled
+    speculative serving with a self-draft, drained twice: identical
+    tokens. Returns the launches of the greedy drains."""
+    cfg = getattr(workload.ModelConfig, target)()
+    dcfg = getattr(workload.ModelConfig, draft)()
+    params = seeded_params(workload, cfg, device)
+    dparams = seeded_params(workload, dcfg, device, seed=1)
+    reqs = make_requests(cfg, serve)
+    out, launches = {}, {}
+    keys = ("tokens_per_s", "ticks", "occupancy", "max_tick_gap_s",
+            "elapsed_s")
+    eng = serve.ServeEngine(params, cfg, device=device, **geometry)
+    eng.warmup()
+    for r in reqs:
+        eng.submit(r)
+    drain_traced(eng, f"{target} plain serving tick", device)
+    del eng
+    for name, (dp, dc) in (("self_draft", (params, cfg)),
+                           (draft, (dparams, dcfg))):
+        tokens, stats, ticks, _, launches[name], _ = serve_speculative(
+            attention, serve, params, cfg, dp, dc, reqs, geometry, device,
+            trace_label=f"{target} speculative round, {name}")
+        ties = {rid: near_tie(decode, params, cfg, reqs[rid].prompt,
+                              mono["tokens"][rid], toks, device)
+                for rid, toks in tokens.items()}
+        attention.FLASH_FWD_LAUNCHES = 0
+        m = serve.measure_serving(cfg, params, reqs, draft_params=dp,
+                                  draft_cfg=dc, spec_k=SPEC_K, device=device,
+                                  **geometry)
+        check(attention.FLASH_FWD_LAUNCHES == flash_layers(cfg) * m[
+            "prefills"] + flash_layers(dc) * m["draft_prefills"],
+              "speculative measure_serving: flash launches")
+        check(m["tokens"] == sum(r.max_new_tokens for r in reqs),
+              "speculative measure_serving lost tokens")
+        check(m["spec_rounds"] == stats["rounds"]
+              and m["spec_accepted"] == stats["accepted"],
+              f"measure_serving's rounds {m} against the user's {stats}")
+        out[name] = {**{k: m[k] for k in keys},
+                     **{k: m[k] for k in m if k.startswith("spec_")},
+                     "user_drain_ticks": ticks, "flash_launches":
+                     launches[name], "near_ties": {
+                         rid: t for rid, t in ties.items() if t}}
+    check(out["self_draft"]["spec_rounds"] < mono["stats"]["ticks"],
+          f"self-draft speculative serving took "
+          f"{out['self_draft']['spec_rounds']} rounds against "
+          f"{mono['stats']['ticks']} plain ticks")
+    sampled = [serve_speculative(attention, serve, params, cfg, params, cfg,
+                                 reqs, geometry, device, temperature=0.8,
+                                 top_p=0.95, seed=7, request_keyed=True)
+               for _ in range(2)]
+    check(all(np.array_equal(sampled[0][0][rid], sampled[1][0][rid])
+              for rid in sampled[0][0]),
+          "request-keyed sampled speculative serving is not repeatable")
+    n_tokens = sum(r.max_new_tokens for r in reqs)
+    print(json.dumps({
+        "speculative_serving": target, "draft": draft, "spec_k": SPEC_K,
+        "requests": len(reqs), **out,
+        "plain": {k: mono["stats"][k] for k in keys},
+        "sampled_self_draft": {"spec_stats": sampled[0][1],
+                               "ticks": sampled[0][2],
+                               "drain_tokens_per_s": [n_tokens / x[3]
+                                                      for x in sampled],
+                               "flash_launches": sampled[0][4]}}))
+    return launches
+
+
+def phase_spec_parity(attention, decode, serve, spec_decode, workload,
+                      device="cuda"):
+    """Speculation on tiny f32 (flash, TF32 off), exact: for an exact and an
+    int8 target arena and a random, a truncated (the target's first layer)
+    and a self-draft, the speculative engine == the plain engine == solo
+    ``speculative_generate``, each run's K1 launches counted; the
+    request-keyed engine == solo ``sample_position_keyed`` with
+    ``fold_in(seed, rid)``; the sampled speculative engine == solo
+    ``speculative_sample``; a self-draft ``speculative_sample`` ==
+    ``sample_position_keyed``. The random draft keeps tiny's head_dim 32,
+    which the kernel takes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(workload.ModelConfig.tiny(), attn="flash")
+    params = seeded_params(workload, cfg, device)
+    rand_cfg = dataclasses.replace(cfg, n_layers=1, d_ff=64)
+    drafts = {"random": (seeded_params(workload, rand_cfg, device, seed=3),
+                         rand_cfg),
+              "truncated": ({**params, "layers": params["layers"][:1]},
+                            dataclasses.replace(cfg, n_layers=1)),
+              "self": (params, cfg)}
+    rng = np.random.default_rng(2)
+    reqs = [serve.Request(
+        rid=i, prompt=rng.integers(0, cfg.vocab, size=int(rng.integers(4, 14)),
+                                   dtype=np.int32),
+        max_new_tokens=int(rng.integers(3, 8))) for i in range(5)]
+    geometry = dict(slots=2, max_seq=64, prompt_bucket=16)
+
+    def prompt_of(req):
+        return torch.as_tensor(req.prompt, device=device)[None].long()
+
+    def drain(eng):
+        for r in reqs:
+            eng.submit(r)
+        return {c.rid: c.tokens for c in eng.run_until_drained()}
+
+    stats = {}
+    for kv in (None, "int8"):
+        tcfg = dataclasses.replace(cfg, kv_cache_dtype=kv)
+        attention.FLASH_FWD_LAUNCHES = 0
+        eng = serve.ServeEngine(params, tcfg, device=device, **geometry)
+        plain = drain(eng)
+        check(attention.FLASH_FWD_LAUNCHES == flash_layers(cfg) * eng.prefills,
+              "tiny plain engine: flash launches")
+        for name, (dp, dc) in drafts.items():
+            attention.FLASH_FWD_LAUNCHES = 0
+            eng = serve.ServeEngine(params, tcfg, draft_params=dp,
+                                    draft_cfg=dc, spec_k=3, device=device,
+                                    **geometry)
+            got = drain(eng)
+            check(attention.FLASH_FWD_LAUNCHES == flash_layers(cfg)
+                  * eng.prefills + flash_layers(dc) * eng.draft_prefills,
+                  f"tiny speculative engine ({name}): flash launches")
+            stats[f"{kv or 'exact'} {name}"] = dict(eng.spec_stats)
+            for r in reqs:
+                attention.FLASH_FWD_LAUNCHES = 0
+                solo, _ = spec_decode.speculative_generate(
+                    params, tcfg, dp, dc, prompt_of(r), r.max_new_tokens - 1,
+                    k=3)
+                check(attention.FLASH_FWD_LAUNCHES
+                      == flash_layers(cfg) + flash_layers(dc),
+                      "solo speculative_generate: flash launches")
+                check(np.array_equal(got[r.rid], plain[r.rid])
+                      and np.array_equal(got[r.rid], solo[0]),
+                      f"tiny {kv or 'exact'} {name} request {r.rid}: "
+                      f"speculative engine {got[r.rid]}, plain "
+                      f"{plain[r.rid]}, solo {solo[0]}")
+    check(stats["exact self"]["accepted"] == stats["exact self"]["drafted"],
+          "a tiny f32 self-draft was rejected")
+    sampling = dict(temperature=0.8, top_k=24)
+    keyed = dict(seed=5, request_keyed=True, **sampling)
+    got = drain(serve.ServeEngine(params, cfg, device=device, **geometry,
+                                  **keyed))
+    for r in reqs:
+        solo = decode.sample_position_keyed(
+            params, prompt_of(r), cfg, r.max_new_tokens - 1,
+            decode.fold_in(5, r.rid), **sampling)[0].cpu().numpy()
+        check(np.array_equal(got[r.rid], solo), f"request-keyed engine "
+              f"request {r.rid}: {got[r.rid]} != solo {solo}")
+    for name in ("truncated", "self"):
+        dp, dc = drafts[name]
+        eng = serve.ServeEngine(params, cfg, draft_params=dp, draft_cfg=dc,
+                                spec_k=3, device=device, **geometry, **keyed)
+        got = drain(eng)
+        stats[f"sampled {name}"] = dict(eng.spec_stats)
+        for r in reqs:
+            solo, _ = spec_decode.speculative_sample(
+                params, cfg, dp, dc, prompt_of(r), r.max_new_tokens - 1,
+                decode.fold_in(5, r.rid), k=3, **sampling)
+            check(np.array_equal(got[r.rid], solo[0]), f"sampled speculative "
+                  f"engine ({name}) request {r.rid}: {got[r.rid]} != solo "
+                  f"{solo[0]}")
+    for k in (1, 3, 4):
+        ref = decode.sample_position_keyed(params, prompt_of(reqs[0]), cfg, 18,
+                                           42, **sampling)[0].cpu().numpy()
+        got, st = spec_decode.speculative_sample(
+            params, cfg, params, cfg, prompt_of(reqs[0]), 18, 42, k=k,
+            **sampling)
+        check(np.array_equal(got[0], ref) and st["accept_rate"] == 1.0,
+              f"self-draft speculative_sample (k={k}) != "
+              f"sample_position_keyed")
+    print(json.dumps({"speculative parity": "tiny f32 flash", "exact": True,
+                      "spec_stats": stats}))
+
+
 def ab_turn(tree: str, other_root: str) -> None:
     """One turn of ``--ab``, in a process of its own: builds the kernels of
     the ``tpusched_torch`` on PYTHONPATH, then prints one JSON line of
@@ -1235,7 +1613,7 @@ def main(argv) -> int:
         print(__doc__, file=sys.stderr)
         return 2
     from tpusched_torch import (_build, attention, decode, measure, optim,
-                                serve, workload)
+                                serve, spec_decode, workload)
 
     phase_environment(_build)
     max_abs_err = phase_kernel_vs_plain(attention)
@@ -1270,8 +1648,17 @@ def main(argv) -> int:
     phase_parity(attention, decode, serve, workload, "flash", n_experts=4,
                  chunk_prefill=5)
     phase_trace(decode, workload)
+    t_spec = time.perf_counter()
+    t_12_16 = t_spec - t_new
+    # speculative decoding and request-keyed sampling, after every earlier
+    # phase so that those run as before
+    spec_solo = phase_spec_solo(attention, decode, spec_decode, workload)
+    spec_serving = phase_spec_serving(attention, decode, serve, workload,
+                                      mono)
+    phase_spec_parity(attention, decode, serve, spec_decode, workload)
     print(json.dumps({"phases_s": time.perf_counter() - t_start,
-                      "phases_12_16_s": time.perf_counter() - t_new}))
+                      "phases_12_16_s": t_12_16,
+                      "phases_17_19_s": time.perf_counter() - t_spec}))
     source = "tpusched_torch/csrc/"
     replaces = "tpusched/jaxbridge/attention.py:"
     # flash_fwd's own fields are the serving path's, at its (1, 1024, 16, 4,
@@ -1283,6 +1670,7 @@ def main(argv) -> int:
          "max_abs_err": max_abs_err, **serving_timing,
          "prefix_launches": prefix_launches,
          "int8_prefill_launches": int8_launches,
+         "spec_launches": {"solo": spec_solo, "serving": spec_serving},
          "training_shape": {"launches": train_launches[0],
                             **timing["flash_fwd"]}},
         {"name": "flash_bwd_dkdv", "route": "cuda",

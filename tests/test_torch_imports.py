@@ -73,6 +73,54 @@ def test_serving_paths_run_with_jax_unimportable():
     assert r.stdout.strip().splitlines()[-1] == "served"
 
 
+def test_speculative_paths_run_with_jax_unimportable():
+    """With jax, optax and tpusched refused at import, solo greedy and
+    sampled speculation, the keyed sampler, and greedy, request-keyed and
+    sampled speculative serving run on the CPU."""
+    prog = (
+        "import importlib.abc, sys\n"
+        "class Refuse(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        top = name.split('.')[0]\n"
+        "        if top.startswith('jax') or top in ('tpusched', 'optax'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Refuse())\n"
+        "import dataclasses, numpy as np, torch\n"
+        "from tpusched_torch import decode, serve, spec_decode, workload as wl\n"
+        "cfg = wl.ModelConfig.tiny()\n"
+        "p = wl.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "d = dataclasses.replace(cfg, n_layers=1)\n"
+        "dp = {**p, 'layers': p['layers'][:1]}\n"
+        "prompt = torch.arange(5)[None]\n"
+        "toks, st = spec_decode.speculative_generate(p, cfg, dp, d, prompt, 6,"
+        " k=3)\n"
+        "assert toks.shape == (1, 7) and st['plain_calls'] == 7\n"
+        "toks, st = spec_decode.speculative_sample(p, cfg, dp, d, prompt, 6, 9,"
+        " k=3, temperature=0.8)\n"
+        "assert toks.shape == (1, 7)\n"
+        "assert decode.sample_position_keyed(p, prompt, cfg, 6, 9).shape == "
+        "(1, 7)\n"
+        "reqs = [serve.Request(rid=i, prompt=np.arange(3 + i, dtype=np.int32),"
+        " max_new_tokens=4) for i in range(3)]\n"
+        "for kw in (dict(), dict(temperature=0.8, request_keyed=True)):\n"
+        "    for draft in (dict(), dict(draft_params=dp, draft_cfg=d,"
+        " spec_k=3)):\n"
+        "        eng = serve.ServeEngine(p, cfg, slots=2, max_seq=32,"
+        " prompt_bucket=8, device='cpu', **kw, **draft)\n"
+        "        for r in reqs:\n"
+        "            eng.submit(r)\n"
+        "        assert len(eng.run_until_drained()) == 3\n"
+        "out = serve.measure_serving(cfg, p, reqs, slots=2, max_seq=32,"
+        " prompt_bucket=8, draft_params=dp, draft_cfg=d, spec_k=3,"
+        " device='cpu')\n"
+        "assert out['tokens'] == 12.0 and out['spec_rounds'] > 0\n"
+        "print('speculated')\n")
+    r = subprocess.run([sys.executable, "-c", prog], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().splitlines()[-1] == "speculated"
+
+
 def _imports(path: pathlib.Path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):

@@ -188,13 +188,22 @@ def test_sampled_engine_is_seeded(model):
     assert run(1) != run(2)
 
 
-@pytest.mark.parametrize("option", [
-    dict(mesh=object()),
-    dict(draft_params={}), dict(draft_cfg=wl.ModelConfig.tiny()),
-    dict(request_keyed=True, temperature=1.0)])
-def test_options_not_ported_yet_raise(model, option):
+@pytest.mark.parametrize("option,error,match", [
+    (dict(mesh=object()), NotImplementedError, "ROADMAP"),
+    (dict(draft_params=None, draft_cfg=wl.ModelConfig.tiny()), ValueError,
+     "draft_cfg without draft_params"),
+    (dict(draft_cfg=None), ValueError, "draft_params requires draft_cfg"),
+    (dict(request_keyed=True, temperature=0.0), ValueError,
+     "needs temperature > 0")], ids=["option0", "option1", "option2",
+                                     "option3"])
+def test_options_not_ported_yet_raise(model, option, error, match):
+    """The mesh is not ported yet; speculation and request-keyed sampling
+    are (tests/test_torch_serve_spec.py), and refuse what the reference
+    refuses: a draft config without its weights, weights without their
+    config, keyed sampling at temperature 0."""
     cfg, params = model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    option = {"draft_params": params, **option}
+    with pytest.raises(error, match=match):
         ServeEngine(params, cfg, slots=1, max_seq=32, prompt_bucket=8,
                     device="cpu", **option)
 

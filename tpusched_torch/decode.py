@@ -6,12 +6,22 @@ with one f32 scale per (row, KV head) in planes ``ks``/``vs``; queries
 attend the cache through a position mask. Unlike the reference, whose
 arrays are immutable, the cache is written IN PLACE: ``cache_update`` and
 every function that takes a cache mutate it and return the same object.
+
+Speculative decoding's draft phase (``draft_rollout``,
+``sampling_draft_rollout``) and request-keyed sampling
+(``sample_position_keyed``, ``keyed_sample``) live here too. JAX's threefry
+``fold_in``/``categorical`` cannot be reproduced in torch, so keyed draws
+follow this module's own counter-based convention with the same laws: a
+key is a 64-bit int, ``fold_in`` mixes data into it with the splitmix64
+finaliser, and a draw is an inverse-CDF lookup of ``keyed_uniform`` in the
+float64 distribution of the adjusted logits, on the host.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from . import attention
@@ -240,3 +250,195 @@ def generate(params: Params, prompt: torch.Tensor, cfg: ModelConfig,
              steps: int) -> torch.Tensor:
     """Greedy generation: ``sample`` at temperature 0."""
     return sample(params, prompt, cfg, steps, temperature=0.0)
+
+
+# -- keyed randomness: the speculative-sampling key convention -----------------
+
+_MASK64 = (1 << 64) - 1
+
+# a position's PROPOSAL draw uses (key, row); its acceptance uniform and its
+# residual draw use the salted rows, so the three streams never share a
+# counter (rows are < 2**29 in any real context). Shared by solo
+# speculation (spec_decode) and the serving engine.
+ACCEPT_SALT = 1 << 30
+RESIDUAL_SALT = 3 << 29
+
+
+def _mix64(x: int) -> int:
+    """splitmix64's finaliser of ``x`` mod 2**64: a bijection on 64-bit
+    ints whose outputs pass as independent for distinct inputs."""
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new 64-bit key from ``key`` and the int ``data`` (negative data
+    wraps mod 2**64): the counterpart of ``jax.random.fold_in``. Python
+    ints, so bit-exact on every host."""
+    return _mix64((key & _MASK64) ^ _mix64(data & _MASK64))
+
+
+def keyed_uniform(key: int, row: int) -> float:
+    """The uniform in [0, 1) of ``(key, row)``: the top 53 bits of
+    ``fold_in(key, row)`` as a float64."""
+    return (fold_in(key, row) >> 11) * 2.0 ** -53
+
+
+def probs_from_adjusted(adj: np.ndarray) -> np.ndarray:
+    """Adjusted logits (…, V) → float64 distributions, the EXACT host
+    softmax both speculation paths divide in (a float32 device softmax
+    would shift min(1, q/p) by ~1e-7 — enough to flip a token on an
+    unlucky uniform and break engine-vs-solo parity)."""
+    a = np.asarray(adj, np.float64)
+    q = np.exp(a - a.max(axis=-1, keepdims=True))
+    return q / q.sum(axis=-1, keepdims=True)
+
+
+def keyed_categorical(adj: np.ndarray, key: int, row: int) -> int:
+    """The token of ``(key, row)`` from one row of adjusted logits (V,): the
+    inverse CDF of ``probs_from_adjusted(adj)`` at ``keyed_uniform(key,
+    row)``, drawn as ``spec_decode.accept_span`` draws its residual."""
+    return _keyed_draw(probs_from_adjusted(adj), key, row)
+
+
+def _keyed_draw(probs: np.ndarray, key: int, row: int) -> int:
+    return int(np.searchsorted(np.cumsum(probs), keyed_uniform(key, row),
+                               side="right").clip(0, len(probs) - 1))
+
+
+def host_adjusted_logits(logits: torch.Tensor, temperature: float,
+                         top_k: int, top_p: float) -> np.ndarray:
+    """``adjusted_logits`` of rows (…, V) on the device, copied to the host
+    once."""
+    shape = logits.shape
+    adj = adjusted_logits(logits.reshape(-1, shape[-1]), temperature, top_k,
+                          top_p)
+    return adj.reshape(shape).cpu().numpy()
+
+
+def keyed_sample(logits: torch.Tensor, keys: Sequence[int],
+                 rows: Sequence[int], temperature: float = 1.0,
+                 top_k: int = 0, top_p: float = 1.0) -> np.ndarray:
+    """Request-keyed sampling: row i of ``logits`` (b, V) draws
+    ``keyed_categorical`` with ``(keys[i], rows[i])`` over its adjusted
+    distribution. A token's randomness depends only on its request's key
+    and its absolute row, never on its neighbours in the batch. Returns
+    (b,) int64 on the host."""
+    adj = host_adjusted_logits(logits, temperature, top_k, top_p)
+    return np.asarray([keyed_categorical(a, int(k), int(r))
+                       for a, k, r in zip(adj, keys, rows)], dtype=np.int64)
+
+
+@torch.no_grad()
+def sample_position_keyed(params: Params, prompt: torch.Tensor,
+                          cfg: ModelConfig, steps: int, key: int,
+                          temperature: float = 1.0, top_k: int = 0,
+                          top_p: float = 1.0) -> torch.Tensor:
+    """``sample`` with the speculative-sampling key convention: the token
+    that will occupy absolute row ``p`` is drawn with ``(key, p)``, so a
+    re-proposed row never spends a new key and a perfect draft reproduces
+    this stream exactly. ``key`` is an int; every row of a batch draws with
+    it. Returns (b, steps + 1) tokens on the prompt's device."""
+    params = cast_params_for_compute(params, cfg)
+    b, s0 = prompt.shape
+    cache = init_kv_cache(cfg, b, s0 + steps, device=prompt.device)
+    logits, cache = prefill(params, cache, prompt, cfg)
+
+    def draw(row_logits, row):
+        toks = keyed_sample(row_logits, [key] * b, [row] * b, temperature,
+                            top_k, top_p)
+        return torch.from_numpy(toks).to(prompt.device)
+
+    tok = draw(logits[:, s0 - 1], s0)
+    toks = [tok]
+    for t in range(steps):
+        logits, cache = decode_step(params, cache, tok, s0 + t, cfg)
+        tok = draw(logits, s0 + t + 1)
+        toks.append(tok)
+    return torch.stack(toks, dim=1)
+
+
+# -- the speculative draft phase ------------------------------------------------
+
+Pos = Union[int, np.ndarray, torch.Tensor]
+
+
+def upload_pos(pos: Pos, device) -> Union[int, torch.Tensor]:
+    """A cursor for ``score_span``: an int stays one (whole-batch slicing); a
+    (b,) host array is checked and copied to ``device`` once. A negative row
+    would not fail: advanced indexing takes -1 as the arena's LAST row,
+    where the reference's dynamic_update_slice clamps to 0. So it is
+    refused here, on the host, before any upload or write."""
+    if isinstance(pos, torch.Tensor):
+        return pos
+    a = np.asarray(pos)
+    if a.ndim == 0:
+        return int(a)
+    if (a < 0).any():
+        raise ValueError(f"negative cache position in {a.tolist()}: it would "
+                         f"write the arena's last rows")
+    return torch.from_numpy(a.astype(np.int64)).to(device)
+
+
+def draft_rollout(params: Params, cache: KVCache, feed: torch.Tensor,
+                  pos: Pos, cfg: ModelConfig, k: int
+                  ) -> Tuple[torch.Tensor, KVCache]:
+    """Greedy draft rollout: ingest ``feed`` (b, p) at rows pos..pos+p-1,
+    take the argmax of its last row, then propose k - 1 more tokens one
+    ``score_span`` step at a time. The token chain stays on the device (no
+    host read per step). ``pos`` is an int or a (b,) vector (host or
+    device). Returns (proposals (b, k) on the device, cache)."""
+    pos = upload_pos(pos, feed.device)
+    logits, cache = score_span(params, cache, feed, pos, cfg)
+    tok = torch.argmax(logits[:, -1], dim=-1)
+    toks = [tok]
+    p = pos + feed.shape[1]
+    for _ in range(k - 1):
+        logits, cache = score_span(params, cache, tok[:, None], p, cfg)
+        tok = torch.argmax(logits[:, 0], dim=-1)
+        toks.append(tok)
+        p = p + 1
+    return torch.stack(toks, dim=1), cache
+
+
+def sampling_draft_rollout(params: Params, cache: KVCache,
+                           feed: torch.Tensor, pos: Union[int, np.ndarray],
+                           cfg: ModelConfig, k: int,
+                           key: Union[int, Sequence[int]],
+                           temperature: float = 1.0, top_k: int = 0,
+                           top_p: float = 1.0
+                           ) -> Tuple[np.ndarray, np.ndarray, KVCache]:
+    """``draft_rollout``'s sampling sibling: ingest ``feed`` (b, p) at rows
+    pos..pos+p-1, then propose k tokens, the one occupying row ``q`` drawn
+    with ``(key, q)`` (``key`` an int, or one per batch row; ``pos`` an int
+    or a (b,) host array). Returns (proposals (b, k) int64, proposal_probs
+    (b, k, V) float64 — the ``probs_from_adjusted`` of the very adjusted
+    logits each draw used, which the acceptance ratio divides by — and the
+    cache). Each draw is made on the host, so each step reads one (b, V)
+    row of logits back."""
+    b = feed.shape[0]
+    keys = [key] * b if isinstance(key, int) else [int(x) for x in key]
+    rows = np.broadcast_to(np.asarray(pos, dtype=np.int64), (b,)) + \
+        feed.shape[1]                       # the row the first proposal takes
+    p = upload_pos(pos, feed.device)
+    logits, cache = score_span(params, cache, feed, p, cfg)
+    row_logits = logits[:, -1]
+    p = p + feed.shape[1]
+    toks, probs = [], []
+    for i in range(k):
+        q = probs_from_adjusted(host_adjusted_logits(
+            row_logits, temperature, top_k, top_p))
+        tok = np.asarray([_keyed_draw(qq, kk, int(r) + i)
+                          for qq, kk, r in zip(q, keys, rows)],
+                         dtype=np.int64)
+        toks.append(tok)
+        probs.append(q)
+        if i < k - 1:
+            logits, cache = score_span(
+                params, cache, torch.from_numpy(tok).to(feed.device)[:, None],
+                p, cfg)
+            row_logits = logits[:, 0]
+            p = p + 1
+    return np.stack(toks, axis=1), np.stack(probs, axis=1), cache

@@ -1,9 +1,8 @@
 """Continuous-batching serving engine over the KV-cache decode path.
 
-Counterpart of ``tpusched/jaxbridge/serve.py`` (its single-card,
-non-speculative path). A fixed arena of ``slots`` sequences, (slots,
-max_seq) rows per layer, exact or int8, decodes in lock-step; requests join
-and leave slots mid-flight. A joining request's prompt is padded to the
+Counterpart of ``tpusched/jaxbridge/serve.py`` (its single-card path). A
+fixed arena of ``slots`` sequences, (slots, max_seq) rows per layer, exact
+or int8, decodes in lock-step; requests join and leave slots mid-flight. A joining request's prompt is padded to the
 smallest prompt bucket that fits and prefilled alone through the configured
 attention (the flash kernel for ``attn="flash"``); its K/V rows are written
 into its slot in place, so resident slots are untouched and continuous
@@ -13,6 +12,15 @@ the decode step's cached attention, so a long prompt stalls resident slots
 for one chunk a tick rather than a whole prefill; a chunked engine also
 serves registered shared prefixes (``register_prefix``), whose K/V are
 computed once and copied into each tenant's leading rows.
+
+With ``draft_params``/``draft_cfg`` the engine decodes speculatively: a
+draft arena mirrors every admission, each tick the draft proposes
+``spec_k`` tokens per slot and the target verifies every slot's proposals
+in one span, and acceptance is per slot on the host; greedy output equals
+the plain engine's. ``request_keyed=True`` draws each token with its
+request's key and absolute row (``decode.keyed_sample``), so a sampled
+request's tokens do not depend on its neighbours; sampled speculation
+needs it.
 
 Pad keys land at positions >= the prompt's true length, which the causal
 cursor masks until the decode step overwrites them. Idle slots decode
@@ -28,8 +36,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .decode import (KVCache, cache_update, decode_step, init_kv_cache,
-                     prefill, sample_token, score_span)
+from .decode import (KVCache, cache_update, decode_step, draft_rollout,
+                     fold_in, host_adjusted_logits, init_kv_cache,
+                     keyed_categorical, keyed_sample, prefill,
+                     probs_from_adjusted, sample_token,
+                     sampling_draft_rollout, score_span, upload_pos)
+from .spec_decode import accept_span, round_uniforms
 from .workload import ModelConfig, Params, resolve_device
 
 
@@ -80,8 +92,12 @@ class ServeEngine:
     """Continuous-batching engine: submit() requests, tick() until done.
 
     Greedy by default (temperature 0); temperature/top_k/top_p sample from
-    one generator shared by the engine, seeded with ``seed``. Runs on the
-    CUDA card unless ``device="cpu"``; ``params`` must already be there."""
+    one generator shared by the engine, seeded with ``seed``, or, with
+    ``request_keyed``, with each request's key ``fold_in(seed, rid)`` (the
+    int ``seed`` stands for the reference's ``PRNGKey(seed)``). With
+    ``draft_params``/``draft_cfg`` every tick is a speculative round of
+    ``spec_k`` proposals. Runs on the CUDA card unless ``device="cpu"``;
+    ``params`` and ``draft_params`` must already be there."""
 
     def __init__(self, params: Params, cfg: ModelConfig, *,
                  slots: int = 8, max_seq: int = 1024,
@@ -91,21 +107,16 @@ class ServeEngine:
                  request_keyed: bool = False, mesh=None,
                  chunk_prefill: Optional[int] = None,
                  draft_params: Optional[Params] = None,
-                 draft_cfg: Optional[ModelConfig] = None, device=None):
+                 draft_cfg: Optional[ModelConfig] = None,
+                 spec_k: int = 4, device=None):
         if mesh is not None:
             raise _not_ported("tensor-parallel serving (mesh)",
                               "tp serving, then dp/fsdp/tp")
-        if draft_params is not None or draft_cfg is not None:
-            raise _not_ported("speculative serving (draft_params/draft_cfg)",
-                              "speculative decoding and request-keyed "
-                              "sampling")
-        if request_keyed:
-            raise _not_ported("request_keyed sampling", "speculative "
-                              "decoding and request-keyed sampling")
         self.device = resolve_device(device)
-        if params["embed"].device != self.device:
-            raise ValueError(f"params are on {params['embed'].device}, the "
-                             f"engine runs on {self.device}")
+        for what, tree in (("params", params), ("draft_params", draft_params)):
+            if tree is not None and tree["embed"].device != self.device:
+                raise ValueError(f"{what} are on {tree['embed'].device}, "
+                                 f"the engine runs on {self.device}")
         buckets = ((prompt_bucket,) if isinstance(prompt_bucket, int)
                    else tuple(sorted(set(prompt_bucket))))
         if not buckets or buckets[-1] >= max_seq:
@@ -120,6 +131,49 @@ class ServeEngine:
                 "chunked prefill would attend dequantized history where "
                 "monolithic attends fresh values, breaking result parity "
                 "(kv_cache_dtype=None for chunk_prefill/prefix caching)")
+        # every token draws (fold_in(seed, rid), its row): a request's
+        # sampled stream equals decode.sample_position_keyed run alone with
+        # that key, whatever its neighbours. Needs distinct in-flight rids
+        self.request_keyed = bool(request_keyed)
+        if self.request_keyed and temperature == 0.0:
+            raise ValueError("request_keyed sampling needs temperature > 0 "
+                             "(greedy consumes no randomness)")
+        if draft_params is None and draft_cfg is not None:
+            raise ValueError("draft_cfg without draft_params: the engine "
+                             "would silently run plain, not speculative")
+        if draft_params is not None:
+            if draft_cfg is None:
+                raise ValueError("draft_params requires draft_cfg")
+            if draft_cfg.vocab != cfg.vocab:
+                raise ValueError("draft and target must share a vocabulary")
+            if temperature != 0.0 and not self.request_keyed:
+                raise ValueError(
+                    "sampled speculative serving requires "
+                    "request_keyed=True: the accept/residual randomness "
+                    "must be position-stable per request or the "
+                    "distribution-preservation law cannot hold "
+                    "(temperature=0 runs greedy verification)")
+            if chunk_prefill is not None:
+                raise ValueError("speculative serving composes with "
+                                 "monolithic admission only (no "
+                                 "chunk_prefill) in this version")
+            if spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+            # a verify span writes spec_k + 1 rows past the last accepted
+            # one, and warmup submits each bucket full length (the smallest
+            # with 2 new tokens, the rest with 1): refuse a geometry in
+            # which those could never be admitted
+            if (buckets[0] + spec_k + 3 > max_seq
+                    or buckets[-1] + spec_k + 2 > max_seq):
+                raise ValueError(
+                    f"speculative geometry: prompt buckets {buckets} with "
+                    f"spec_k {spec_k} leave no room under max_seq "
+                    f"{max_seq} (need smallest bucket + spec_k + 3 and "
+                    f"largest bucket + spec_k + 2 within the arena); "
+                    f"warmup and full-bucket requests could never be "
+                    f"admitted")
+            if draft_cfg.kv_cache_dtype is not None:
+                raise ValueError("draft cache must be exact")
         if chunk_prefill is not None:
             if chunk_prefill < 1:
                 raise ValueError("chunk_prefill must be >= 1")
@@ -145,10 +199,23 @@ class ServeEngine:
         self._prefixes: Dict[str, dict] = {}
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        self._key = int(seed)
+        # each slot's tenant key; an idle slot's placeholder draws are
+        # discarded
+        self.slot_key = [fold_in(self._key, (1 << 31) + s)
+                         for s in range(slots)]
         self.cache = init_kv_cache(cfg, slots, max_seq, device=self.device)
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.spec_k = spec_k
+        self.spec_stats = {"rounds": 0, "drafted": 0, "accepted": 0}
+        if draft_params is not None:
+            self.draft_cache = init_kv_cache(draft_cfg, slots, max_seq,
+                                             device=self.device)
         # host-side slot state
         self.pos = np.zeros(slots, dtype=np.int64)       # next write position
         self.next_tok = np.zeros(slots, dtype=np.int64)  # last sampled token
+        self.prev_tok = np.zeros(slots, dtype=np.int64)  # token at pos-1 (fed)
         self.req: List[Optional[Request]] = [None] * slots
         # the prompt row a chunk-prefilling slot streams in next; None once
         # its prompt is resident (always None under monolithic admission)
@@ -161,8 +228,10 @@ class ServeEngine:
         self.tick_count = 0
         self.decode_tokens = 0          # real (non-idle) tokens decoded
         # monolithic slot prefills run (each through the configured
-        # attention), warmup included; chunked admission runs none
+        # attention), warmup included; chunked admission runs none. The
+        # draft arena's: one per admission that did not finish at once
         self.prefills = 0
+        self.draft_prefills = 0
 
     # -- submission -----------------------------------------------------------
 
@@ -193,6 +262,29 @@ class ServeEngine:
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1 (prefill always "
                              "samples the first token)")
+        if self.request_keyed:
+            # the rid IS the request's randomness: two in flight would
+            # emit fully correlated streams
+            in_flight = ({r.rid for r, _ in self.queue}
+                         | {r.rid for r in self.req if r is not None})
+            if req.rid in in_flight:
+                raise ValueError(
+                    f"request_keyed sampling requires distinct rids; "
+                    f"{req.rid} is already in flight (its stream would be "
+                    f"identical)")
+        if self.draft_params is not None:
+            if len(req.prompt) < 1:
+                raise ValueError("speculative serving needs a non-empty "
+                                 "prompt (the catch-up feed anchors on its "
+                                 "last token)")
+            if (len(req.prompt) + req.max_new_tokens + self.spec_k + 1
+                    > self.max_seq):
+                # the last round's verify span writes up to spec_k+1 rows
+                # past the last accepted row: without this headroom the
+                # write would run off the arena
+                raise ValueError(
+                    "prompt + max_new_tokens + spec_k + 1 exceeds max_seq "
+                    "(speculative rounds overshoot by up to spec_k+1 rows)")
         prefix_len, entry = 0, None
         if req.prefix_id is not None:
             if self.chunk_prefill is None:
@@ -246,6 +338,7 @@ class ServeEngine:
         self.completions.clear()
         self.tick_count = 0
         self.decode_tokens = 0
+        self.spec_stats = {"rounds": 0, "drafted": 0, "accepted": 0}
 
     # -- engine loop ----------------------------------------------------------
 
@@ -275,17 +368,24 @@ class ServeEngine:
             bucket = next(b for b in self.prompt_buckets if b >= true_len)
             padded = np.zeros(bucket, dtype=np.int64)
             padded[:true_len] = req.prompt
-            first_logits = _prefill_slot(
-                self.params, self.cache,
-                torch.from_numpy(padded).to(self.device), slot, true_len,
-                self.cfg)
+            padded = torch.from_numpy(padded).to(self.device)
+            first_logits = _prefill_slot(self.params, self.cache, padded,
+                                         slot, true_len, self.cfg)
             self.prefills += 1
-            tok = int(self._sample(first_logits[None, :])[0])
+            tok = self._first_token(req.rid, first_logits, true_len, slot)
             self.slot_prefix[slot] = 0
             self.pos[slot] = true_len
+            self.prev_tok[slot] = int(req.prompt[-1])
             self.next_tok[slot] = tok
             self.generated[slot] = [tok]
             self._maybe_finish(slot)
+            if self.draft_params is not None and self.req[slot] is not None:
+                # the draft arena mirrors the admission only after the
+                # finish check: a request done at admission never reaches a
+                # speculative round
+                _prefill_slot(self.draft_params, self.draft_cache, padded,
+                              slot, true_len, self.draft_cfg)
+                self.draft_prefills += 1
 
     def _advance_prefills(self) -> None:
         """One chunk per prefilling slot. The final chunk's last real row
@@ -315,7 +415,7 @@ class ServeEngine:
                 self.prefill_off[slot] = off
                 continue
             self.prefill_off[slot] = None          # the prompt is resident
-            tok = int(self._sample(next_logits[None, :])[0])
+            tok = self._first_token(req.rid, next_logits, true_len, slot)
             self.next_tok[slot] = tok
             self.generated[slot] = [tok]
             self._maybe_finish(slot)
@@ -323,6 +423,18 @@ class ServeEngine:
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
         return sample_token(logits, self.generator, self.temperature,
                             self.top_k, self.top_p).cpu().numpy()
+
+    def _first_token(self, rid: int, logits_row: torch.Tensor, row: int,
+                     slot: int) -> int:
+        """A slot's first generated token, which occupies absolute ``row``.
+        A request-keyed draw binds the tenant's key to the slot here."""
+        if self.request_keyed:
+            self.slot_key[slot] = fold_in(self._key, rid)
+            return int(keyed_sample(logits_row[None, :],
+                                    [self.slot_key[slot]], [row],
+                                    self.temperature, self.top_k,
+                                    self.top_p)[0])
+        return int(self._sample(logits_row[None, :])[0])
 
     def _maybe_finish(self, slot: int) -> None:
         req = self.req[slot]
@@ -339,11 +451,120 @@ class ServeEngine:
         self.req[slot] = None
         self.generated[slot] = []
 
+    def _round_positions(self) -> Tuple[np.ndarray, torch.Tensor]:
+        """The cursors a speculative round sends to the device, on the host
+        and uploaded once. A never-used slot sits at pos 0, and its draft
+        feed would land on row -1, which advanced indexing takes as the
+        arena's LAST row (the reference clamps); so the device sees
+        max(pos, 1), and ``self.pos`` is unchanged. Every row a round writes
+        (pos - 1 .. pos + spec_k) is checked on the host to lie in the
+        arena before anything is uploaded."""
+        pos = np.maximum(self.pos, 1)
+        if (pos + self.spec_k + 1 > self.max_seq).any():
+            raise RuntimeError(f"speculative round would write past the "
+                               f"arena: cursors {pos.tolist()}, spec_k "
+                               f"{self.spec_k}, max_seq {self.max_seq}")
+        return pos, upload_pos(pos, self.device)
+
+    def _count_round(self) -> None:
+        # before the slots are booked, so a completion's finished_tick is
+        # this tick, as in the plain tick
+        self.tick_count += 1
+        self.spec_stats["rounds"] += 1
+
+    def _emit(self, s: int, span, n_ok: int, emitted: List[int]) -> None:
+        """Book one slot's round: append its emitted tokens up to its end,
+        and otherwise move its cursors through the accepted rows only; the
+        emitted correction (or bonus) is the next unfed token. Leftover
+        span rows are garbage that the next write overwrites before any
+        query attends it."""
+        self.spec_stats["drafted"] += self.spec_k
+        self.spec_stats["accepted"] += n_ok
+        req = self.req[s]
+        for tok in emitted:
+            self.generated[s].append(tok)
+            self.decode_tokens += 1
+            if (len(self.generated[s]) >= req.max_new_tokens
+                    or (req.eos_token is not None and tok == req.eos_token)):
+                self._maybe_finish(s)
+                return
+        self.prev_tok[s] = (int(span[n_ok - 1]) if n_ok >= 1
+                            else int(self.next_tok[s]))
+        self.next_tok[s] = emitted[-1]
+        self.pos[s] += n_ok + 1
+
+    def _tick_speculative(self, active: List[int]) -> None:
+        """One greedy speculative round over the whole arena: the draft
+        ingests each slot's uniform 2-row feed (prev_tok, next_tok) at
+        pos - 1 (re-feeding an ingested token rewrites identical K/V) and
+        proposes spec_k tokens; the target scores next_tok and the
+        proposals, spec_k + 1 rows, in one span; each slot keeps its
+        proposals while they equal the target's argmax. Two reads to the
+        host: the proposals and the target's argmax."""
+        k = self.spec_k
+        pos, pos_dev = self._round_positions()
+        feed2 = torch.from_numpy(
+            np.stack([self.prev_tok, self.next_tok], axis=1)).to(self.device)
+        proposals_dev, _ = draft_rollout(self.draft_params, self.draft_cache,
+                                         feed2, pos_dev - 1, self.draft_cfg,
+                                         k)
+        proposals = proposals_dev.cpu().numpy()              # (slots, k)
+        scored = torch.cat([feed2[:, 1:], proposals_dev], dim=1)
+        logits, _ = score_span(self.params, self.cache, scored, pos_dev,
+                               self.cfg)
+        t_arg = torch.argmax(logits, dim=-1).cpu().numpy()   # (slots, k+1)
+        self._count_round()
+        for s in active:
+            span = proposals[s]
+            n_ok = 0
+            while n_ok < k and int(span[n_ok]) == int(t_arg[s, n_ok]):
+                n_ok += 1
+            self._emit(s, span, n_ok,
+                       [int(t) for t in span[:n_ok]] + [int(t_arg[s, n_ok])])
+
+    def _tick_speculative_sampled(self, active: List[int]) -> None:
+        """The sampled sibling (request-keyed only): the draft samples each
+        slot's proposals with its key and rows; the target's span returns
+        adjusted logits, whose float64 distributions the host divides by
+        the draft's in ``spec_decode.accept_span``, with the round's
+        acceptance and residual uniforms and the bonus at row pos + k + 1
+        drawn from the slot's key. Each request's tokens equal solo
+        ``spec_decode.speculative_sample`` with its key."""
+        k = self.spec_k
+        pos, pos_dev = self._round_positions()
+        feed2 = torch.from_numpy(
+            np.stack([self.prev_tok, self.next_tok], axis=1)).to(self.device)
+        proposals, p_mat, _ = sampling_draft_rollout(
+            self.draft_params, self.draft_cache, feed2, pos - 1,
+            self.draft_cfg, k, self.slot_key, self.temperature, self.top_k,
+            self.top_p)
+        scored = torch.cat([feed2[:, 1:],
+                            torch.from_numpy(proposals).to(self.device)],
+                           dim=1)
+        logits, _ = score_span(self.params, self.cache, scored, pos_dev,
+                               self.cfg)
+        adj = host_adjusted_logits(logits, self.temperature, self.top_k,
+                                   self.top_p)               # (slots, k+1, V)
+        self._count_round()
+        for s in active:
+            key, span = self.slot_key[s], proposals[s]
+            n_ok, rejection = accept_span(
+                span, p_mat[s], probs_from_adjusted(adj[s, :k]),
+                *round_uniforms(key, int(pos[s]), k))
+            if rejection is None:
+                emitted = [int(t) for t in span] + [keyed_categorical(
+                    adj[s, k], key, int(pos[s]) + k + 1)]
+            else:
+                emitted = [int(t) for t in span[:n_ok]] + [rejection]
+            self._emit(s, span, n_ok, emitted)
+
     @torch.no_grad()
     def tick(self) -> int:
         """Admit waiting requests into free slots, advance each chunked
-        prefill by one chunk, then one decode step over the arena. Returns
-        the number of active (decoding) slots, 0 for an idle tick."""
+        prefill by one chunk, then one decode step over the arena, or, with
+        a draft, one speculative round (which emits 1 to spec_k + 1 tokens
+        a slot). Returns the number of active (decoding) slots, 0 for an
+        idle tick."""
         self._admit()
         if self.chunk_prefill is not None:
             self._advance_prefills()
@@ -352,12 +573,27 @@ class ServeEngine:
         if not active:
             self.tick_count += 1
             return 0
+        if self.draft_params is not None:
+            if self.temperature != 0.0:
+                self._tick_speculative_sampled(active)
+            else:
+                self._tick_speculative(active)
+            return len(active)
         # one lock-step decode over the whole arena, idle slots included
         logits, _ = decode_step(
             self.params, self.cache,
             torch.from_numpy(self.next_tok).to(self.device),
             torch.from_numpy(self.pos).to(self.device), self.cfg)
-        toks = self._sample(logits)
+        if self.request_keyed:
+            # the token drawn now occupies row pos + 1 of its slot, the row
+            # the solo position-keyed sampler keys
+            toks = np.zeros(self.slots, dtype=np.int64)
+            toks[active] = keyed_sample(
+                logits[active], [self.slot_key[s] for s in active],
+                self.pos[active] + 1, self.temperature, self.top_k,
+                self.top_p)
+        else:
+            toks = self._sample(logits)
         self.tick_count += 1
         for s in active:
             self.pos[s] += 1
@@ -398,20 +634,26 @@ def _tick_sync(eng: ServeEngine) -> Callable[[], None]:
 def measure_serving(cfg: ModelConfig, params: Params, requests: List[Request],
                     *, slots: int = 8, max_seq: int = 1024,
                     prompt_bucket: "int | Tuple[int, ...]" = 128,
-                    chunk_prefill: Optional[int] = None, reporter=None,
+                    chunk_prefill: Optional[int] = None,
+                    draft_params: Optional[Params] = None,
+                    draft_cfg: Optional[ModelConfig] = None,
+                    spec_k: int = 4, reporter=None,
                     device=None) -> Dict[str, float]:
     """Serve ``requests`` on a warmed engine: tokens/s, occupancy (real
     tokens per slot-tick), ticks, the largest gap between ticks (the
     head-of-line stall an admission inflicts on residents: a whole prompt's
     prefill under monolithic admission, one chunk and the decode step under
     ``chunk_prefill``), and the monolithic slot prefills the engine ran,
-    warmup included. On the card every tick ends in
-    ``torch.cuda.synchronize()``. ``reporter`` must be None until
+    warmup included. With a draft, every tick is a speculative round and
+    the result adds ``spec_rounds``, ``spec_drafted``, ``spec_accepted``
+    and the draft arena's ``draft_prefills``. On the card every tick ends
+    in ``torch.cuda.synchronize()``. ``reporter`` must be None until
     ``GoodputReporter`` is ported."""
     _reporter_not_ported(reporter)
     eng = ServeEngine(params, cfg, slots=slots, max_seq=max_seq,
                       prompt_bucket=prompt_bucket,
-                      chunk_prefill=chunk_prefill, device=device)
+                      chunk_prefill=chunk_prefill, draft_params=draft_params,
+                      draft_cfg=draft_cfg, spec_k=spec_k, device=device)
     sync = _tick_sync(eng)
     eng.warmup()
     for r in requests:
@@ -430,7 +672,7 @@ def measure_serving(cfg: ModelConfig, params: Params, requests: List[Request],
     elapsed = time.perf_counter() - t0
     total_tokens = sum(len(c.tokens) for c in completions)
     ticks = max(1, eng.tick_count)
-    return {
+    out = {
         "tokens": float(total_tokens),
         "elapsed_s": elapsed,
         "tokens_per_s": total_tokens / max(elapsed, 1e-9),
@@ -439,6 +681,10 @@ def measure_serving(cfg: ModelConfig, params: Params, requests: List[Request],
         "max_tick_gap_s": state["max_gap"],
         "prefills": float(eng.prefills),
     }
+    if draft_params is not None:
+        out.update({f"spec_{k}": float(v) for k, v in eng.spec_stats.items()})
+        out["draft_prefills"] = float(eng.draft_prefills)
+    return out
 
 
 def _pctl(xs: List[float], q: float) -> float:
