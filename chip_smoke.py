@@ -78,7 +78,26 @@ Phases, in order; any failure raises and the script exits non-zero:
 19. speculation on ``tiny`` f32 (flash, TF32 off), exact: the speculative
     engine == the plain engine == solo ``speculative_generate`` for random,
     truncated and self drafts on an exact and an int8 target arena;
-    request-keyed and sampled speculative engines == their solo samplers.
+    request-keyed and sampled speculative engines == their solo samplers;
+20. tensor-parallel serving at full width: ranks spawned by
+    ``mesh.launch`` (a ``FileStore`` under ``build/``) with
+    ``backend="gloo"``, every rank on the one card: ``llama_like_big`` at
+    tp = 2, then tp = 4, phase 3's requests, geometry and weights; every
+    rank's completions equal, and equal phase 3's or differing first at a
+    near tie; 216 flash launches a rank; then ``mixtral_like`` at tp = 2
+    (no flash launch); peak memory a rank beside the unsharded engine's;
+21. tiny f32 (d_model 128, 4 heads over 2, flash, TF32 off) at tp = 2,
+    exact: the engine == the unsharded engine == solo for plain, chunked,
+    prefix, int8, self-draft speculative and request-keyed serving, and
+    with 4 experts;
+22. dp×tp training: phase 6's steps at tp = 2 (24/12/12 launches a rank a
+    step, a falling loss, each step's loss within 2e-2 of phase 6's, peak
+    memory a rank beside phase 6's), then tiny f32 on a dp2×tp2 mesh of
+    four ranks, three AdamW steps within 1e-5 of the whole model, and the
+    vocab-parallel loss equal to the replicated one. Then the kernels at
+    the ranks' shapes are timed as in phase 7. The times of phases 20-22
+    are those of gloo through the host with every rank on one card: they
+    say nothing of NCCL or NVLink.
 
 The second-to-last line is the ``kernels`` JSON object, the last line the
 ``ok`` JSON object. Imports neither JAX nor the JAX package.
@@ -264,10 +283,20 @@ def phase_kernel_vs_plain(attention):
         (1, 64, 2, 2, 32, f32, False, 3),        # f32, strided
         (1, 300, 16, 4, 128, bf16, True, 0),     # phase 13's prefix
         (1, 64, 16, 4, 128, bf16, True, 0),      # phase 17's prompt
+        # phase 20's per-rank prefills at tp = 2 and tp = 4, both buckets
+        (1, 256, 8, 2, 128, bf16, True, 0),
+        (1, 1024, 8, 2, 128, bf16, True, 0),
+        (1, 256, 4, 1, 128, bf16, True, 0),
+        (1, 1024, 4, 1, 128, bf16, True, 0),
+        (1, 4096, 8, 2, 128, bf16, True, 0),     # phase 22's per-rank forward
     ] + [  # every length the tiny f32 phases prefill: prompts 4-13, the
            # bucket 16, phase 15's 12-token prefix and prefix + suffix 16-25;
-           # phase 19's drafts (one and two layers of tiny's heads) too
-        (1, s, 2, 2, 32, f32, True, 0) for s in range(4, 26)]
+           # phase 19's drafts (one and two layers of tiny's heads) too, and
+           # phase 21's GQA variant whole and at tp = 2 (its heads per rank)
+        (1, s, h, kv, 32, f32, True, 0) for s in range(4, 26)
+        for h, kv in ((2, 2), (4, 2), (2, 1))] + [
+        (4, 32, 4, 2, 32, f32, True, 0),         # phase 22's tiny, whole
+        (2, 32, 2, 1, 32, f32, True, 0)]         # and on a dp2xtp2 rank
     main_err = None
     for b, s, h, kv, d, dtype, causal, pad in cases:
         q, k, v = rand_qkv(gen, b, s, h, kv, d, dtype, pad)
@@ -333,6 +362,9 @@ def phase_backward_vs_plain(attention):
         (2, 300, 4, 2, 64, f32, True, 0, False),       # f32, ragged
         (1, 64, 2, 2, 32, f32, False, 3, False),       # f32, strided
         (1, 512, 8, 2, 128, bf16, True, 0, True),      # caller's D
+        (1, 4096, 8, 2, 128, bf16, True, 0, False),    # phase 22's per rank
+        (2, 32, 2, 1, 32, f32, True, 0, False),        # phase 22's tiny rank
+        (4, 32, 4, 2, 32, f32, True, 0, False),        # and its whole model
     ]
     main_err = None
     for b, s, h, kv, d, dtype, causal, pad, given_dd in cases:
@@ -588,11 +620,12 @@ def phase_parity(attention, decode, serve, workload, attn="flash",
           f"{per_prefill} per prefill")
 
 
-def phase_timing(attention):
-    """Times at the main path's large-bucket shape. The inputs (10.6 MB)
-    stay in the 50 MB L2 across launches, as a prefill's freshly computed
-    q/k/v would be."""
-    b, s, h, kv, d, dtype = 1, 1024, 16, 4, 128, torch.bfloat16
+def phase_timing(attention, shape=(1, 1024, 16, 4, 128)):
+    """Times at the main path's large-bucket shape (or a rank's share of it,
+    ``shape``). The inputs (10.6 MB whole) stay in the 50 MB L2 across
+    launches, as a prefill's freshly computed q/k/v would be."""
+    b, s, h, kv, d = shape
+    dtype = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(3)
     q, k, v = rand_qkv(gen, b, s, h, kv, d, dtype)
     counted = attention.FLASH_FWD_LAUNCHES
@@ -617,21 +650,23 @@ def phase_timing(attention):
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_training(attention, measure, optim, workload):
-    """The training path: full-width llama_like_big(seq=4096), batch 1,
-    random bf16 weights, five AdamW steps (lr 1e-4, mu f32) on one repeated
-    batch through make_optax_train_step, each step's kernel launches counted
-    (K1 2·n_layers with remat, K2 and K3 n_layers); then
-    measure_adamw_train_step on the same configuration. Returns the
-    launches of the five steps."""
+def train_big(attention, optim, workload, mesh=None):
+    """Five AdamW steps (lr 1e-4, mu f32) of full-width
+    llama_like_big(seq=4096), batch 1, random bf16 weights, on one repeated
+    batch through make_optax_train_step, each step's kernel launches
+    counted (K1 2·n_layers with remat, K2 and K3 n_layers), with a finite,
+    falling loss. With ``mesh`` the same weights and tokens train as this
+    rank's shards. Returns the losses, step times, launches of the five
+    steps and the peak memory of the steps."""
     cfg = workload.ModelConfig.llama_like_big(seq=4096)
-    batch = 1
-    params = workload.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    params = seeded_params(workload, cfg)
     tokens = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab, (batch, cfg.seq)), device="cuda")
+        0, cfg.vocab, (1, cfg.seq)), device="cuda")
     tx = optim.adamw(1e-4, mu_dtype=torch.float32)
-    step, init_opt, _, _ = workload.make_optax_train_step(None, cfg, tx)
+    step, init_opt, _, _ = workload.make_optax_train_step(mesh, cfg, tx)
+    if mesh is not None:
+        params = workload.shard_params(params, cfg, mesh)   # whole tree freed
+        torch.cuda.empty_cache()
     state = init_opt(params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -647,10 +682,22 @@ def phase_training(attention, measure, optim, workload):
         check(counts == want, f"train step launched (K1, K2, K3) = "
               f"{counts}, wanted {want}")
         total = [t + c for t, c in zip(total, counts)]
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    del params, state, step
+    return dict(losses=losses, step_s=step_s, launches=total,
+                per_step=want,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_training(attention, measure, optim, workload):
+    """The training path: :func:`train_big` on one card, then
+    measure_adamw_train_step on the same configuration. Returns
+    :func:`train_big`'s record."""
+    cfg = workload.ModelConfig.llama_like_big(seq=4096)
+    batch = 1
+    run = train_big(attention, optim, workload)
+    losses, step_s, want = run["losses"], run["step_s"], run["per_step"]
+    peak_gib = run["peak_mem_gib"]
     per_step, tflops, mfu, note = measure.measure_adamw_train_step(cfg, batch)
     print(json.dumps({
         "training": "llama_like_big", "seq": cfg.seq, "batch": batch,
@@ -661,10 +708,11 @@ def phase_training(attention, measure, optim, workload):
         "tokens_per_s": batch * cfg.seq / per_step, "tflops": tflops,
         "mfu": mfu, "peak_tflops": measure.device_peak_tflops(),
         "step_flops": measure.train_step_flops(cfg, batch), "note": note}))
-    return total
+    return run
 
 
-def phase_training_timing(attention):
+def phase_training_timing(attention, shape=(1, 4096, 16, 4, 128),
+                          label="training shape"):
     """K1, K2 and K3 at the training shape with CUDA events, beside the
     plain versions and one library call (scaled_dot_product_attention: its
     forward for K1, its backward, which forms dq, dk and dv together, for
@@ -672,8 +720,10 @@ def phase_training_timing(attention):
     no library call forms dq alone, K2 then K3, as the backward launches
     them, is also timed as one and printed beside the library's backward.
     K1's output at this shape is held against its plain version as in
-    phase 2, and its max abs error is returned with its times."""
-    b, s, h, kv, d, dtype = 1, 4096, 16, 4, 128, torch.bfloat16
+    phase 2, and its max abs error is returned with its times. ``shape``
+    and ``label`` time a rank's share of the training shape."""
+    b, s, h, kv, d = shape
+    dtype = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(6)
     q, k, v = rand_qkv(gen, b, s, h, kv, d, dtype)
     do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
@@ -743,9 +793,9 @@ def phase_training_timing(attention):
           f"longest / mean walk {ratio:.4f} (the reference's key tiles: "
           f"1.97)")
     check(ratio <= 1.3, "K2's schedule is out of balance")
-    print(json.dumps({"timing": "training shape", "shape": [b, s, h, kv, d],
+    print(json.dumps({"timing": label, "shape": [b, s, h, kv, d],
                       **timing}))
-    print(json.dumps({"timing": "backward at the training shape",
+    print(json.dumps({"timing": f"backward at the {label}",
                       "flash_bwd_dkdv_then_dq_ms": pair_ms,
                       "sdpa_backward_ms": bwd_lib,
                       "bound_ms": (timing["flash_bwd_dkdv"]["bound_ms"]
@@ -1177,16 +1227,12 @@ def flash_layers(cfg) -> int:
     return cfg.n_layers if cfg.attn == "flash" else 0
 
 
-def near_tie(decode, params, cfg, prompt, plain, spec, device):
-    """The near-tie rule for greedy bf16 speculation. Greedy speculation
-    emits the target's argmax exactly, but its verify span (k + 1 rows) and
-    plain decoding (1 row) are different GEMM shapes, so an argmax whose
-    top two logits nearly tie may flip. Where ``spec`` differs from
-    ``plain``, the plain stream's prefix up to the first differing index is
-    scored by a solo ``prefill``; the two tokens' logits there must lie
-    within 1/32 of the larger one's magnitude, else the run fails. Returns
-    None for equal streams, else that index, both tokens, their logits and
-    the relative margin."""
+def first_difference(decode, params, cfg, prompt, plain, spec, device):
+    """None for equal streams; else where ``spec`` first leaves ``plain``:
+    the plain stream's prefix up to that index is scored by a solo
+    ``prefill``, and the index, both tokens, their logits there and the
+    relative margin (the difference over the larger magnitude) come
+    back."""
     plain, spec = [int(t) for t in plain], [int(t) for t in spec]
     check(len(plain) == len(spec),
           f"speculative stream of {len(spec)} tokens against {len(plain)}")
@@ -1200,12 +1246,26 @@ def near_tie(decode, params, cfg, prompt, plain, spec, device):
             cfg, 1, ctx.shape[1], device), ctx, cfg)
     row = logits[0, -1].float()
     a, b = row[plain[i]].item(), row[spec[i]].item()
-    margin = abs(a - b) / max(abs(a), abs(b), 1e-30)
-    tie = {"index": i, "plain": [plain[i], a], "spec": [spec[i], b],
-           "margin": margin}
+    return {"index": i, "plain": [plain[i], a], "spec": [spec[i], b],
+            "margin": abs(a - b) / max(abs(a), abs(b), 1e-30)}
+
+
+def near_tie(decode, params, cfg, prompt, plain, spec, device):
+    """The near-tie rule for greedy bf16 streams that should equal plain
+    decoding's. Greedy speculation emits the target's argmax exactly, but
+    its verify span (k + 1 rows) and plain decoding (1 row) are different
+    GEMM shapes (and tensor-parallel ranks sum partial products), so an
+    argmax whose top two logits nearly tie may flip. Where ``spec`` differs
+    from ``plain``, the two tokens' logits at the first difference
+    (:func:`first_difference`) must lie within 1/32 of the larger one's
+    magnitude, else the run fails. Returns :func:`first_difference`'s
+    record."""
+    tie = first_difference(decode, params, cfg, prompt, plain, spec, device)
+    if tie is None:
+        return None
     print(json.dumps({"near_tie": tie}))
-    check(margin <= 1 / 32, f"speculation diverged from plain decoding at "
-          f"token {i} without a near tie: {tie}")
+    check(tie["margin"] <= 1 / 32, f"a greedy stream left plain decoding "
+          f"at token {tie['index']} without a near tie: {tie}")
     return tie
 
 
@@ -1521,6 +1581,337 @@ def phase_spec_parity(attention, decode, serve, spec_decode, workload,
                       "spec_stats": stats}))
 
 
+# -- tensor and data parallelism (phases 20-22) ---------------------------------
+
+# what every time of phases 20-22 measures: one card holds every rank
+GLOO_NOTE = "gloo through the host, ranks sharing one card"
+# phase 21's GQA variant of tiny: head_dim 32, 4 heads over 2 KV heads, so
+# each rank at tp = 2 runs the flash kernel on 2 heads over 1
+TINY_GQA = dict(d_model=128, n_heads=4, n_kv_heads=2, attn="flash")
+TRAIN_LOSS_RTOL = 2e-2       # bf16: the repo's tolerance for bf16 losses
+
+
+def tp_serve(mesh, name):
+    """One rank's drain of phase 3's traffic and geometry on the preset
+    ``name`` at full width (phase 3's weights, from the same seeded
+    generator), as a user drives the engine on ``mesh``; the flash kernel's
+    launches counted from the engine's construction. The peak memory is
+    taken after the whole weights are dropped: the rank's shards, its share
+    of the arena and the drain."""
+    from tpusched_torch import attention, serve, workload
+    cfg = getattr(workload.ModelConfig, name)()
+    reqs = make_requests(cfg, serve)
+    attention.FLASH_FWD_LAUNCHES = 0
+    eng = serve.ServeEngine(seeded_params(workload, cfg), cfg, mesh=mesh,
+                            **SERVE_GEOMETRY)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.warmup()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    check_completions(done, reqs, cfg.vocab, f"{name} at tp {mesh.tp.size}")
+    return dict(launches=attention.FLASH_FWD_LAUNCHES, prefills=eng.prefills,
+                ticks=eng.tick_count, kv_heads=int(eng.cache[0]["k"].shape[2]),
+                tokens={c.rid: c.tokens for c in done},
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                drain_s=drain_s)
+
+
+def all_reduce_ms(mesh) -> dict:
+    """One rank's time of an f32 sum over the tp axis through the mesh's
+    collective, a decode tick's size (64 KiB) and a 1024-row prefill's
+    (8 MiB), 5 calls after 1 warm, each ended by a synchronize."""
+    from tpusched_torch.mesh import all_reduce
+    out = {}
+    for label, n in (("64KiB", 1 << 14), ("8MiB", 1 << 21)):
+        x = torch.ones(n, device="cuda")
+        all_reduce(x, mesh.tp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            all_reduce(x, mesh.tp)
+        torch.cuda.synchronize()
+        out[label] = (time.perf_counter() - t0) / 5 * 1e3
+    return out
+
+
+def tp_tiny_parity(mesh):
+    """Phase 21 on one rank: tiny f32 (TINY_GQA, TF32 off) at tp = 2 against
+    the unsharded engine and solo generation, token for token, for plain,
+    chunked (5 rows), prefix (12 tokens, chunked), int8, greedy self-draft
+    speculation (spec_k 3), request-keyed sampling (solo: the keyed
+    sampler with the request's key) and 4 experts (the MoE rank-partial
+    sums exact in f32); each engine's flash launches are held to its
+    prefills. Returns each mode's tp tokens and launches."""
+    from tpusched_torch import attention, decode, serve, workload
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = dataclasses.replace(workload.ModelConfig.tiny(), **TINY_GQA)
+    params = seeded_params(workload, base)
+    rng = np.random.default_rng(2)
+    reqs = [serve.Request(
+        rid=i, prompt=rng.integers(0, base.vocab, size=int(rng.integers(4, 14)),
+                                   dtype=np.int32),
+        max_new_tokens=int(rng.integers(3, 8))) for i in range(5)]
+    prefix = rng.integers(0, base.vocab, 12, dtype=np.int32)
+    keyed = dict(temperature=0.8, top_k=24, seed=5, request_keyed=True)
+    modes = {  # mode -> (cfg, engine kwargs, registered prefix)
+        "plain": (base, {}, False),
+        "chunked": (base, dict(chunk_prefill=5), False),
+        "prefix": (base, dict(chunk_prefill=5), True),
+        "int8": (dataclasses.replace(base, kv_cache_dtype="int8"), {}, False),
+        "speculative": (base, dict(draft_params=params, draft_cfg=base,
+                                   spec_k=3), False),
+        "request_keyed": (base, keyed, False),
+        "moe": (dataclasses.replace(base, n_experts=4), {}, False)}
+    out = {}
+    for mode, (cfg, kw, use_prefix) in modes.items():
+        weights = seeded_params(workload, cfg) if cfg.n_experts else params
+        mreqs = [dataclasses.replace(r, prefix_id="sys")
+                 if use_prefix and r.rid % 2 == 0 else r for r in reqs]
+        runs, launches = {}, None
+        for label, m in (("tp", mesh), ("whole", None)):
+            attention.FLASH_FWD_LAUNCHES = 0
+            eng = serve.ServeEngine(weights, cfg, mesh=m, device="cuda",
+                                    slots=2, max_seq=64, prompt_bucket=16,
+                                    **kw)
+            if use_prefix:
+                eng.register_prefix("sys", prefix)
+            for r in mreqs:
+                eng.submit(r)
+            runs[label] = {c.rid: c.tokens.tolist()
+                           for c in eng.run_until_drained()}
+            want = cfg.n_layers * (eng.prefills + eng.draft_prefills
+                                   + use_prefix)
+            check(attention.FLASH_FWD_LAUNCHES == want,
+                  f"tiny {mode} {label}: {attention.FLASH_FWD_LAUNCHES} "
+                  f"flash launches, wanted {want}")
+            launches = launches if launches is not None else want
+        solo = {}
+        for r in mreqs:
+            full = (np.concatenate([prefix, r.prompt]) if r.prefix_id
+                    else r.prompt)
+            toks = torch.as_tensor(full, device="cuda")[None].long()
+            if mode == "request_keyed":
+                got = decode.sample_position_keyed(
+                    weights, toks, cfg, r.max_new_tokens - 1,
+                    decode.fold_in(keyed["seed"], r.rid),
+                    temperature=keyed["temperature"], top_k=keyed["top_k"])
+            else:
+                got = decode.generate(weights, toks, cfg,
+                                      steps=r.max_new_tokens - 1)
+            solo[r.rid] = got[0].cpu().tolist()
+        check(runs["tp"] == runs["whole"] == solo,
+              f"tiny f32 {mode}: tp {runs['tp']} != unsharded "
+              f"{runs['whole']} != solo {solo}")
+        out[mode] = dict(tokens=runs["tp"], flash_launches=launches)
+    return out
+
+
+def tp_tiny_train(mesh):
+    """Phase 22's exact half on one rank of a dp2×tp2 ``mesh``: three AdamW
+    steps (lr 1e-3) of tiny f32 (TINY_GQA, remat, TF32 off) on one global
+    batch of 4, sharded and whole, launches counted per step; the losses
+    within 1e-5 relative, and every gathered parameter leaf within 1e-5
+    relative L2 (:func:`grad_rel_err`, as phase 5 holds gradients) of the
+    whole model's. Then the vocab-parallel loss of
+    this rank's batch share against the replicated-logits loss of the same
+    shards."""
+    from tpusched_torch import attention, optim, workload
+    from tpusched_torch.mesh import local_chunk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(workload.ModelConfig.tiny(), **TINY_GQA,
+                              remat=True)
+    tokens = torch.as_tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab, (4, cfg.seq)), device="cuda")
+    want = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    runs = {}
+    for label, m in (("whole", None), ("sharded", mesh)):
+        params = seeded_params(workload, cfg)
+        step, init_opt, _, _ = workload.make_optax_train_step(
+            m, cfg, optim.adamw(1e-3))
+        if m is not None:
+            params = workload.shard_params(params, cfg, m)
+        state = init_opt(params)
+        losses = []
+        for _ in range(3):
+            zero_counts(attention)
+            params, state, loss = step(params, state, tokens)
+            losses.append(loss.item())
+            check(bwd_counts(attention) == want,
+                  f"tiny {label} step launched {bwd_counts(attention)}, "
+                  f"wanted {want}")
+        if m is not None:
+            params = workload.gather_params(params, cfg, m)
+        runs[label] = (losses, workload.tree_leaves(params))
+    (losses, got), (ref_losses, ref) = runs["sharded"], runs["whole"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    leaf_rel = grad_rel_err(got, ref)
+    check(loss_rel <= 1e-5 and leaf_rel <= 1e-5,
+          f"tiny dp2xtp2 AdamW: losses {losses} against {ref_losses} "
+          f"(rel {loss_rel:.3e}), worst leaf rel L2 {leaf_rel:.3e} (tol "
+          f"1e-5)")
+    vp = dataclasses.replace(cfg, vocab_parallel_loss=True)
+    params = seeded_params(workload, cfg)
+    local = local_chunk(tokens, mesh.batch, 0)
+    with torch.no_grad():
+        vp_loss = workload.loss_fn(workload.shard_params(params, vp, mesh),
+                                   local, vp, tp=mesh.tp).item()
+        rep_loss = workload.loss_fn(workload.shard_params(params, cfg, mesh),
+                                    local, cfg, tp=mesh.tp).item()
+    check(abs(vp_loss - rep_loss) <= 1e-5 * abs(rep_loss),
+          f"vocab-parallel loss {vp_loss} != replicated {rep_loss}")
+    return dict(losses=losses, whole_losses=ref_losses, loss_rel=loss_rel,
+                worst_leaf_rel_l2=leaf_rel, vocab_parallel_loss=vp_loss,
+                replicated_loss=rep_loss, launches_per_step=want)
+
+
+def tp2_rank(mesh):
+    """Everything phases 20-22 run on the tp = 2 ranks, in one spawn."""
+    from tpusched_torch import attention, optim, workload
+    out = {"all_reduce_ms": all_reduce_ms(mesh),
+           "llama_like_big": tp_serve(mesh, "llama_like_big"),
+           "mixtral_like": tp_serve(mesh, "mixtral_like"),
+           "tiny": tp_tiny_parity(mesh)}
+    torch.cuda.empty_cache()
+    out["train"] = train_big(attention, optim, workload, mesh)
+    return out
+
+
+def tp4_rank(mesh):
+    """Everything phases 20-22 run on four ranks: tp = 4 serving, then the
+    same ranks as a dp2×tp2 mesh for the tiny training."""
+    from tpusched_torch import mesh as tmesh
+    out = {"all_reduce_ms": all_reduce_ms(mesh),
+           "llama_like_big": tp_serve(mesh, "llama_like_big")}
+    torch.cuda.empty_cache()
+    out["tiny_train"] = tp_tiny_train(
+        tmesh.build_named_mesh({"dp": 2, "tp": 2}, "gloo", "cuda"))
+    return out
+
+
+def ranks_agree(ranks, key, what):
+    """Every rank's completions of ``key`` equal rank 0's."""
+    for r, out in enumerate(ranks[1:], 1):
+        a, b = ranks[0][key]["tokens"], out[key]["tokens"]
+        check(a.keys() == b.keys() and all(np.array_equal(a[i], b[i])
+                                           for i in a),
+              f"{what}: rank {r}'s completions differ from rank 0's")
+
+
+def phase_tp(attention, decode, serve, workload, tmesh, mono, moe_mono,
+             train):
+    """Phases 20-22 (module docstring): two spawns of gloo ranks sharing
+    the card, then the checks against phases 3, 6 and 8. Returns the
+    per-rank launches for the kernels line."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    workdir = pathlib.Path(__file__).resolve().parent / "build"
+    workdir.mkdir(exist_ok=True)
+    two = tmesh.launch(tp2_rank, {"tp": 2}, backend="gloo", device="cuda",
+                       workdir=str(workdir))
+    four = tmesh.launch(tp4_rank, {"tp": 4}, backend="gloo", device="cuda",
+                        workdir=str(workdir))
+    cfg = workload.ModelConfig.llama_like_big()
+    params = None
+    per_prefill = cfg.n_layers
+    for tp, ranks in ((2, two), (4, four)):
+        ranks_agree(ranks, "llama_like_big", f"llama_like_big at tp {tp}")
+        runs = [r["llama_like_big"] for r in ranks]
+        for run in runs:
+            check(run["launches"] == per_prefill * run["prefills"] == 216,
+                  f"tp {tp}: {run['launches']} flash launches for "
+                  f"{run['prefills']} prefills")
+            check(run["kv_heads"] == cfg.kv_heads // tp, "arena heads")
+        ties = {}
+        for rid, toks in runs[0]["tokens"].items():
+            if not np.array_equal(toks, mono["tokens"][rid]):
+                if params is None:
+                    params = seeded_params(workload, cfg)
+                ties[rid] = near_tie(decode, params, cfg,
+                                     make_requests(cfg, serve)[rid].prompt,
+                                     mono["tokens"][rid], toks, "cuda")
+        print(json.dumps({
+            "tp_serving": "llama_like_big", "tp": tp, "ranks": tp,
+            "backend": "gloo", "ranks_agree": True,
+            "flash_launches_per_rank": [r["launches"] for r in runs],
+            "prefills": runs[0]["prefills"], "ticks": runs[0]["ticks"],
+            "unsharded_ticks": mono["stats"]["ticks"],
+            "streams_equal_to_phase_3": len(runs[0]["tokens"]) - len(ties),
+            "near_ties": ties,
+            "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in runs],
+            "unsharded_peak_mem_gib": mono["peak_mem_gib"],
+            "drain_s_per_rank": [r["drain_s"] for r in runs],
+            "all_reduce_ms_per_rank": [r["all_reduce_ms"] for r in ranks],
+            "drain_s_note": GLOO_NOTE}))
+    del params
+    ranks_agree(two, "mixtral_like", "mixtral_like at tp 2")
+    moe = [r["mixtral_like"] for r in two]
+    check(all(r["launches"] == 0 for r in moe),
+          "mixtral_like at tp 2 launched the flash kernel")
+    # reported, not held: a bf16 rounding difference may flip a top-2
+    # route, which moves the logits by more than a near tie (phase 21
+    # holds the MoE tp path exact in f32)
+    moe_cfg = workload.ModelConfig.mixtral_like()
+    moe_params = seeded_params(workload, moe_cfg)
+    moe_reqs = make_requests(moe_cfg, serve)
+    moe_diff = {rid: first_difference(decode, moe_params, moe_cfg,
+                                      moe_reqs[rid].prompt,
+                                      moe_mono["tokens"][rid], toks, "cuda")
+                for rid, toks in moe[0]["tokens"].items()}
+    del moe_params
+    print(json.dumps({
+        "tp_serving": "mixtral_like", "tp": 2, "backend": "gloo",
+        "ranks_agree": True, "flash_launches_per_rank":
+        [r["launches"] for r in moe], "ticks": moe[0]["ticks"],
+        "streams_equal_to_phase_8": sum(d is None for d in moe_diff.values()),
+        "first_differences": {rid: d for rid, d in moe_diff.items() if d},
+        "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in moe],
+        "unsharded_peak_mem_gib": moe_mono["peak_mem_gib"],
+        "drain_s_per_rank": [r["drain_s"] for r in moe],
+        "drain_s_note": GLOO_NOTE}))
+    for mode in two[0]["tiny"]:
+        check(two[0]["tiny"][mode] == two[1]["tiny"][mode],
+              f"tiny {mode}: the ranks disagree")
+        print(f"tp 2 engine == unsharded engine == solo on tiny f32 "
+              f"(d_model 128, 4 heads over 2) flash, {mode}: ranks agree, "
+              f"flash launches {two[0]['tiny'][mode]['flash_launches']} "
+              f"per rank")
+    runs = [r["train"] for r in two]
+    check(runs[0]["losses"] == runs[1]["losses"],
+          f"tp training: the ranks' losses differ: {runs}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(runs[0]["losses"],
+                                               train["losses"])]
+    check(max(rel) <= TRAIN_LOSS_RTOL,
+          f"tp 2 losses {runs[0]['losses']} against phase 6's "
+          f"{train['losses']}: rel {rel} (tol {TRAIN_LOSS_RTOL})")
+    print(json.dumps({
+        "tp_training": "llama_like_big", "seq": 4096, "batch": 1, "tp": 2,
+        "backend": "gloo", "optimizer": "adamw lr 1e-4 mu f32",
+        "losses": runs[0]["losses"], "phase_6_losses": train["losses"],
+        "loss_rel_diff": rel, "loss_rtol": TRAIN_LOSS_RTOL,
+        "launches_per_step_per_rank": dict(zip(
+            ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"),
+            runs[0]["per_step"])),
+        "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in runs],
+        "phase_6_peak_mem_gib": train["peak_mem_gib"],
+        "step_s_per_rank": [r["step_s"] for r in runs],
+        "step_s_note": GLOO_NOTE}))
+    tiny = [r["tiny_train"] for r in four]
+    check(all(t["losses"] == tiny[0]["losses"] for t in tiny),
+          "tiny dp2xtp2: the ranks' losses differ")
+    print(json.dumps({"tp_training": "tiny f32 dp2xtp2", "steps": 3,
+                      **tiny[0]}))
+    print(json.dumps({"phases_20_22_s": time.perf_counter() - t0}))
+    return {"two": two, "four": four}
+
+
 def ab_turn(tree: str, other_root: str) -> None:
     """One turn of ``--ab``, in a process of its own: builds the kernels of
     the ``tpusched_torch`` on PYTHONPATH, then prints one JSON line of
@@ -1614,6 +2005,7 @@ def main(argv) -> int:
         return 2
     from tpusched_torch import (_build, attention, decode, measure, optim,
                                 serve, spec_decode, workload)
+    from tpusched_torch import mesh as tmesh
 
     phase_environment(_build)
     max_abs_err = phase_kernel_vs_plain(attention)
@@ -1622,11 +2014,12 @@ def main(argv) -> int:
     mono = phase_serving(attention, serve, workload)
     phase_parity(attention, decode, serve, workload)
     phase_grad_parity(attention, workload)
-    train_launches = phase_training(attention, measure, optim, workload)
+    train = phase_training(attention, measure, optim, workload)
+    train_launches = train["launches"]
     serving_timing = phase_timing(attention)
     timing = phase_training_timing(attention)
     # the MoE family, after the kernel timings so that those run as before
-    phase_serving(attention, serve, workload, "mixtral_like")
+    moe_mono = phase_serving(attention, serve, workload, "mixtral_like")
     phase_parity(attention, decode, serve, workload, "naive", n_experts=4)
     phase_parity(attention, decode, serve, workload, "flash", n_experts=4)
     phase_moe_training(measure, workload)
@@ -1659,6 +2052,22 @@ def main(argv) -> int:
     print(json.dumps({"phases_s": time.perf_counter() - t_start,
                       "phases_12_16_s": t_12_16,
                       "phases_17_19_s": time.perf_counter() - t_spec}))
+    # tensor and data parallelism on gloo ranks sharing the card, after
+    # every earlier phase so that those run as before; then the kernels at
+    # the ranks' shapes, timed as in phase 7
+    tp = phase_tp(attention, decode, serve, workload, tmesh, mono, moe_mono,
+                  train)
+    tp_timing = {"serving_tp2": phase_timing(attention, (1, 1024, 8, 2, 128)),
+                 "serving_tp4": phase_timing(attention, (1, 1024, 4, 1, 128))}
+    rank_train = phase_training_timing(attention, (1, 4096, 8, 2, 128),
+                                       "per-rank training shape at tp 2")
+    two, four = tp["two"][0], tp["four"][0]
+    tp_fwd = {"serving_tp2_per_rank": two["llama_like_big"]["launches"],
+              "serving_tp4_per_rank": four["llama_like_big"]["launches"],
+              "mixtral_tp2_per_rank": two["mixtral_like"]["launches"],
+              "tiny_tp2_per_rank": {m: r["flash_launches"]
+                                    for m, r in two["tiny"].items()},
+              "training_tp2_per_rank": two["train"]["launches"][0]}
     source = "tpusched_torch/csrc/"
     replaces = "tpusched/jaxbridge/attention.py:"
     # flash_fwd's own fields are the serving path's, at its (1, 1024, 16, 4,
@@ -1672,15 +2081,22 @@ def main(argv) -> int:
          "int8_prefill_launches": int8_launches,
          "spec_launches": {"solo": spec_solo, "serving": spec_serving},
          "training_shape": {"launches": train_launches[0],
-                            **timing["flash_fwd"]}},
+                            **timing["flash_fwd"]},
+         "tp_launches": tp_fwd,
+         "tp_shapes": {**tp_timing,
+                       "training_tp2": rank_train["flash_fwd"]}},
         {"name": "flash_bwd_dkdv", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "218",
          "launches": train_launches[1], "max_abs_err": bwd_err[1],
-         **timing["flash_bwd_dkdv"]},
+         **timing["flash_bwd_dkdv"],
+         "tp_launches": {"training_tp2_per_rank": two["train"]["launches"][1]},
+         "tp_shapes": {"training_tp2": rank_train["flash_bwd_dkdv"]}},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "265",
          "launches": train_launches[2], "max_abs_err": bwd_err[0],
-         **timing["flash_bwd_dq"]}]}))
+         **timing["flash_bwd_dq"],
+         "tp_launches": {"training_tp2_per_rank": two["train"]["launches"][2]},
+         "tp_shapes": {"training_tp2": rank_train["flash_bwd_dq"]}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

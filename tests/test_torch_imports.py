@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: no module of tpusched_torch, and not
-chip_smoke.py, imports JAX, optax or anything of the tpusched package (the
-machine with the card has none of them)."""
+"""The PyTorch port stands alone: no module of tpusched_torch (mesh.py
+included), and not chip_smoke.py, imports JAX, optax or anything of the
+tpusched package (the machine with the card has none of them); the serving,
+speculative and tensor-parallel paths run with all three refused."""
 from __future__ import annotations
 
 import ast
@@ -119,6 +120,59 @@ def test_speculative_paths_run_with_jax_unimportable():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().splitlines()[-1] == "speculated"
+
+
+REFUSE = (
+    "import importlib.abc, sys\n"
+    "class Refuse(importlib.abc.MetaPathFinder):\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        top = name.split('.')[0]\n"
+    "        if top.startswith('jax') or top in ('tpusched', 'optax'):\n"
+    "            raise ImportError(name)\n"
+    "sys.meta_path.insert(0, Refuse())\n")
+
+RANKS = REFUSE + (
+    "import numpy as np, torch\n"
+    "from tpusched_torch import optim, serve, workload as wl\n"
+    "def rank(mesh):\n"
+    "    torch.set_num_threads(1)\n"
+    "    cfg = wl.ModelConfig.tiny()\n"
+    "    p = wl.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+    "    eng = serve.ServeEngine(p, cfg, slots=2, max_seq=32,"
+    " prompt_bucket=8, mesh=mesh, device='cpu')\n"
+    "    for i in range(3):\n"
+    "        eng.submit(serve.Request(rid=i, prompt=np.arange(3 + i,"
+    " dtype=np.int32), max_new_tokens=3))\n"
+    "    done = {c.rid: c.tokens.tolist() for c in eng.run_until_drained()}\n"
+    "    step, init_opt, _, _ = wl.make_optax_train_step(mesh, cfg,"
+    " optim.adamw(1e-3))\n"
+    "    shards = wl.shard_params(p, cfg, mesh)\n"
+    "    toks = torch.arange(2 * cfg.seq).reshape(2, cfg.seq) % cfg.vocab\n"
+    "    _, _, loss = step(shards, init_opt(shards), toks)\n"
+    "    bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+    " ('tpusched', 'optax') or m.split('.')[0].startswith('jax'))\n"
+    "    return done, float(loss), bad\n")
+
+
+def test_tp_paths_run_with_jax_unimportable(tmp_path):
+    """With jax, optax and tpusched refused at import in the launcher and
+    in each rank (the ranks' module refuses them before it imports the
+    port), two gloo ranks serve a tiny model at tp = 2 and take an AdamW
+    step on a tp mesh; no rank has loaded any of them."""
+    (tmp_path / "refusing_ranks.py").write_text(RANKS)
+    prog = REFUSE + (
+        f"sys.path.insert(0, {str(tmp_path)!r})\n"
+        "import refusing_ranks\n"
+        "from tpusched_torch import mesh\n"
+        "out = mesh.launch(refusing_ranks.rank, {'tp': 2}, backend='gloo',"
+        f" device='cpu', workdir={str(tmp_path)!r})\n"
+        "assert out[0] == out[1], out\n"
+        "assert len(out[0][0]) == 3 and out[0][2] == [], out\n"
+        "print('sharded')\n")
+    r = subprocess.run([sys.executable, "-c", prog], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().splitlines()[-1] == "sharded"
 
 
 def _imports(path: pathlib.Path):

@@ -17,6 +17,7 @@ import torch
 from tpusched.jaxbridge import decode as jdec, serve as jserve
 from tpusched.jaxbridge import workload as jwl
 from tpusched_torch import decode, interop, serve, workload as wl
+from tpusched_torch import mesh as tmesh
 from tpusched_torch.serve import Request, ServeEngine, measure_serving
 
 torch.set_num_threads(1)
@@ -132,9 +133,9 @@ def test_prompt_goes_to_smallest_fitting_bucket(model, monkeypatch):
     padded = []
     real = serve._prefill_slot
 
-    def spy(params_, cache, prompt, slot, true_len, cfg_):
+    def spy(params_, cache, prompt, slot, true_len, cfg_, tp=None):
         padded.append((len(prompt), true_len))
-        return real(params_, cache, prompt, slot, true_len, cfg_)
+        return real(params_, cache, prompt, slot, true_len, cfg_, tp)
 
     monkeypatch.setattr(serve, "_prefill_slot", spy)
     eng = ServeEngine(params, cfg, slots=2, max_seq=64,
@@ -189,7 +190,8 @@ def test_sampled_engine_is_seeded(model):
 
 
 @pytest.mark.parametrize("option,error,match", [
-    (dict(mesh=object()), NotImplementedError, "ROADMAP"),
+    (dict(mesh=tmesh.Mesh({"fsdp": 1, "tp": 1}, device="cpu")),
+     NotImplementedError, "ROADMAP"),
     (dict(draft_params=None, draft_cfg=wl.ModelConfig.tiny()), ValueError,
      "draft_cfg without draft_params"),
     (dict(draft_cfg=None), ValueError, "draft_params requires draft_cfg"),
@@ -197,10 +199,11 @@ def test_sampled_engine_is_seeded(model):
      "needs temperature > 0")], ids=["option0", "option1", "option2",
                                      "option3"])
 def test_options_not_ported_yet_raise(model, option, error, match):
-    """The mesh is not ported yet; speculation and request-keyed sampling
-    are (tests/test_torch_serve_spec.py), and refuse what the reference
-    refuses: a draft config without its weights, weights without their
-    config, keyed sampling at temperature 0."""
+    """A mesh with an fsdp (sp, ep, pp) axis is not ported yet; tp meshes
+    are (tests/test_torch_tp_serve.py), as are speculation and
+    request-keyed sampling (tests/test_torch_serve_spec.py), which refuse
+    what the reference refuses: a draft config without its weights, weights
+    without their config, keyed sampling at temperature 0."""
     cfg, params = model
     option = {"draft_params": params, **option}
     with pytest.raises(error, match=match):

@@ -16,10 +16,11 @@ import jax
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh as JMesh
 
 from tpusched.jaxbridge import serve as jserve, workload as jwl
 from tpusched_torch import decode, interop, serve, spec_decode as sd
-from tpusched_torch import workload as wl
+from tpusched_torch import mesh as tmesh, workload as wl
 from tpusched_torch.serve import Request, ServeEngine
 
 torch.set_num_threads(1)
@@ -235,15 +236,20 @@ def test_constructor_guards_match_reference(tiny):
     for match, kw in cases.items():
         got, want = _construct_error(tiny, **kw)
         assert got == want and match in got, (match, got, want)
-    # speculation refuses chunked admission, as the reference does; the
-    # port's message leaves out the reference's mesh clause
+    # speculation refuses chunked admission, as the reference does, with
+    # its message, mesh clause included
     got, want = _construct_error(tiny, draft_params=(d[1], d[3]),
                                  draft_cfg=(d[0], d[2]), chunk_prefill=4,
                                  max_seq=64, prompt_bucket=16)
-    assert "monolithic admission only" in got and got in want
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ServeEngine(tiny[3], tiny[2], draft_params=d[3], draft_cfg=d[2],
-                    mesh=object(), device="cpu")
+    assert "monolithic admission only" in got and got == want
+    # on a tp mesh the draft's kv_heads must split over tp, as the target's
+    k1 = _pair(dataclasses.replace(jwl.ModelConfig.tiny(), n_heads=4,
+                                   n_kv_heads=1), 3)
+    got, want = _construct_error(
+        tiny, draft_params=(k1[1], k1[3]), draft_cfg=(k1[0], k1[2]),
+        mesh=(JMesh(np.array(jax.devices()[:2]), ("tp",)),
+              tmesh.Mesh({"tp": 2}, device="cpu")))
+    assert got == want == "draft kv_heads 1 not divisible by tp 2"
     # sampled speculation composes with request-keyed sampling
     ServeEngine(tiny[3], tiny[2], draft_params=d[3], draft_cfg=d[2],
                 temperature=0.5, request_keyed=True, max_seq=64,
@@ -309,8 +315,8 @@ def test_idle_slots_stay_finite_and_never_wrap(tiny, monkeypatch):
     spans = []
     real = serve.score_span
 
-    def spy(params, cache, tokens, pos, cfg):
-        logits, cache = real(params, cache, tokens, pos, cfg)
+    def spy(params, cache, tokens, pos, cfg, tp=None):
+        logits, cache = real(params, cache, tokens, pos, cfg, tp)
         spans.append(bool(torch.isfinite(logits).all()))
         return logits, cache
 

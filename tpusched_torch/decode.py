@@ -7,6 +7,11 @@ attend the cache through a position mask. Unlike the reference, whose
 arrays are immutable, the cache is written IN PLACE: ``cache_update`` and
 every function that takes a cache mutate it and return the same object.
 
+Under tensor parallelism (``tp=``, the tp axis of a ``mesh``) every
+function here takes this rank's shards of the weights and a cache of its
+kv_heads/tp heads; attention and cache writes stay local, and the logits
+come back whole on every rank.
+
 Speculative decoding's draft phase (``draft_rollout``,
 ``sampling_draft_rollout``) and request-keyed sampling
 (``sample_position_keyed``, ``keyed_sample``) live here too. JAX's threefry
@@ -25,21 +30,29 @@ import numpy as np
 import torch
 
 from . import attention
+from .mesh import Axis
 from .workload import (ModelConfig, Params, _as_pos_vec, _finish_block,
                        _qkv, _resolve_attn_fn, _rmsnorm,
-                       cast_params_for_compute, resolve_device)
+                       cast_params_for_compute, embed, resolve_device,
+                       unembed)
 
 KVCache = List[Dict[str, torch.Tensor]]
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
-                  device=None) -> KVCache:
+                  device=None, tp: Optional[Axis] = None) -> KVCache:
     """Zeroed cache, one entry per layer: ``k``/``v`` (batch, max_seq,
     kv_heads, head_dim) in ``cfg.dtype``, or int8 with f32 scale planes
     ``ks``/``vs`` (batch, max_seq, kv_heads) when ``cfg.kv_cache_dtype`` is
-    "int8" (half the bytes a decode step streams for the cache)."""
+    "int8" (half the bytes a decode step streams for the cache). Under
+    ``tp`` the rank's kv_heads/tp heads: the cached attention and the
+    writes are then local to the rank."""
     device = resolve_device(device)
-    shape = (batch, max_seq, cfg.kv_heads, cfg.head_dim)
+    shards = tp.size if tp is not None else 1
+    if cfg.kv_heads % shards:
+        raise ValueError(f"kv_heads {cfg.kv_heads} not divisible by tp "
+                         f"{shards}")
+    shape = (batch, max_seq, cfg.kv_heads // shards, cfg.head_dim)
     if cfg.kv_cache_dtype == "int8":
         return [{"k": torch.zeros(shape, dtype=torch.int8, device=device),
                  "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -133,58 +146,65 @@ def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
 
 
 def _layer_decode(x: torch.Tensor, layer: Dict[str, torch.Tensor], c, pos,
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig, tp: Optional[Axis] = None) -> torch.Tensor:
     h = _rmsnorm(x, layer["ln_attn"])
-    q, k, v = _qkv(h, layer, cfg, pos_offset=pos)
+    q, k, v = _qkv(h, layer, cfg, pos_offset=pos, tp=tp)
     cache_update(c, k, v, pos)
     ck, cv = cache_kv(c, q.dtype)
+    # the group size is the config's on every rank: tp splits whole groups
     o = _cached_attention(q, ck, cv, pos, cfg.n_heads // cfg.kv_heads)
     # dropless: a decoded token's MoE output depends on that token alone
-    return _finish_block(x, layer, o, cfg, dropless=True)[0]
+    return _finish_block(x, layer, o, cfg, dropless=True, tp=tp)[0]
 
 
 def _layer_prefill(x: torch.Tensor, layer: Dict[str, torch.Tensor], c,
-                   cfg: ModelConfig, attn_fn) -> torch.Tensor:
+                   cfg: ModelConfig, attn_fn,
+                   tp: Optional[Axis] = None) -> torch.Tensor:
     """Prefill layer: attention over the prompt through the configured
     implementation (the flash kernel when cfg.attn == 'flash'), K/V
     recorded into the cache from position 0. Attention takes the FRESH
     K/V, so an int8 cache's error enters only at later cached reads."""
     h = _rmsnorm(x, layer["ln_attn"])
-    q, k, v = _qkv(h, layer, cfg)
+    q, k, v = _qkv(h, layer, cfg, tp=tp)
     cache_update(c, k, v, 0)
-    return _finish_block(x, layer, attn_fn(q, k, v), cfg, dropless=True)[0]
+    return _finish_block(x, layer, attn_fn(q, k, v), cfg, dropless=True,
+                         tp=tp)[0]
 
 
 def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
-            cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+            cfg: ModelConfig, tp: Optional[Axis] = None
+            ) -> Tuple[torch.Tensor, KVCache]:
     """Run the prompt (b, s), filling the cache from position 0. Returns
-    (logits (b, s, vocab), cache)."""
+    (logits (b, s, vocab), cache). ``tp``: the tensor-parallel axis of
+    sharded ``params`` and a cache from ``init_kv_cache(..., tp=tp)``; the
+    logits are whole on every rank."""
     params = cast_params_for_compute(params, cfg)
-    x = params["embed"][tokens]
+    x = embed(params, tokens, tp)
     attn_fn = _resolve_attn_fn(cfg)
     for layer, c in zip(params["layers"], cache):
-        x = _layer_prefill(x, layer, c, cfg, attn_fn)
-    x = _rmsnorm(x, params["ln_f"])
-    return x @ params["out"], cache
+        x = _layer_prefill(x, layer, c, cfg, attn_fn, tp)
+    return unembed(params, _rmsnorm(x, params["ln_f"]), cfg, tp), cache
 
 
 def score_span(params: Params, cache: KVCache, tokens: torch.Tensor, pos,
-               cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+               cfg: ModelConfig, tp: Optional[Axis] = None
+               ) -> Tuple[torch.Tensor, KVCache]:
     """Teacher-force ``tokens`` (b, n) at positions pos..pos+n-1 (``pos``
-    scalar or (b,)): returns (logits (b, n, vocab), cache)."""
+    scalar or (b,)): returns (logits (b, n, vocab), cache). ``tp`` as in
+    :func:`prefill`."""
     params = cast_params_for_compute(params, cfg)
-    x = params["embed"][tokens]
+    x = embed(params, tokens, tp)
     for layer, c in zip(params["layers"], cache):
-        x = _layer_decode(x, layer, c, pos, cfg)
-    x = _rmsnorm(x, params["ln_f"])
-    return x @ params["out"], cache
+        x = _layer_decode(x, layer, c, pos, cfg, tp)
+    return unembed(params, _rmsnorm(x, params["ln_f"]), cfg, tp), cache
 
 
 def decode_step(params: Params, cache: KVCache, tokens_t: torch.Tensor, pos,
-                cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+                cfg: ModelConfig, tp: Optional[Axis] = None
+                ) -> Tuple[torch.Tensor, KVCache]:
     """One token per sequence, tokens_t (b,), at ``pos`` (scalar or (b,)).
     Returns (logits (b, vocab), cache)."""
-    logits, cache = score_span(params, cache, tokens_t[:, None], pos, cfg)
+    logits, cache = score_span(params, cache, tokens_t[:, None], pos, cfg, tp)
     return logits[:, 0], cache
 
 
@@ -383,20 +403,20 @@ def upload_pos(pos: Pos, device) -> Union[int, torch.Tensor]:
 
 
 def draft_rollout(params: Params, cache: KVCache, feed: torch.Tensor,
-                  pos: Pos, cfg: ModelConfig, k: int
-                  ) -> Tuple[torch.Tensor, KVCache]:
+                  pos: Pos, cfg: ModelConfig, k: int,
+                  tp: Optional[Axis] = None) -> Tuple[torch.Tensor, KVCache]:
     """Greedy draft rollout: ingest ``feed`` (b, p) at rows pos..pos+p-1,
     take the argmax of its last row, then propose k - 1 more tokens one
     ``score_span`` step at a time. The token chain stays on the device (no
     host read per step). ``pos`` is an int or a (b,) vector (host or
     device). Returns (proposals (b, k) on the device, cache)."""
     pos = upload_pos(pos, feed.device)
-    logits, cache = score_span(params, cache, feed, pos, cfg)
+    logits, cache = score_span(params, cache, feed, pos, cfg, tp)
     tok = torch.argmax(logits[:, -1], dim=-1)
     toks = [tok]
     p = pos + feed.shape[1]
     for _ in range(k - 1):
-        logits, cache = score_span(params, cache, tok[:, None], p, cfg)
+        logits, cache = score_span(params, cache, tok[:, None], p, cfg, tp)
         tok = torch.argmax(logits[:, 0], dim=-1)
         toks.append(tok)
         p = p + 1
@@ -408,7 +428,7 @@ def sampling_draft_rollout(params: Params, cache: KVCache,
                            cfg: ModelConfig, k: int,
                            key: Union[int, Sequence[int]],
                            temperature: float = 1.0, top_k: int = 0,
-                           top_p: float = 1.0
+                           top_p: float = 1.0, tp: Optional[Axis] = None
                            ) -> Tuple[np.ndarray, np.ndarray, KVCache]:
     """``draft_rollout``'s sampling sibling: ingest ``feed`` (b, p) at rows
     pos..pos+p-1, then propose k tokens, the one occupying row ``q`` drawn
@@ -423,7 +443,7 @@ def sampling_draft_rollout(params: Params, cache: KVCache,
     rows = np.broadcast_to(np.asarray(pos, dtype=np.int64), (b,)) + \
         feed.shape[1]                       # the row the first proposal takes
     p = upload_pos(pos, feed.device)
-    logits, cache = score_span(params, cache, feed, p, cfg)
+    logits, cache = score_span(params, cache, feed, p, cfg, tp)
     row_logits = logits[:, -1]
     p = p + feed.shape[1]
     toks, probs = [], []
@@ -438,7 +458,7 @@ def sampling_draft_rollout(params: Params, cache: KVCache,
         if i < k - 1:
             logits, cache = score_span(
                 params, cache, torch.from_numpy(tok).to(feed.device)[:, None],
-                p, cfg)
+                p, cfg, tp)
             row_logits = logits[:, 0]
             p = p + 1
     return np.stack(toks, axis=1), np.stack(probs, axis=1), cache

@@ -1,0 +1,411 @@
+"""Named device meshes over ``torch.distributed``, and the collectives of
+tensor and data parallelism on them.
+
+Counterpart of ``tpusched/jaxbridge/mesh.py``. The reference builds a
+``jax.sharding.Mesh`` and lets XLA insert the collectives; here every rank
+is a process, a :class:`Mesh` holds one process group per named axis, and
+the model code calls the collectives itself: the two Megatron-style
+autograd functions around a column- and a row-parallel product
+(:func:`copy_to`, :func:`reduce_from`), a gather along the last dim whose
+backward takes this rank's slice (:func:`gather_last`) and its inverse
+(:func:`scatter_last`). A collective on an axis of size 1, or on no axis
+(``None``), is the identity, so one code path serves the sharded and the
+unsharded model.
+
+Ranks are laid out row-major over the axes in the order given, as the
+reference reshapes its device list: the last axis (``tp``) varies fastest,
+so a tp group is a run of adjacent ranks.
+
+The scheduler's slice placement (:func:`slice_assignment`) is read from
+duck-typed pods; the coordinate annotation and its parser are copied here,
+since this package never imports ``tpusched``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+import os
+import pickle
+import tempfile
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+# tpusched.plugins.topologymatch.COORD_ANNOTATION and
+# tpusched.api.topology.parse_coord, copied
+COORD_ANNOTATION = "topology.tpu.dev/coord"
+
+BATCH_AXES = ("slice", "dp", "fsdp")
+
+
+def parse_coord(s: str) -> Tuple[int, ...]:
+    return tuple(int(p) for p in s.split("-"))
+
+
+def factor_mesh(n_devices: int, max_tp: int = 4) -> Tuple[int, int]:
+    """(dp, tp) with tp the largest power-of-two divisor of n <= max_tp: tp
+    within a host, dp across hosts. A power of two keeps tp dividing the
+    model dims (all sized in multiples of 4)."""
+    tp = max_tp
+    while tp > 1 and (n_devices % tp or tp & (tp - 1)):
+        tp -= 1
+    return n_devices // tp, tp
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One named axis as this rank sees it: its size, this rank's index
+    along it, the process group of the ranks that share every other
+    coordinate (None on a layout-only mesh) and their global ranks, in
+    index order."""
+    name: str
+    size: int
+    index: int
+    group: Optional[dist.ProcessGroup]
+    ranks: Tuple[int, ...]
+
+
+class Mesh:
+    """Named axes over ``torch.distributed``: ``axis_sizes`` in order, this
+    rank's coordinate, one process group per axis and one for the batch
+    axes together, and this rank's device.
+
+    ``Mesh(axis_sizes, rank=r)`` alone is a layout: names, sizes and
+    coordinates without process groups, enough for ``param_specs`` and
+    ``shard_params``; a collective over one of its axes of size > 1 raises.
+    :func:`build_named_mesh` builds the distributed one."""
+
+    def __init__(self, axis_sizes: Dict[str, int], rank: int = 0,
+                 device=None, groups: Optional[Dict[Tuple[str, ...],
+                                                    dist.ProcessGroup]] = None):
+        self.shape: Dict[str, int] = dict(axis_sizes)
+        self.axis_names: Tuple[str, ...] = tuple(self.shape)
+        self.size = math.prod(self.shape.values())
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a mesh of {self.size}")
+        self.rank = rank
+        self.coord: Dict[str, int] = dict(zip(
+            self.axis_names, _unravel(rank, tuple(self.shape.values()))))
+        self.device = torch.device(device) if device is not None else None
+        self._groups = groups or {}
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, rank={self.rank}, device={self.device})"
+
+    def axis(self, names) -> Optional[Axis]:
+        """The axis ``names`` (one name, or a tuple of names taken together
+        as one axis, row-major), or None when none of them is on the mesh.
+        Names missing from the mesh are left out."""
+        names = (names,) if isinstance(names, str) else tuple(names)
+        names = tuple(n for n in names if n in self.shape)
+        if not names:
+            return None
+        size = math.prod(self.shape[n] for n in names)
+        index = _ravel([self.coord[n] for n in names],
+                       [self.shape[n] for n in names])
+        return Axis(",".join(names), size, index, self._groups.get(names),
+                    tuple(_group_ranks(self.shape, self.coord, names)))
+
+    @property
+    def tp(self) -> Optional[Axis]:
+        return self.axis("tp")
+
+    @property
+    def batch(self) -> Optional[Axis]:
+        """The batch axes (slice, dp, fsdp present on the mesh) as one."""
+        return self.axis(BATCH_AXES)
+
+
+def _unravel(i: int, sizes: Sequence[int]) -> Tuple[int, ...]:
+    out = []
+    for s in reversed(sizes):
+        out.append(i % s)
+        i //= s
+    return tuple(reversed(out))
+
+
+def _ravel(coord: Sequence[int], sizes: Sequence[int]) -> int:
+    i = 0
+    for c, s in zip(coord, sizes):
+        i = i * s + c
+    return i
+
+
+def _group_ranks(shape: Dict[str, int], coord: Dict[str, int],
+                 names: Tuple[str, ...]):
+    """Global ranks that share ``coord`` on every axis outside ``names``,
+    in row-major order over ``names``."""
+    sizes = tuple(shape.values())
+    for sub in itertools.product(*(range(shape[n]) for n in names)):
+        c = dict(coord, **dict(zip(names, sub)))
+        yield _ravel([c[a] for a in shape], sizes)
+
+
+def build_named_mesh(axis_sizes: Dict[str, int], backend: str = "nccl",
+                     device=None, *, rank: Optional[int] = None,
+                     init_method: Optional[str] = None,
+                     store: Optional[dist.Store] = None) -> Mesh:
+    """The named mesh of this process, e.g. ``{"dp": 2, "tp": 2}`` or a
+    multi-slice ``{"slice": 2, "dp": 2, "tp": 2}``.
+
+    Initializes the default process group (``backend``, world size the
+    mesh's, ``rank`` with ``init_method`` or ``store``) unless one is up, in
+    which case its backend and world size must match. Then every rank
+    builds every axis's groups, and the batch axes' together, in one order.
+
+    ``backend="nccl"`` (the default) runs one card per rank, rank r on
+    ``cuda:r``, and raises when there are more ranks than cards.
+    ``backend="gloo"`` runs on ``device`` (the CPU tests pass "cpu"; left
+    None, the current CUDA card, which every rank then shares)."""
+    n = math.prod(axis_sizes.values())
+    if backend == "nccl":
+        count = torch.cuda.device_count()
+        if n > count:
+            raise ValueError(
+                f"backend='nccl' runs one card per rank: {n} ranks, {count} "
+                f"card(s); pass backend='gloo' to share cards through the "
+                f"host")
+    elif backend != "gloo":
+        raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
+    if not dist.is_initialized():
+        if rank is None:
+            raise ValueError("no process group is up: pass rank and "
+                             "init_method or store")
+        if backend == "nccl":      # NCCL binds a rank to its card at init
+            torch.cuda.set_device(rank)
+        dist.init_process_group(backend, init_method=init_method, store=store,
+                                rank=rank, world_size=n)
+    if dist.get_world_size() != n:
+        raise ValueError(f"mesh {axis_sizes} needs {n} ranks, the process "
+                         f"group has {dist.get_world_size()}")
+    if dist.get_backend() != backend:
+        raise ValueError(f"the process group runs {dist.get_backend()}, "
+                         f"the mesh asks for {backend}")
+    from .workload import resolve_device   # workload imports this module
+    rank = dist.get_rank()
+    if backend == "nccl":
+        if device is not None and torch.device(device) != torch.device(
+                "cuda", rank):
+            raise ValueError(f"backend='nccl' puts rank {rank} on cuda:{rank}, "
+                             f"not {device}")
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+    else:
+        device = resolve_device(device)
+    shape = dict(axis_sizes)
+    sizes = tuple(shape.values())
+    names_list = [(a,) for a in shape]
+    batch = tuple(a for a in BATCH_AXES if a in shape)
+    if len(batch) > 1:
+        names_list.append(batch)
+    groups = {}
+    for names in names_list:
+        # every rank creates every group of this axis, in one order
+        others = [a for a in shape if a not in names]
+        for fixed in itertools.product(*(range(shape[a]) for a in others)):
+            coord = dict(zip(others, fixed), **{a: 0 for a in names})
+            ranks = list(_group_ranks(shape, coord, names))
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                groups[names] = group
+    return Mesh(shape, rank, device, groups)
+
+
+def build_mesh(n_devices: int, axis_names: Tuple[str, str] = ("dp", "tp"),
+               **kwargs) -> Mesh:
+    """A dp×tp mesh of ``n_devices`` ranks, factored by :func:`factor_mesh`;
+    ``kwargs`` go to :func:`build_named_mesh`."""
+    dp, tp = factor_mesh(n_devices)
+    return build_named_mesh({axis_names[0]: dp, axis_names[1]: tp}, **kwargs)
+
+
+def mesh_from_slice_shape(shape: Tuple[int, ...], **kwargs) -> Mesh:
+    """The mesh of a scheduled slice shape, e.g. (2, 2, 1) -> 4 ranks as
+    dp×tp with tp within hosts."""
+    return build_mesh(math.prod(shape), **kwargs)
+
+
+def _launched(rank: int, fn: Callable, axis_sizes: Dict[str, int], args,
+              backend: str, device, workdir: str) -> None:
+    store = dist.FileStore(os.path.join(workdir, "store"),
+                           math.prod(axis_sizes.values()))
+    mesh = build_named_mesh(axis_sizes, backend, device, rank=rank,
+                            store=store)
+    try:
+        out = fn(mesh, *args)
+        with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def launch(fn: Callable, axis_sizes: Dict[str, int], *args,
+           backend: str = "nccl", device=None,
+           workdir: Optional[str] = None) -> List:
+    """Run ``fn(mesh, *args)`` on every rank of a new mesh, one spawned
+    process a rank, and return the ranks' results in rank order. The ranks
+    meet through a ``FileStore`` in a new temporary directory under
+    ``workdir`` (the system's when None), so no port is opened, and pass
+    their results back through it; ``backend`` and ``device``
+    go to :func:`build_named_mesh`. ``fn`` must be importable (a module's
+    top-level function) and its result picklable. A rank that raises ends
+    the launch, and the exception is raised here."""
+    n = math.prod(axis_sizes.values())
+    with tempfile.TemporaryDirectory(dir=workdir) as d:
+        mp.spawn(_launched, args=(fn, dict(axis_sizes), args, backend, device,
+                                  d), nprocs=n, join=True)
+        out = []
+        for r in range(n):
+            with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+    return out
+
+
+def slice_assignment(pods) -> "list[tuple[tuple[int, ...], str]]":
+    """The scheduler's slice placement from bound gang pods: a sorted list
+    of (chip coordinate, node name) from the TopologyMatch coordinate
+    annotations. Reads ``pod.meta.annotations`` and ``pod.spec.node_name``
+    only."""
+    out = []
+    for p in pods:
+        ann = p.meta.annotations.get(COORD_ANNOTATION)
+        if ann and p.spec.node_name:
+            out.append((parse_coord(ann), p.spec.node_name))
+    return sorted(out)
+
+
+# -- collectives on an axis ------------------------------------------------------
+
+
+def _live(axis: Optional[Axis]) -> bool:
+    if axis is None or axis.size == 1:
+        return False
+    if axis.group is None:
+        raise RuntimeError(f"axis {axis.name!r} of size {axis.size} has no "
+                           f"process group: build the mesh with "
+                           f"build_named_mesh")
+    return True
+
+
+def all_reduce(x: torch.Tensor, axis: Optional[Axis],
+               op: str = "sum") -> torch.Tensor:
+    """The sum (or ``op="max"``) of ``x`` over ``axis``, as a new tensor.
+    A floating tensor narrower than float32 is summed in float32 and
+    rounded once at the end."""
+    if not _live(axis):
+        return x
+    wide = x.is_floating_point() and x.element_size() < 4
+    out = x.float() if wide else x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
+                    else dist.ReduceOp.SUM, group=axis.group)
+    return out.to(x.dtype) if wide else out
+
+
+def all_gather(x: torch.Tensor, axis: Optional[Axis],
+               dim: int = -1) -> torch.Tensor:
+    """The chunks of ``x`` of every rank of ``axis`` concatenated along
+    ``dim`` in index order. Written as the sum of zero-padded buffers (each
+    rank's chunk in its own place), which is exact and which every backend
+    reduces, CUDA tensors under gloo included."""
+    if not _live(axis):
+        return x
+    dim = dim % x.dim()
+    n = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = n * axis.size
+    buf = x.new_zeros(shape)
+    buf.narrow(dim, axis.index * n, n).copy_(x)
+    dist.all_reduce(buf, group=axis.group)
+    return buf
+
+
+def broadcast(x: torch.Tensor, axis: Optional[Axis],
+              index: int = 0) -> torch.Tensor:
+    """``x`` of the rank at ``index`` along ``axis``, written into ``x`` in
+    place on every rank of the axis."""
+    if _live(axis):
+        dist.broadcast(x, src=axis.ranks[index], group=axis.group)
+    return x
+
+
+def local_chunk(x: torch.Tensor, axis: Optional[Axis],
+                dim: int = -1) -> torch.Tensor:
+    """This rank's chunk of ``x`` along ``dim``: ``size`` equal chunks."""
+    if axis is None or axis.size == 1:
+        return x
+    n = x.shape[dim]
+    if n % axis.size:
+        raise ValueError(f"dim of {n} does not split over {axis.name} of "
+                         f"{axis.size}")
+    return x.narrow(dim % x.dim(), axis.index * (n // axis.size),
+                    n // axis.size)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axis), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return all_gather(x, axis, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return local_chunk(g, ctx.axis, -1).contiguous(), None
+
+
+class _ScatterLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return local_chunk(x, axis, -1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.axis, -1), None
+
+
+def copy_to(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """In front of a column-parallel product: the identity forward, the sum
+    of the ranks' partial gradients over ``axis`` backward."""
+    return _CopyTo.apply(x, axis) if _live(axis) else x
+
+
+def reduce_from(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """After a row-parallel product: the sum of the ranks' partial outputs
+    over ``axis`` forward (:func:`all_reduce`), the identity backward."""
+    return _ReduceFrom.apply(x, axis) if _live(axis) else x
+
+
+def gather_last(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """The ranks' chunks of the last dim joined forward; this rank's chunk
+    of the gradient backward."""
+    return _GatherLast.apply(x, axis) if _live(axis) else x
+
+
+def scatter_last(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """This rank's chunk of the last dim of a replicated ``x`` forward; the
+    ranks' gradient chunks joined backward."""
+    return _ScatterLast.apply(x, axis) if _live(axis) else x

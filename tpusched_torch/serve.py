@@ -22,6 +22,12 @@ request's key and absolute row (``decode.keyed_sample``), so a sampled
 request's tokens do not depend on its neighbours; sampled speculation
 needs it.
 
+With ``mesh`` the engine serves tensor-parallel, SPMD: every rank of the
+mesh builds the same engine from the full weights, keeps its shard of them
+(``workload.shard_params``) and its kv_heads/tp of the arena, and runs the
+same ``submit``/``tick`` sequence; each host decision (a sampled token, a
+speculative round's proposals and outcome) is tp rank 0's, broadcast.
+
 Pad keys land at positions >= the prompt's true length, which the causal
 cursor masks until the decode step overwrites them. Idle slots decode
 garbage at their stale cursor; the host discards it.
@@ -41,8 +47,10 @@ from .decode import (KVCache, cache_update, decode_step, draft_rollout,
                      keyed_categorical, keyed_sample, prefill,
                      probs_from_adjusted, sample_token,
                      sampling_draft_rollout, score_span, upload_pos)
+from .mesh import broadcast
 from .spec_decode import accept_span, round_uniforms
-from .workload import ModelConfig, Params, resolve_device
+from .workload import (ModelConfig, Params, check_mesh_axes, resolve_device,
+                       shard_params)
 
 
 @dataclasses.dataclass
@@ -75,12 +83,13 @@ def _slot_view(cache: KVCache, slot: int) -> KVCache:
 
 
 def _prefill_slot(params: Params, cache: KVCache, prompt: torch.Tensor,
-                  slot: int, true_len: int,
-                  cfg: ModelConfig) -> torch.Tensor:
+                  slot: int, true_len: int, cfg: ModelConfig,
+                  tp=None) -> torch.Tensor:
     """Prefill one padded prompt (bucket,) into ``slot``'s rows with the
     configured attention; returns the next-token logits (vocab,) of the
     last real prompt position."""
-    logits, _ = prefill(params, _slot_view(cache, slot), prompt[None], cfg)
+    logits, _ = prefill(params, _slot_view(cache, slot), prompt[None], cfg,
+                        tp)
     return logits[0, true_len - 1]
 
 
@@ -97,7 +106,9 @@ class ServeEngine:
     int ``seed`` stands for the reference's ``PRNGKey(seed)``). With
     ``draft_params``/``draft_cfg`` every tick is a speculative round of
     ``spec_k`` proposals. Runs on the CUDA card unless ``device="cpu"``;
-    ``params`` and ``draft_params`` must already be there."""
+    ``params`` and ``draft_params`` must already be there. With ``mesh``
+    (axes in slice, dp, tp; see the module docstring) it runs on
+    ``mesh.device`` and takes the full weights from anywhere."""
 
     def __init__(self, params: Params, cfg: ModelConfig, *,
                  slots: int = 8, max_seq: int = 1024,
@@ -110,11 +121,16 @@ class ServeEngine:
                  draft_cfg: Optional[ModelConfig] = None,
                  spec_k: int = 4, device=None):
         if mesh is not None:
-            raise _not_ported("tensor-parallel serving (mesh)",
-                              "tp serving, then dp/fsdp/tp")
+            check_mesh_axes(mesh)
+            if (device is not None and mesh.device is not None
+                    and resolve_device(device) != mesh.device):
+                raise ValueError(f"the mesh runs on {mesh.device}, not "
+                                 f"{device}")
+            device = mesh.device if mesh.device is not None else device
         self.device = resolve_device(device)
         for what, tree in (("params", params), ("draft_params", draft_params)):
-            if tree is not None and tree["embed"].device != self.device:
+            if (mesh is None and tree is not None
+                    and tree["embed"].device != self.device):
                 raise ValueError(f"{what} are on {tree['embed'].device}, "
                                  f"the engine runs on {self.device}")
         buckets = ((prompt_bucket,) if isinstance(prompt_bucket, int)
@@ -138,6 +154,15 @@ class ServeEngine:
         if self.request_keyed and temperature == 0.0:
             raise ValueError("request_keyed sampling needs temperature > 0 "
                              "(greedy consumes no randomness)")
+        self._tp = mesh.tp if mesh is not None else None
+        tp = self._tp.size if self._tp is not None else 1
+        if mesh is not None:
+            if cfg.kv_heads % tp:
+                raise ValueError(
+                    f"kv_heads {cfg.kv_heads} not divisible by tp {tp}")
+            if cfg.vocab_parallel_loss:
+                raise ValueError("serving samples over full logits; use a "
+                                 "cfg with vocab_parallel_loss=False")
         if draft_params is None and draft_cfg is not None:
             raise ValueError("draft_cfg without draft_params: the engine "
                              "would silently run plain, not speculative")
@@ -156,7 +181,8 @@ class ServeEngine:
             if chunk_prefill is not None:
                 raise ValueError("speculative serving composes with "
                                  "monolithic admission only (no "
-                                 "chunk_prefill) in this version")
+                                 "chunk_prefill) in this version; a "
+                                 "tensor-parallel mesh is supported")
             if spec_k < 1:
                 raise ValueError("spec_k must be >= 1")
             # a verify span writes spec_k + 1 rows past the last accepted
@@ -174,6 +200,10 @@ class ServeEngine:
                     f"admitted")
             if draft_cfg.kv_cache_dtype is not None:
                 raise ValueError("draft cache must be exact")
+            if mesh is not None and draft_cfg.kv_heads % tp:
+                raise ValueError(
+                    f"draft kv_heads {draft_cfg.kv_heads} not "
+                    f"divisible by tp {tp}")
         if chunk_prefill is not None:
             if chunk_prefill < 1:
                 raise ValueError("chunk_prefill must be >= 1")
@@ -185,6 +215,10 @@ class ServeEngine:
                     f"chunk_prefill={chunk_prefill}: a {buckets[-1]}-token "
                     f"prompt's chunk-aligned writes span {worst} rows > "
                     f"max_seq {max_seq}")
+        if mesh is not None:
+            params = shard_params(params, cfg, mesh)
+            if draft_params is not None:
+                draft_params = shard_params(draft_params, draft_cfg, mesh)
         self.params = params
         self.cfg = cfg
         self.slots = slots
@@ -204,14 +238,14 @@ class ServeEngine:
         # discarded
         self.slot_key = [fold_in(self._key, (1 << 31) + s)
                          for s in range(slots)]
-        self.cache = init_kv_cache(cfg, slots, max_seq, device=self.device)
+        self.cache = init_kv_cache(cfg, slots, max_seq, self.device, self._tp)
         self.draft_params = draft_params
         self.draft_cfg = draft_cfg
         self.spec_k = spec_k
         self.spec_stats = {"rounds": 0, "drafted": 0, "accepted": 0}
         if draft_params is not None:
             self.draft_cache = init_kv_cache(draft_cfg, slots, max_seq,
-                                             device=self.device)
+                                             self.device, self._tp)
         # host-side slot state
         self.pos = np.zeros(slots, dtype=np.int64)       # next write position
         self.next_tok = np.zeros(slots, dtype=np.int64)  # last sampled token
@@ -254,8 +288,9 @@ class ServeEngine:
         # the K/V through the configured attention (the flash kernel for
         # attn="flash") at rotary positions 0..p-1: a prefix always takes a
         # slot's leading rows. Exact: the engine refuses int8 with chunking
-        kv = prefill(self.params, init_kv_cache(self.cfg, 1, p, self.device),
-                     tokens[None], self.cfg)[1]
+        kv = prefill(self.params,
+                     init_kv_cache(self.cfg, 1, p, self.device, self._tp),
+                     tokens[None], self.cfg, self._tp)[1]
         self._prefixes[prefix_id] = {"len": p, "kv": kv}
 
     def submit(self, req: Request) -> None:
@@ -370,7 +405,7 @@ class ServeEngine:
             padded[:true_len] = req.prompt
             padded = torch.from_numpy(padded).to(self.device)
             first_logits = _prefill_slot(self.params, self.cache, padded,
-                                         slot, true_len, self.cfg)
+                                         slot, true_len, self.cfg, self._tp)
             self.prefills += 1
             tok = self._first_token(req.rid, first_logits, true_len, slot)
             self.slot_prefix[slot] = 0
@@ -384,7 +419,7 @@ class ServeEngine:
                 # finish check: a request done at admission never reaches a
                 # speculative round
                 _prefill_slot(self.draft_params, self.draft_cache, padded,
-                              slot, true_len, self.draft_cfg)
+                              slot, true_len, self.draft_cfg, self._tp)
                 self.draft_prefills += 1
 
     def _advance_prefills(self) -> None:
@@ -408,7 +443,8 @@ class ServeEngine:
             # program
             logits, _ = score_span(
                 self.params, _slot_view(self.cache, slot),
-                torch.from_numpy(chunk).to(self.device)[None], off, self.cfg)
+                torch.from_numpy(chunk).to(self.device)[None], off, self.cfg,
+                self._tp)
             next_logits = logits[0, n - 1]     # the last real row
             off += n
             if off < true_len:
@@ -420,9 +456,22 @@ class ServeEngine:
             self.generated[slot] = [tok]
             self._maybe_finish(slot)
 
+    def _agree(self, x):
+        """Under tp, tp rank 0's ``x`` on every rank: a device tensor is
+        broadcast in place, a host array comes back as int64. Every host
+        decision of a tick passes through here, so the ranks' engines
+        never diverge."""
+        if self._tp is None or self._tp.size == 1:
+            return x
+        if isinstance(x, torch.Tensor):
+            return broadcast(x, self._tp)
+        t = torch.as_tensor(np.asarray(x, dtype=np.int64), device=self.device)
+        return broadcast(t, self._tp).cpu().numpy()
+
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
-        return sample_token(logits, self.generator, self.temperature,
-                            self.top_k, self.top_p).cpu().numpy()
+        return self._agree(sample_token(logits, self.generator,
+                                        self.temperature, self.top_k,
+                                        self.top_p)).cpu().numpy()
 
     def _first_token(self, rid: int, logits_row: torch.Tensor, row: int,
                      slot: int) -> int:
@@ -430,10 +479,9 @@ class ServeEngine:
         A request-keyed draw binds the tenant's key to the slot here."""
         if self.request_keyed:
             self.slot_key[slot] = fold_in(self._key, rid)
-            return int(keyed_sample(logits_row[None, :],
-                                    [self.slot_key[slot]], [row],
-                                    self.temperature, self.top_k,
-                                    self.top_p)[0])
+            return int(self._agree(keyed_sample(
+                logits_row[None, :], [self.slot_key[slot]], [row],
+                self.temperature, self.top_k, self.top_p))[0])
         return int(self._sample(logits_row[None, :])[0])
 
     def _maybe_finish(self, slot: int) -> None:
@@ -507,12 +555,13 @@ class ServeEngine:
             np.stack([self.prev_tok, self.next_tok], axis=1)).to(self.device)
         proposals_dev, _ = draft_rollout(self.draft_params, self.draft_cache,
                                          feed2, pos_dev - 1, self.draft_cfg,
-                                         k)
+                                         k, self._tp)
+        proposals_dev = self._agree(proposals_dev)
         proposals = proposals_dev.cpu().numpy()              # (slots, k)
         scored = torch.cat([feed2[:, 1:], proposals_dev], dim=1)
         logits, _ = score_span(self.params, self.cache, scored, pos_dev,
-                               self.cfg)
-        t_arg = torch.argmax(logits, dim=-1).cpu().numpy()   # (slots, k+1)
+                               self.cfg, self._tp)
+        t_arg = self._agree(torch.argmax(logits, dim=-1)).cpu().numpy()
         self._count_round()
         for s in active:
             span = proposals[s]
@@ -537,15 +586,18 @@ class ServeEngine:
         proposals, p_mat, _ = sampling_draft_rollout(
             self.draft_params, self.draft_cache, feed2, pos - 1,
             self.draft_cfg, k, self.slot_key, self.temperature, self.top_k,
-            self.top_p)
+            self.top_p, self._tp)
+        proposals = self._agree(proposals)
         scored = torch.cat([feed2[:, 1:],
                             torch.from_numpy(proposals).to(self.device)],
                            dim=1)
         logits, _ = score_span(self.params, self.cache, scored, pos_dev,
-                               self.cfg)
+                               self.cfg, self._tp)
         adj = host_adjusted_logits(logits, self.temperature, self.top_k,
                                    self.top_p)               # (slots, k+1, V)
         self._count_round()
+        # per slot: n_ok, then the emitted tokens (-1 past their end)
+        outcome = np.full((self.slots, k + 2), -1, dtype=np.int64)
         for s in active:
             key, span = self.slot_key[s], proposals[s]
             n_ok, rejection = accept_span(
@@ -556,7 +608,12 @@ class ServeEngine:
                     adj[s, k], key, int(pos[s]) + k + 1)]
             else:
                 emitted = [int(t) for t in span[:n_ok]] + [rejection]
-            self._emit(s, span, n_ok, emitted)
+            outcome[s, 0] = n_ok
+            outcome[s, 1:1 + len(emitted)] = emitted
+        outcome = self._agree(outcome)
+        for s in active:
+            emitted = [int(t) for t in outcome[s, 1:] if t >= 0]
+            self._emit(s, proposals[s], int(outcome[s, 0]), emitted)
 
     @torch.no_grad()
     def tick(self) -> int:
@@ -583,7 +640,7 @@ class ServeEngine:
         logits, _ = decode_step(
             self.params, self.cache,
             torch.from_numpy(self.next_tok).to(self.device),
-            torch.from_numpy(self.pos).to(self.device), self.cfg)
+            torch.from_numpy(self.pos).to(self.device), self.cfg, self._tp)
         if self.request_keyed:
             # the token drawn now occupies row pos + 1 of its slot, the row
             # the solo position-keyed sampler keys
@@ -592,6 +649,7 @@ class ServeEngine:
                 logits[active], [self.slot_key[s] for s in active],
                 self.pos[active] + 1, self.temperature, self.top_k,
                 self.top_p)
+            toks = self._agree(toks)
         else:
             toks = self._sample(logits)
         self.tick_count += 1

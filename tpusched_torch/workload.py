@@ -9,8 +9,15 @@ used as ``h @ W``; an MoE layer (``n_experts > 0``) holds an f32 ``router``
 thin ``nn.Module`` owning those tensors so ``.to()`` and ``state_dict()``
 work. Training: ``loss_fn``, ``value_and_grad`` (autograd over the dict's
 tensors), ``sgd_train_step``, and ``make_optax_train_step``/
-``make_accum_train_step`` around an optimizer from ``optim``; sharded steps
-wait for the parallelism slice.
+``make_accum_train_step`` around an optimizer from ``optim``.
+
+Tensor and data parallelism (``mesh``): ``param_specs`` gives each leaf the
+reference's partition spec, ``shard_params`` cuts this rank's slice, and the
+forward, decode and loss take the tp axis (``tp=``) and run one code path
+for tp = 1 and tp > 1, with head counts read from the shard's weights and
+the collectives of :mod:`.mesh` after the row-parallel products. The three
+train steps take meshes whose axes are in {slice, dp, tp}; an fsdp, sp, ep
+or pp axis raises until its ROADMAP item is ported.
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no explicit device it raises.
@@ -27,6 +34,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import attention
+from .mesh import (BATCH_AXES, Axis, Mesh, all_reduce, copy_to, gather_last,
+                   local_chunk, reduce_from, scatter_last)
+from .mesh import all_gather as mesh_all_gather
 
 Params = Dict[str, Any]
 
@@ -241,13 +251,16 @@ def _rotary(x: torch.Tensor, pos_offset=0) -> torch.Tensor:
 
 
 def _qkv(h: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
-         pos_offset=0):
-    """Projections and rotary; K/V carry ``cfg.kv_heads`` heads (GQA)."""
+         pos_offset=0, tp: Optional[Axis] = None):
+    """Projections and rotary (GQA). The head counts are the weights': all
+    of ``cfg``'s, or this rank's share of them under tp (the projections
+    are column-parallel)."""
     b, s, _ = h.shape
     hd = cfg.head_dim
-    q = _rotary((h @ p["wq"]).reshape(b, s, cfg.n_heads, hd), pos_offset)
-    k = _rotary((h @ p["wk"]).reshape(b, s, cfg.kv_heads, hd), pos_offset)
-    v = (h @ p["wv"]).reshape(b, s, cfg.kv_heads, hd)
+    h = copy_to(h, tp)
+    q = _rotary((h @ p["wq"]).reshape(b, s, -1, hd), pos_offset)
+    k = _rotary((h @ p["wk"]).reshape(b, s, -1, hd), pos_offset)
+    v = (h @ p["wv"]).reshape(b, s, -1, hd)
     return q, k, v
 
 
@@ -273,15 +286,21 @@ def _router_gates(x: torch.Tensor, p: Dict[str, torch.Tensor],
     return probs, gate / gate.sum(dim=-1, keepdim=True), idx
 
 
-def _moe_mlp(h: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_mlp(h: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
+             tp: Optional[Axis] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k MoE with capacity dispatch (training): positions in each expert
     from an f32 cumsum over the k-major slots, so every top-1 slot claims
     capacity before any top-2 slot; a slot past capacity is dropped (its
     token keeps the residual only). One-hot dispatch and combine einsums in
     f32, the experts as batched (E, C, d) x (E, d, f) products in
     ``cfg.dtype``. Returns (out, aux), aux the switch load-balance loss
-    E·Σ f_e·P_e with f_e from the top-1 choices."""
+    E·Σ f_e·P_e with f_e from the top-1 choices.
+
+    Under tp the expert stacks are sharded on d_ff, so each rank's expert
+    outputs are partial sums: the routing is replicated, the expert input
+    and the gates enter the rank-local products through ``copy_to`` (their
+    gradients, the router's included, are summed over tp) and the combined
+    f32 output is summed over tp before its cast."""
     b, s, d = h.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     n = b * s
@@ -298,14 +317,15 @@ def _moe_mlp(h: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig
         cap, device=h.device)).float()
     dispatch = (flat * keep[:, None])[:, :, None] * cap_onehot[:, None, :]
     x_rep = x.repeat(k, 1)                                 # k-major copies
-    expert_in = torch.einsum("tec,td->ecd", dispatch,
-                             x_rep.float()).to(cfg.dtype)
+    expert_in = copy_to(torch.einsum("tec,td->ecd", dispatch,
+                                     x_rep.float()).to(cfg.dtype), tp)
     g = torch.einsum("ecd,edf->ecf", expert_in, p["w_gate"])
     u = torch.einsum("ecd,edf->ecf", expert_in, p["w_up"])
     out_e = torch.einsum("ecf,efd->ecd", F.silu(g) * u, p["w_down"])
-    combine = dispatch * gate_flat[:, None, None]
+    combine = dispatch * copy_to(gate_flat, tp)[:, None, None]
     out = torch.einsum("ecd,tec->td", out_e.float(), combine)
-    out = out.reshape(k, n, d).sum(dim=0).reshape(b, s, d).to(h.dtype)
+    out = reduce_from(out.reshape(k, n, d).sum(dim=0), tp)
+    out = out.reshape(b, s, d).to(h.dtype)
 
     f_e = F.one_hot(idx[:, 0], e).float().mean(dim=0)
     aux = e * (f_e * probs.mean(dim=0)).sum()
@@ -313,52 +333,61 @@ def _moe_mlp(h: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig
 
 
 def _moe_mlp_dropless(h: torch.Tensor, p: Dict[str, torch.Tensor],
-                      cfg: ModelConfig) -> Tuple[torch.Tensor, float]:
+                      cfg: ModelConfig, tp: Optional[Axis] = None
+                      ) -> Tuple[torch.Tensor, float]:
     """Inference MoE: every expert runs on every token and the top-k gates,
     scattered into an (n, E) f32 weight, combine them, so a token's output
     depends on that token alone (what a KV-cache decode of one token must
-    reproduce from the prefill). Returns (out, 0.0)."""
+    reproduce from the prefill). Returns (out, 0.0). Under tp as
+    :func:`_moe_mlp`."""
     b, s, d = h.shape
     x = h.reshape(b * s, d)
     _, gate, idx = _router_gates(x, p, cfg)
     w = torch.zeros(b * s, cfg.n_experts, dtype=torch.float32,
                     device=h.device).scatter(1, idx, gate)
-    xc = x.to(cfg.dtype)
+    xc = copy_to(x.to(cfg.dtype), tp)
     g = torch.einsum("nd,edf->enf", xc, p["w_gate"])
     u = torch.einsum("nd,edf->enf", xc, p["w_up"])
     oe = torch.einsum("enf,efd->end", F.silu(g) * u, p["w_down"])
-    out = torch.einsum("end,ne->nd", oe.float(), w)
+    out = reduce_from(torch.einsum("end,ne->nd", oe.float(), copy_to(w, tp)),
+                      tp)
     return out.reshape(b, s, d).to(h.dtype), 0.0
 
 
 def _mlp(h: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
-         dropless: bool = False):
+         dropless: bool = False, tp: Optional[Axis] = None):
     """SwiGLU MLP, dense or MoE by config. Returns (out, aux); aux is 0.0
-    but for the MoE capacity path."""
+    but for the MoE capacity path. Under tp w_gate/w_up are column- and
+    w_down row-parallel."""
     if cfg.n_experts:
         if dropless:
-            return _moe_mlp_dropless(h, p, cfg)
-        return _moe_mlp(h, p, cfg)
-    return (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"], 0.0
+            return _moe_mlp_dropless(h, p, cfg, tp)
+        return _moe_mlp(h, p, cfg, tp)
+    h = copy_to(h, tp)
+    out = (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
+    return reduce_from(out, tp), 0.0
 
 
 def _finish_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
-                  o: torch.Tensor, cfg: ModelConfig, dropless: bool = False):
+                  o: torch.Tensor, cfg: ModelConfig, dropless: bool = False,
+                  tp: Optional[Axis] = None):
     """Residual and MLP tail, shared by the forward and the decode path;
-    ``dropless`` selects the inference MoE routing. Returns (x, aux)."""
-    b, s, d = x.shape
-    x = x + o.reshape(b, s, d) @ p["wo"]
-    out, aux = _mlp(_rmsnorm(x, p["ln_mlp"]), p, cfg, dropless)
+    ``dropless`` selects the inference MoE routing. ``o`` holds this rank's
+    heads under tp (wo is row-parallel). Returns (x, aux)."""
+    b, s, _ = x.shape
+    x = x + reduce_from(o.reshape(b, s, -1) @ p["wo"], tp)
+    out, aux = _mlp(_rmsnorm(x, p["ln_mlp"]), p, cfg, dropless, tp)
     return x + out, aux
 
 
 def _block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
-           attn_fn: Optional[Callable] = None, dropless: bool = False):
+           attn_fn: Optional[Callable] = None, dropless: bool = False,
+           tp: Optional[Axis] = None):
     h = _rmsnorm(x, p["ln_attn"])
-    q, k, v = _qkv(h, p, cfg)
+    q, k, v = _qkv(h, p, cfg, tp=tp)
     if attn_fn is None:
         attn_fn = attention.naive_attention
-    return _finish_block(x, p, attn_fn(q, k, v), cfg, dropless)
+    return _finish_block(x, p, attn_fn(q, k, v), cfg, dropless, tp)
 
 
 def _resolve_attn_fn(cfg: ModelConfig, attn_fn: Optional[Callable] = None):
@@ -369,28 +398,47 @@ def _resolve_attn_fn(cfg: ModelConfig, attn_fn: Optional[Callable] = None):
     return attention.naive_attention
 
 
+def embed(params: Params, tokens: torch.Tensor,
+          tp: Optional[Axis] = None) -> torch.Tensor:
+    """The token embeddings (b, s, d); under tp each rank holds d/tp of the
+    columns and the rows are joined across tp."""
+    return gather_last(params["embed"][tokens], tp)
+
+
+def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig,
+            tp: Optional[Axis] = None) -> torch.Tensor:
+    """Logits of the final hidden states ``x`` (already normed). Under tp
+    ``out`` is row-parallel and the logits are summed over tp, or, with
+    ``cfg.vocab_parallel_loss``, column-parallel and each rank keeps its
+    vocab/tp of them (for :func:`_cross_entropy` with ``vocab_axis``)."""
+    if cfg.vocab_parallel_loss:
+        return copy_to(x, tp) @ params["out"]
+    return reduce_from(scatter_last(x, tp) @ params["out"], tp)
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             attn_fn: Optional[Callable] = None, with_aux: bool = False,
-            dropless: bool = False):
+            dropless: bool = False, tp: Optional[Axis] = None):
     """Logits (b, s, vocab) for tokens (b, s), and with ``with_aux`` also
     the MoE aux loss summed over layers (an f32 scalar, 0 for a dense
     model). ``dropless`` routes MoE layers as inference does. With
     ``cfg.remat`` and gradients on, each block is checkpointed: its
     activations are dropped after the forward and recomputed in the
     backward, as under the reference's ``jax.checkpoint`` (so flash
-    attention's forward kernel runs twice per layer and step)."""
+    attention's forward kernel runs twice per layer and step). ``tp``: the
+    tensor-parallel axis of sharded ``params`` (``shard_params``)."""
     attn_fn = _resolve_attn_fn(cfg, attn_fn)
     remat = cfg.remat and torch.is_grad_enabled()
-    x = params["embed"][tokens]
+    x = embed(params, tokens, tp)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params["layers"]:
         if remat:
-            x, aux = checkpoint(_block, x, layer, cfg, attn_fn, dropless,
+            x, aux = checkpoint(_block, x, layer, cfg, attn_fn, dropless, tp,
                                 use_reentrant=False)
         else:
-            x, aux = _block(x, layer, cfg, attn_fn, dropless)
+            x, aux = _block(x, layer, cfg, attn_fn, dropless, tp)
         aux_total = aux_total + aux
-    logits = _rmsnorm(x, params["ln_f"]) @ params["out"]
+    logits = unembed(params, _rmsnorm(x, params["ln_f"]), cfg, tp)
     return (logits, aux_total) if with_aux else logits
 
 
@@ -431,33 +479,54 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 
 
 def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                   vocab_spec: Optional[Any] = None) -> torch.Tensor:
-    """Token-mean NLL: f32 log-softmax, the target's entry, the mean."""
-    if vocab_spec is not None:
-        raise NotImplementedError(
-            "the vocab-parallel loss needs a tp mesh: ROADMAP 'Parallelism'")
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, targets[..., None]).mean()
+                   vocab_axis: Optional[Axis] = None) -> torch.Tensor:
+    """Token-mean NLL: f32 log-softmax, the target's entry, the mean. With
+    ``vocab_axis`` the logits are this rank's vocab/tp columns and the loss
+    takes the logsumexp form over the sharded vocabulary, as the
+    reference's: the max and the sum of exponentials are reduced over the
+    axis, and the target's logit comes from the rank that holds it (the
+    full logits are never gathered)."""
+    logits = logits.float()
+    if vocab_axis is None or vocab_axis.size == 1:
+        logp = torch.log_softmax(logits, dim=-1)
+        return -logp.gather(-1, targets[..., None]).mean()
+    m = all_reduce(logits.detach().amax(dim=-1, keepdim=True), vocab_axis,
+                   "max")
+    lse = torch.log(reduce_from(torch.exp(logits - m).sum(dim=-1),
+                                vocab_axis)) + m[..., 0]
+    v = logits.shape[-1]
+    local = targets - vocab_axis.index * v
+    mine = (local >= 0) & (local < v)
+    picked = logits.gather(-1, local.clamp(0, v - 1)[..., None])[..., 0]
+    target_logit = reduce_from(torch.where(mine, picked, 0.0), vocab_axis)
+    return (lse - target_logit).mean()
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-            attn_fn: Optional[Callable] = None) -> torch.Tensor:
+            attn_fn: Optional[Callable] = None,
+            tp: Optional[Axis] = None) -> torch.Tensor:
     """Next-token loss over the full sequence's logits plus
     ``cfg.moe_aux_weight`` times the MoE aux loss (0 for a dense model),
-    through the compute-dtype cast (so master-dtype gradients come back)."""
+    through the compute-dtype cast (so master-dtype gradients come back).
+    With ``cfg.vocab_parallel_loss`` under tp, the vocab-parallel form."""
     params = cast_params_for_compute(params, cfg)
-    logits, aux = forward(params, tokens, cfg, attn_fn, with_aux=True)
-    return (_cross_entropy(logits[:, :-1], tokens[:, 1:])
+    logits, aux = forward(params, tokens, cfg, attn_fn, with_aux=True, tp=tp)
+    vocab_axis = tp if cfg.vocab_parallel_loss else None
+    return (_cross_entropy(logits[:, :-1], tokens[:, 1:], vocab_axis)
             + cfg.moe_aux_weight * aux)
 
 
 def value_and_grad(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                   attn_fn: Optional[Callable] = None):
+                   attn_fn: Optional[Callable] = None,
+                   tp: Optional[Axis] = None):
     """(loss, grads) of :func:`loss_fn`, grads in the parameter tree's
-    structure and dtypes; ``params`` themselves are left untouched."""
+    structure and dtypes; ``params`` themselves are left untouched. Under
+    tp the grads are this rank's shards' and every replicated leaf's full
+    gradient."""
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     it = iter(leaves)
-    loss = loss_fn(tree_map(lambda _: next(it), params), tokens, cfg, attn_fn)
+    loss = loss_fn(tree_map(lambda _: next(it), params), tokens, cfg, attn_fn,
+                   tp)
     grads = iter(torch.autograd.grad(loss, leaves))
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
@@ -470,50 +539,201 @@ def sgd_train_step(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     return new, loss
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded train steps are not ported yet: ROADMAP 'Parallelism'")
+# -- shardings -------------------------------------------------------------------
+#
+# Axis conventions, as the reference's (any subset may be on the mesh):
+# slice and dp (and fsdp) shard the batch, tp the model. The port runs slice,
+# dp and tp; an fsdp, sp, ep or pp axis raises until its ROADMAP item lands.
+
+PORTED_AXES = ("slice", "dp", "tp")
+NOT_PORTED_AXES = ("fsdp", "sp", "ep", "pp")
 
 
-def make_optax_train_step(mesh, cfg: ModelConfig, tx):
+def check_mesh_axes(mesh: Optional[Mesh]) -> None:
+    """Raise for an axis the port does not run yet (NotImplementedError,
+    naming ROADMAP) or does not know (ValueError)."""
+    for a in () if mesh is None else mesh.axis_names:
+        if a in NOT_PORTED_AXES:
+            raise NotImplementedError(
+                f"the {a!r} mesh axis is not ported yet: ROADMAP "
+                f"'Parallelism' (Queue 1 item 3: fsdp, then sp ring and "
+                f"ring-flash, ep, pp)")
+        if a not in PORTED_AXES:
+            raise ValueError(f"unknown mesh axis {a!r}")
+
+
+def batch_axes(mesh: Mesh) -> Tuple[str, ...]:
+    return tuple(a for a in BATCH_AXES if a in mesh.axis_names)
+
+
+def param_specs(cfg: ModelConfig, mesh: Mesh) -> Params:
+    """Per leaf, the tuple of mesh axis names (or None) along each dim, as
+    the reference's ``PartitionSpec``: column-parallel in (wq/wk/wv/w_gate/
+    w_up and ``embed``: the output dim over tp), row-parallel out (wo/w_down:
+    the input dim over tp), ``out`` row-parallel or, with
+    ``cfg.vocab_parallel_loss``, column-parallel; the other dim of every
+    matrix over fsdp, MoE expert stacks' E over ep; norms and the router
+    replicated. An axis missing from the mesh is None."""
+    names = mesh.axis_names
+    tp = "tp" if "tp" in names else None
+    fsdp = "fsdp" if "fsdp" in names else None
+    ep = "ep" if "ep" in names else None
+    col, row, vec = (fsdp, tp), (tp, fsdp), (None,)
+    layer = {"wq": col, "wk": col, "wv": col, "wo": row,
+             "ln_attn": vec, "ln_mlp": vec}
+    if cfg.n_experts:
+        layer.update(router=(None, None), w_gate=(ep, fsdp, tp),
+                     w_up=(ep, fsdp, tp), w_down=(ep, tp, fsdp))
+    else:
+        layer.update(w_gate=col, w_up=col, w_down=row)
+    return {"embed": col, "out": col if cfg.vocab_parallel_loss else row,
+            "ln_f": vec, "layers": [dict(layer) for _ in range(cfg.n_layers)]}
+
+
+def token_spec(mesh: Mesh) -> Tuple:
+    """The tokens' (B, S) spec: B over the batch axes."""
+    return (batch_axes(mesh) or None, None)
+
+
+def shard_params(params: Params, cfg: ModelConfig, mesh: Mesh) -> Params:
+    """This rank's slice of every leaf by :func:`param_specs`, as new
+    contiguous tensors on ``mesh.device`` (the full tree may live anywhere
+    and can be dropped after). A leaf's dim over an axis of size 1, or over
+    none, is whole."""
+    check_mesh_axes(mesh)
+
+    def cut(x, spec):
+        for dim, name in enumerate(spec):
+            if name is not None:
+                x = local_chunk(x, mesh.axis(name), dim)
+        dev = mesh.device or x.device
+        return torch.empty(x.shape, dtype=x.dtype, device=dev).copy_(x)
+
+    return tree_map(cut, params, param_specs(cfg, mesh))
+
+
+def gather_params(shards: Params, cfg: ModelConfig, mesh: Mesh) -> Params:
+    """The full tree back from every rank's :func:`shard_params` (each rank
+    gets it): for tests and checkpoints."""
+    def join(x, spec):
+        for dim, name in enumerate(spec):
+            if name is not None:
+                x = mesh_all_gather(x, mesh.axis(name), dim)
+        return x
+
+    return tree_map(join, shards, param_specs(cfg, mesh))
+
+
+class _ShardedGrads:
+    """(loss, grads) of this rank's share of a global batch on ``mesh``:
+    the batch's rows split over the batch axes, gradients and loss averaged
+    over them (one f32 all-reduce), the model sharded over tp."""
+
+    def __init__(self, mesh: Optional[Mesh], cfg: ModelConfig):
+        check_mesh_axes(mesh)
+        self.cfg = cfg
+        self.tp = mesh.tp if mesh is not None else None
+        self.batch = mesh.batch if mesh is not None else None
+        if cfg.n_experts and self.batch is not None and self.batch.size > 1:
+            # the reference's capacity dispatch ranks every token of the
+            # GLOBAL batch for expert slots; a rank's share alone would drop
+            # other tokens
+            raise NotImplementedError(
+                "MoE capacity routing over a data-parallel batch is not "
+                "ported yet: ROADMAP 'Parallelism' (ep)")
+
+    def local(self, tokens: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return local_chunk(tokens, self.batch, dim)
+
+    def __call__(self, params: Params, tokens: torch.Tensor):
+        return value_and_grad(params, tokens, self.cfg, tp=self.tp)
+
+    def mean(self, loss: torch.Tensor, grads: List[torch.Tensor]):
+        """Loss and f32 grads averaged over the batch axes."""
+        if self.batch is None or self.batch.size == 1:
+            return loss, grads
+        flat = all_reduce(torch.cat([loss.float().reshape(1)]
+                                    + [g.float().reshape(-1) for g in grads]),
+                          self.batch) / self.batch.size
+        out = list(torch.split(flat[1:], [g.numel() for g in grads]))
+        return flat[0], [o.reshape(g.shape) for o, g in zip(out, grads)]
+
+
+def _specs_or_none(mesh: Optional[Mesh], cfg: ModelConfig):
+    return ((None, None) if mesh is None
+            else (param_specs(cfg, mesh), token_spec(mesh)))
+
+
+def make_sharded_train_step(mesh: Optional[Mesh], cfg: ModelConfig,
+                            lr: float = 1e-3):
+    """SGD over ``mesh`` (axes in slice, dp, tp): ``step(params, tokens) ->
+    (params, loss)`` on this rank's shards (:func:`shard_params`) and the
+    GLOBAL batch (B, S), whose rows the step splits over the batch axes;
+    gradients and the loss are averaged over them (the loss is the global
+    mean). Returns (step, param_specs, token_spec) where the reference
+    returns ``NamedSharding``s."""
+    vg = _ShardedGrads(mesh, cfg)
+
+    def step(params, tokens):
+        loss, grads = vg(params, vg.local(tokens))
+        loss, flat = vg.mean(loss, tree_leaves(grads))
+        it = iter(flat)
+        new = tree_map(lambda p: p - lr * next(it).to(p.dtype), params)
+        return new, loss
+
+    return (step, *_specs_or_none(mesh, cfg))
+
+
+def make_optax_train_step(mesh: Optional[Mesh], cfg: ModelConfig, tx):
     """The train step for an optimizer ``tx`` (``optim.adamw``), as the
     reference's: ``step(params, opt_state, tokens) -> (params, opt_state,
-    loss)``. Returns (step, init_opt, param_shardings, token_sharding);
-    ``mesh`` must be None until the parallelism slice, and both shardings
-    are then None. The step updates params and state in place."""
-    _no_mesh(mesh)
+    loss)``, updating params and state in place. Returns (step, init_opt,
+    param_specs, token_spec), both specs None without a mesh. On a mesh as
+    :func:`make_sharded_train_step`; ``tx.init`` runs on the shards, so the
+    optimizer state mirrors each (AdamW is elementwise)."""
+    vg = _ShardedGrads(mesh, cfg)
 
     def step(params, opt_state, tokens):
-        loss, grads = value_and_grad(params, tokens, cfg)
-        tx.update_(grads, opt_state, params)
+        loss, grads = vg(params, vg.local(tokens))
+        loss, flat = vg.mean(loss, tree_leaves(grads))
+        it = iter(flat)
+        tx.update_(tree_map(lambda p: next(it).to(p.dtype), params),
+                   opt_state, params)
         return params, opt_state, loss
 
-    return step, tx.init, None, None
+    return (step, tx.init, *_specs_or_none(mesh, cfg))
 
 
-def make_accum_train_step(mesh, cfg: ModelConfig, tx, accum_steps: int):
+def make_accum_train_step(mesh: Optional[Mesh], cfg: ModelConfig, tx,
+                          accum_steps: int):
     """Gradient accumulation: one optimizer update per stack of microbatches
     (accum, B, S), gradients summed in f32 and divided by the stack's own
     length (a shorter final stack still averages correctly), the loss the
     mean over microbatches. ``accum_steps`` is kept for the reference's
-    signature; as there, the stack sets the count. Returns as
-    :func:`make_optax_train_step`."""
-    _no_mesh(mesh)
+    signature; as there, the stack sets the count. On a mesh each
+    microbatch's B splits over the batch axes (the token spec is (None,
+    batch, None)) and the sums are averaged over them once a step. Returns
+    as :func:`make_optax_train_step`."""
+    vg = _ShardedGrads(mesh, cfg)
 
     def step(params, opt_state, token_stack):
+        token_stack = vg.local(token_stack, 1)
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for p in tree_leaves(params)]
         losses = []
         for tokens in token_stack:
-            loss, grads = value_and_grad(params, tokens, cfg)
+            loss, grads = vg(params, tokens)
             for a, g in zip(acc, tree_leaves(grads)):
                 a.add_(g.float())
             losses.append(loss)
         n_micro = token_stack.shape[0]
-        it = iter(acc)
-        grads = tree_map(lambda p: (next(it) / n_micro).to(p.dtype), params)
-        tx.update_(grads, opt_state, params)
-        return params, opt_state, torch.stack(losses).mean()
+        loss, flat = vg.mean(torch.stack(losses).mean(),
+                             [a / n_micro for a in acc])
+        it = iter(flat)
+        tx.update_(tree_map(lambda p: next(it).to(p.dtype), params),
+                   opt_state, params)
+        return params, opt_state, loss
 
-    return step, tx.init, None, None
+    specs, tokens = _specs_or_none(mesh, cfg)
+    return (step, tx.init, specs,
+            None if tokens is None else (None, *tokens))
