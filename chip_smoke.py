@@ -97,10 +97,33 @@ Phases, in order; any failure raises and the script exits non-zero:
     vocab-parallel loss equal to the replicated one. Then the kernels at
     the ranks' shapes are timed as in phase 7. The times of phases 20-22
     are those of gloo through the host with every rank on one card: they
-    say nothing of NCCL or NVLink.
+    say nothing of NCCL or NVLink;
+23. the kernels in the ring's way: K2 and K3 non-causal at the ring's
+    chunk (1, 4096, 16, 4, 128) bf16 with the lse and D of a two-chunk
+    ring, not the pair's own, against their plain version and bitwise
+    repeatable; ring-flash on two gloo ranks at that chunk against the
+    plain version of the whole causal sequence (out, dq, dk, dv; rank r
+    launches K1, K2 and K3 1 + r times); the masked-outlier input (second
+    half's keys ×100, tiny f32) with finite gradients equal to the plain
+    version's;
+24. fully-sharded and sequence-parallel training at full width:
+    ``llama_like_big(seq=8192)`` with ring-flash attention (remat on) on
+    {"fsdp": 2, "sp": 2}, four gloo ranks, a global batch of 2 seeded rows,
+    three AdamW steps, against the same weights and batch on one process
+    with whole-sequence flash: losses within 2e-2 and falling, per rank and
+    step K1 2·12·(1 + sp index) and K2 = K3 = 12·(1 + sp index), every fsdp
+    leaf a rank holds half its whole size; peak memory a rank and step
+    times printed;
+25. tiny f32 on the reference's dryrun mesh {"fsdp": 2, "sp": 2, "tp": 2},
+    eight gloo ranks, one SGD step with the ring and with ring-flash, each
+    loss within 1e-5 of the whole model's with naive attention, K1
+    launches a rank as in phase 24 at tiny's 2 layers. Then K1, K2 and K3
+    non-causal at the ring's chunk are timed as in phase 7 (bounds: whole
+    (s, s, d) products). Phases 23-25 run gloo through the host too.
 
-The second-to-last line is the ``kernels`` JSON object, the last line the
-``ok`` JSON object. Imports neither JAX nor the JAX package.
+The second-to-last line is the ``kernels`` JSON object (each kernel also
+with ``ring_launches`` from phase 24 and ``ring_shape`` times), the last
+line the ``ok`` JSON object. Imports neither JAX nor the JAX package.
 
     python3 chip_smoke.py --ab DIR
 
@@ -289,6 +312,7 @@ def phase_kernel_vs_plain(attention):
         (1, 256, 4, 1, 128, bf16, True, 0),
         (1, 1024, 4, 1, 128, bf16, True, 0),
         (1, 4096, 8, 2, 128, bf16, True, 0),     # phase 22's per-rank forward
+        (1, 8192, 16, 4, 128, bf16, True, 0),    # phase 24's one process
     ] + [  # every length the tiny f32 phases prefill: prompts 4-13, the
            # bucket 16, phase 15's 12-token prefix and prefix + suffix 16-25;
            # phase 19's drafts (one and two layers of tiny's heads) too, and
@@ -363,6 +387,7 @@ def phase_backward_vs_plain(attention):
         (1, 64, 2, 2, 32, f32, False, 3, False),       # f32, strided
         (1, 512, 8, 2, 128, bf16, True, 0, True),      # caller's D
         (1, 4096, 8, 2, 128, bf16, True, 0, False),    # phase 22's per rank
+        (1, 8192, 16, 4, 128, bf16, True, 0, False),   # phase 24's one process
         (2, 32, 2, 1, 32, f32, True, 0, False),        # phase 22's tiny rank
         (4, 32, 4, 2, 32, f32, True, 0, False),        # and its whole model
     ]
@@ -712,11 +737,12 @@ def phase_training(attention, measure, optim, workload):
 
 
 def phase_training_timing(attention, shape=(1, 4096, 16, 4, 128),
-                          label="training shape"):
+                          label="training shape", causal=True):
     """K1, K2 and K3 at the training shape with CUDA events, beside the
     plain versions and one library call (scaled_dot_product_attention: its
     forward for K1, its backward, which forms dq, dk and dv together, for
-    K2 and K3). Bounds: 2, 4 and 3 causal-halved (s, s, d) products. Since
+    K2 and K3). Bounds: 2, 4 and 3 causal-halved (s, s, d) products (whole
+    ones with ``causal=False``, the ring's visiting pairs). Since
     no library call forms dq alone, K2 then K3, as the backward launches
     them, is also timed as one and printed beside the library's backward.
     K1's output at this shape is held against its plain version as in
@@ -727,8 +753,8 @@ def phase_training_timing(attention, shape=(1, 4096, 16, 4, 128),
     gen = torch.Generator(device="cuda").manual_seed(6)
     q, k, v = rand_qkv(gen, b, s, h, kv, d, dtype)
     do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
-    out, lse = attention.flash_forward(q, k, v, True)
-    ref, _ = attention.flash_attention_plain(q, k, v, True)
+    out, lse = attention.flash_forward(q, k, v, causal)
+    ref, _ = attention.flash_attention_plain(q, k, v, causal)
     fwd_err = (out.float() - ref.float()).abs().max().item()
     check(tile_rel_l2(out, ref) < 1e-2,
           "flash kernel disagrees with its plain version at the training shape")
@@ -738,36 +764,37 @@ def phase_training_timing(attention, shape=(1, 4096, 16, 4, 128),
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
     def k2():
-        attention._launch_bwd("dkdv", q, k, v, do, lse, dd, (dk, dv), True)
+        attention._launch_bwd("dkdv", q, k, v, do, lse, dd, (dk, dv), causal)
 
     def k3():
-        attention._launch_bwd("dq", q, k, v, do, lse, dd, (dq,), True)
+        attention._launch_bwd("dq", q, k, v, do, lse, dd, (dq,), causal)
 
     def k2_k3():
         k2()
         k3()
     ms = {
-        "flash_fwd": cuda_ms(lambda: attention.flash_forward(q, k, v, True)),
+        "flash_fwd": cuda_ms(lambda: attention.flash_forward(q, k, v, causal)),
         "flash_bwd_dkdv": cuda_ms(k2),
         "flash_bwd_dq": cuda_ms(k3),
     }
     pair_ms = cuda_ms(k2_k3)
-    fwd_plain = cuda_ms(lambda: attention.flash_attention_plain(q, k, v, True),
+    fwd_plain = cuda_ms(lambda: attention.flash_attention_plain(q, k, v, causal),
                         iters=10)
     bwd_plain = cuda_ms(lambda: attention.flash_backward_plain(
-        q, k, v, out, lse, do, True), iters=10)
+        q, k, v, out, lse, do, causal), iters=10)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, k, v))
 
     def sdpa():
         return torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
     with torch.no_grad():
         fwd_lib = cuda_ms(sdpa)
     ot, dot = sdpa(), do.transpose(1, 2).contiguous()
     bwd_lib = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
                                                   retain_graph=True))
-    pair = 2 * b * h * d * s * (s + 1) / 2       # one causal (s, s, d) product
+    # one (s, s, d) product, causal-halved or whole
+    pair = 2 * b * h * d * s * ((s + 1) / 2 if causal else s)
     el = q.element_size()
     rows = b * h * s * 4                         # one f32 value per query row
     work = {  # (products, bytes: each input read once, each output written)
@@ -786,15 +813,16 @@ def phase_training_timing(attention, shape=(1, 4096, 16, 4, 128),
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes")
     timing["flash_fwd"]["max_abs_err"] = fwd_err
-    walks = attention._dkdv_schedule(b, s, kv, True)
+    walks = attention._dkdv_schedule(b, s, kv, causal)
     work = (walks[:, :, 3] - walks[:, :, 2]).clip(min=0).sum(axis=1)
     ratio = float(work.max() / work.mean())
-    print(f"K2 schedule at {(b, s, h, kv, d)} causal: {len(work)} blocks, "
+    print(f"K2 schedule at {(b, s, h, kv, d)} causal={causal}: {len(work)} "
+          f"blocks, "
           f"longest / mean walk {ratio:.4f} (the reference's key tiles: "
           f"1.97)")
     check(ratio <= 1.3, "K2's schedule is out of balance")
     print(json.dumps({"timing": label, "shape": [b, s, h, kv, d],
-                      **timing}))
+                      "causal": causal, **timing}))
     print(json.dumps({"timing": f"backward at the {label}",
                       "flash_bwd_dkdv_then_dq_ms": pair_ms,
                       "sdpa_backward_ms": bwd_lib,
@@ -1912,6 +1940,326 @@ def phase_tp(attention, decode, serve, workload, tmesh, mono, moe_mono,
     return {"two": two, "four": four}
 
 
+# -- phases 23-25: fully-sharded and sequence-parallel training -----------------
+
+RING_CHUNK = (1, 4096, 16, 4, 128)      # phase 24's per-rank share at sp = 2
+SP_MESH = {"fsdp": 2, "sp": 2}          # phase 24
+DRYRUN_MESH = {"fsdp": 2, "sp": 2, "tp": 2}   # phase 25, the reference's
+
+
+def launches_since(attention, start):
+    """(K1, K2, K3) launches since the counts were ``start``."""
+    return tuple(c - s for c, s in zip(bwd_counts(attention), start))
+
+
+def ring_pair_backward(attention, tile=1e-3):
+    """Phase 23's first check: K2 and K3 non-causal at RING_CHUNK bf16 on
+    the pair (resident chunk 1, visiting chunk 0) of a two-chunk sequence,
+    with the lse and D of the whole ring (the diagonal pair's and the
+    visiting pair's forward combined), not the pair's own; against the
+    plain version with the same lse and D, and bitwise equal when run
+    twice. Returns the max abs errors (dq, max of dk and dv)."""
+    b, s, h, kv, d = RING_CHUNK
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    q, k1, v1 = rand_qkv(gen, b, s, h, kv, d, torch.bfloat16)
+    _, k0, v0 = rand_qkv(gen, b, s, h, kv, d, torch.bfloat16)
+    do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(q.dtype)
+    out1, lse1 = attention.flash_forward(q, k1, v1, True)
+    out0, lse0 = attention.flash_forward(q, k0, v0, False)
+    o, lse = attention._combine_partials(
+        attention._to_bh(out1).float(), lse1, attention._to_bh(out0).float(),
+        lse0)
+    out = attention._from_bh(o.to(q.dtype), b, h).contiguous()
+    check((lse - lse0).min().item() > 0, "the ring's lse is the pair's own")
+    dd = attention._to_bh((do.float() * out.float()).sum(dim=-1,
+                                                        keepdim=True))
+    got = attention._flash_backward(q, k0, v0, out, lse, do, False, dd)
+    again = attention._flash_backward(q, k0, v0, out, lse, do, False, dd)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          "K2/K3 with the ring's lse and D are not bitwise repeatable")
+    ref = attention.flash_backward_plain(q, k0, v0, out, lse, do, False, dd)
+    errs = []
+    for name, x, y in zip(("dq", "dk", "dv"), got, ref):
+        l2 = tile_rel_l2(x, y, floor=tile)
+        errs.append((x.float() - y.float()).abs().max().item())
+        print(f"ring pair backward {RING_CHUNK} bf16 non-causal, the ring's "
+              f"lse and D, {name}: worst-tile rel L2 {l2:.3e} (tol 2e-2), "
+              f"max|err| {errs[-1]:.3e}, bitwise repeatable")
+        check(l2 < 2e-2, f"K2/K3 {name} with the ring's lse and D disagree "
+              f"with their plain version")
+    return errs[0], max(errs[1:])
+
+
+def ring_inputs(seed, b, s, h, kv, d, dtype, outlier=False):
+    """The whole sequence's q, k, v and dO from a seeded generator on the
+    card: every rank makes the same ones and keeps its chunk. With
+    ``outlier`` the second half's keys ×100 (tiny f32)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = rand_qkv(gen, b, s, h, kv, d, dtype)
+    do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+    if outlier:
+        k = k.clone()
+        k[:, s // 2:] *= 100.0
+    return q, k, v, do
+
+
+RING_CASES = {  # name -> ring_inputs arguments
+    "chunk": (24, 1, 2 * RING_CHUNK[1], *RING_CHUNK[2:], torch.bfloat16),
+    "outlier": (25, 2, 64, 2, 2, 64, torch.float32, True),
+}
+
+
+def ring_rank(mesh):
+    """Phase 23 on one rank of {"sp": 2}: ring-flash on this rank's chunk
+    of each RING_CASES sequence, out and the gradients of (out · dO)
+    through the ring's backward, with the rank's K1/K2/K3 launches; back to
+    the parent on the host."""
+    from tpusched_torch import attention
+    out = {}
+    for name, args in RING_CASES.items():
+        q, k, v, do = (x.chunk(2, dim=1)[mesh.sp.index].contiguous()
+                       for x in ring_inputs(*args))
+        q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+        start = bwd_counts(attention)
+        o = attention.ring_flash_attention(q, k, v, mesh.sp, True)
+        o.backward(do)
+        torch.cuda.synchronize()
+        out[name] = {"index": mesh.sp.index,
+                     "launches": launches_since(attention, start),
+                     **{n: t.detach().cpu() for n, t in
+                        (("out", o), ("dq", q.grad), ("dk", k.grad),
+                         ("dv", v.grad))}}
+    return out
+
+
+def phase_ring(attention, tmesh, workdir):
+    """Phase 23: the kernels in the ring's way. K2/K3 with the ring's lse
+    and D (:func:`ring_pair_backward`); then ring-flash on two gloo ranks
+    at RING_CHUNK, causal, against the plain version of the whole sequence
+    (out: worst 64-row tile 1e-2; dq, dk, dv: 2e-2), rank r launching K1,
+    K2 and K3 1 + r times each; then the masked-outlier input in f32:
+    gradients finite and within 3e-3 + 2e-3·|plain| of the plain
+    version's. Returns the pair's max abs errors."""
+    t0 = time.perf_counter()
+    pair_err = ring_pair_backward(attention)
+    torch.cuda.empty_cache()
+    ranks = tmesh.launch(ring_rank, {"sp": 2}, backend="gloo",
+                         device="cuda", workdir=str(workdir))
+    for name, args in RING_CASES.items():
+        q, k, v, do = ring_inputs(*args)
+        out, lse = attention.flash_attention_plain(q, k, v, True)
+        ref = dict(zip(("dq", "dk", "dv"), attention.flash_backward_plain(
+            q, k, v, out, lse, do, True)), out=out)
+        del q, k, v, do, lse
+        for r, rank in enumerate(ranks):
+            got = rank[name]
+            check(got["index"] == r and got["launches"] == (1 + r,) * 3,
+                  f"ring {name}: rank {r} launched (K1, K2, K3) "
+                  f"{got['launches']}, wanted {(1 + r,) * 3}")
+            for key in ("out", "dq", "dk", "dv"):
+                x = got[key].to("cuda")
+                y = ref[key].chunk(2, dim=1)[r]
+                check(bool(torch.isfinite(x).all()),
+                      f"ring {name} {key}: not finite on rank {r}")
+                if name == "outlier":
+                    bad = ((x.float() - y.float()).abs()
+                           > 3e-3 + 2e-3 * y.float().abs()).sum().item()
+                    msg = f"{bad} entries outside 3e-3 + 2e-3|plain|"
+                    ok = bad == 0
+                else:
+                    tol = 1e-2 if key == "out" else 2e-2
+                    l2 = tile_rel_l2(x, y, floor=1e-3)
+                    msg = f"worst-tile rel L2 {l2:.3e} (tol {tol})"
+                    ok = l2 < tol
+                print(f"ring-flash sp 2 {name} rank {r} {key}: {msg}, max|err| "
+                      f"{(x.float() - y.float()).abs().max().item():.3e}")
+                check(ok, f"ring-flash {name} {key} disagrees with the plain "
+                      f"version on rank {r}")
+        del ref, out
+        torch.cuda.empty_cache()
+    print(json.dumps({"ring_kernels": "phase 23", "chunk": list(RING_CHUNK),
+                      "launches_per_rank": [r["chunk"]["launches"]
+                                            for r in ranks],
+                      "pair_backward_max_abs_err": pair_err,
+                      "phase_23_s": time.perf_counter() - t0}))
+    return pair_err
+
+
+def sp_big_cfg(workload):
+    """Phase 24's model: llama_like_big at seq 8192 (remat on, as the
+    preset has it)."""
+    return workload.ModelConfig.llama_like_big(seq=2 * RING_CHUNK[1])
+
+
+def sp_big_tokens(cfg):
+    """Phase 24's global batch: two seeded rows of the whole sequence."""
+    return torch.as_tensor(np.random.default_rng(24).integers(
+        0, cfg.vocab, (2, cfg.seq)), device="cuda")
+
+
+def sp_big_steps(attention, optim, workload, cfg, mesh=None, steps=3):
+    """AdamW (lr 1e-4, mu f32) of ``cfg`` on :func:`sp_big_tokens`, on one
+    process or as this rank's shards on ``mesh``: the losses, step times,
+    each step's (K1, K2, K3) launches, the peak memory of the steps and,
+    on a mesh, whether every fsdp-sharded leaf holds half its whole
+    size."""
+    params = seeded_params(workload, cfg)
+    whole = [t.numel() for t in workload.tree_leaves(params)]
+    tokens = sp_big_tokens(cfg)
+    step, init_opt, specs, _ = workload.make_optax_train_step(
+        mesh, cfg, optim.adamw(1e-4, mu_dtype=torch.float32))
+    halves = None
+    if mesh is not None:
+        params = workload.shard_params(params, cfg, mesh)
+        torch.cuda.empty_cache()
+        sharded = [t.numel() for t in workload.tree_leaves(params)]
+        fsdp = workload.tree_leaves(workload.tree_map(
+            lambda _, spec: "fsdp" in spec, params, specs))
+        halves = all(n * 2 == w if f else n == w for n, w, f in
+                     zip(sharded, whole, fsdp))
+    state = init_opt(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, launches = [], [], []
+    for _ in range(steps):
+        zero_counts(attention)
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, tokens)
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t0)
+        launches.append(bwd_counts(attention))
+    return dict(losses=losses, step_s=step_s, launches=launches,
+                fsdp_halves=halves,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def fsdp_sp_rank(mesh):
+    """Phase 24 on one rank of SP_MESH: :func:`sp_big_steps` with
+    ring-flash attention."""
+    from tpusched_torch import attention, optim, workload
+    cfg = dataclasses.replace(sp_big_cfg(workload), attn="ringflash")
+    return {"sp_index": mesh.sp.index, "fsdp_index": mesh.fsdp.index,
+            **sp_big_steps(attention, optim, workload, cfg, mesh)}
+
+
+def phase_fsdp_sp(attention, optim, workload, tmesh, train, workdir):
+    """Phase 24: full-width llama_like_big(seq=8192) on SP_MESH, four gloo
+    ranks sharing the card, three AdamW steps with ring-flash attention,
+    against the same weights and batch on one process with whole-sequence
+    flash attention (run first, then freed). Held: every step's loss
+    within 2e-2 of the one-process run's and falling; per rank and step K1
+    2·12·(1 + sp index), K2 = K3 = 12·(1 + sp index); every fsdp leaf a
+    rank holds half its whole size. Returns the launches per step by sp
+    index."""
+    t0 = time.perf_counter()
+    cfg = sp_big_cfg(workload)
+    ref = sp_big_steps(attention, optim, workload, cfg)
+    torch.cuda.empty_cache()
+    ranks = tmesh.launch(fsdp_sp_rank, SP_MESH, backend="gloo",
+                         device="cuda", workdir=str(workdir))
+    layers = cfg.n_layers
+    for r, run in enumerate(ranks):
+        i = run["sp_index"]
+        want = (2 * layers * (1 + i), layers * (1 + i), layers * (1 + i))
+        check(all(c == want for c in run["launches"]),
+              f"fsdp x sp rank {r} (sp index {i}) launched (K1, K2, K3) "
+              f"{run['launches']} a step, wanted {want}")
+        check(run["fsdp_halves"], f"rank {r}: an fsdp leaf is not half its "
+              f"whole size")
+        check(run["losses"] == ranks[0]["losses"],
+              f"fsdp x sp: the ranks' losses differ: {run['losses']}")
+    losses = ranks[0]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"fsdp x sp loss did not fall: {losses}")
+    check(max(rel) <= TRAIN_LOSS_RTOL,
+          f"fsdp x sp losses {losses} against one process's {ref['losses']}:"
+          f" rel {rel} (tol {TRAIN_LOSS_RTOL})")
+    by_index = {run["sp_index"]: run["launches"][0] for run in ranks}
+    print(json.dumps({
+        "fsdp_sp_training": "llama_like_big", "seq": cfg.seq, "batch": 2,
+        "mesh": SP_MESH, "attn": "ringflash", "backend": "gloo",
+        "optimizer": "adamw lr 1e-4 mu f32", "losses": losses,
+        "one_process_losses": ref["losses"], "loss_rel_diff": rel,
+        "loss_rtol": TRAIN_LOSS_RTOL,
+        "launches_per_step_by_sp_index": {
+            i: dict(zip(("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"), c))
+            for i, c in sorted(by_index.items())},
+        "fsdp_leaves_half": True,
+        "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in ranks],
+        "one_process_peak_mem_gib": ref["peak_mem_gib"],
+        "phase_6_peak_mem_gib": train["peak_mem_gib"],
+        "step_s_per_rank": [r["step_s"] for r in ranks],
+        "one_process_step_s": ref["step_s"], "step_s_note": GLOO_NOTE,
+        "phase_24_s": time.perf_counter() - t0}))
+    return by_index
+
+
+def dryrun_cfg(workload, attn):
+    """Phase 25's model: tiny f32 with TINY_GQA's heads (4 over 2, so 2
+    over 1 at tp = 2), remat on."""
+    return dataclasses.replace(workload.ModelConfig.tiny(),
+                               **{**TINY_GQA, "attn": attn}, remat=True)
+
+
+def dryrun_tokens(cfg):
+    return torch.as_tensor(np.random.default_rng(25).integers(
+        0, cfg.vocab, (4, cfg.seq)), device="cuda")
+
+
+def dryrun_rank(mesh):
+    """Phase 25 on one rank of DRYRUN_MESH: one SGD step each with the ring
+    and with ring-flash (TF32 off); the losses and this rank's launches."""
+    from tpusched_torch import attention, workload
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"sp_index": mesh.sp.index}
+    for attn in ("ring", "ringflash"):
+        cfg = dryrun_cfg(workload, attn)
+        step, _, _ = workload.make_sharded_train_step(mesh, cfg)
+        params = workload.shard_params(seeded_params(workload, cfg), cfg,
+                                       mesh)
+        zero_counts(attention)
+        _, loss = step(params, dryrun_tokens(cfg))
+        out[attn] = {"loss": loss.item(), "launches": bwd_counts(attention)}
+    return out
+
+
+def phase_dryrun(attention, workload, tmesh, workdir):
+    """Phase 25: tiny f32 on the reference's dryrun mesh DRYRUN_MESH, eight
+    gloo ranks: one SGD step with the ring and with ring-flash, each loss
+    within 1e-5 relative of the whole model's with naive attention; K1
+    2·2·(1 + sp index) a rank with ring-flash (K2 = K3 half that), none
+    with the ring."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dryrun_cfg(workload, "naive")
+    with torch.no_grad():
+        whole = workload.loss_fn(seeded_params(workload, cfg),
+                                 dryrun_tokens(cfg), cfg).item()
+    ranks = tmesh.launch(dryrun_rank, DRYRUN_MESH, backend="gloo",
+                         device="cuda", workdir=str(workdir))
+    layers = cfg.n_layers
+    for r, run in enumerate(ranks):
+        i = run["sp_index"]
+        for attn, want in (("ring", (0, 0, 0)), ("ringflash", (
+                2 * layers * (1 + i), layers * (1 + i), layers * (1 + i)))):
+            got = run[attn]
+            rel = abs(got["loss"] - whole) / abs(whole)
+            check(rel <= 1e-5, f"dryrun {attn} rank {r}: loss {got['loss']} "
+                  f"against the whole model's {whole} (rel {rel:.3e})")
+            check(got["launches"] == want, f"dryrun {attn} rank {r}: "
+                  f"launched {got['launches']}, wanted {want}")
+    print(json.dumps({
+        "dryrun": "tiny f32", "mesh": DRYRUN_MESH, "backend": "gloo",
+        "whole_naive_loss": whole,
+        "losses": {a: ranks[0][a]["loss"] for a in ("ring", "ringflash")},
+        "ringflash_launches_by_sp_index": {
+            run["sp_index"]: run["ringflash"]["launches"] for run in ranks}}))
+
+
+
 def ab_turn(tree: str, other_root: str) -> None:
     """One turn of ``--ab``, in a process of its own: builds the kernels of
     the ``tpusched_torch`` on PYTHONPATH, then prints one JSON line of
@@ -2061,6 +2409,26 @@ def main(argv) -> int:
                  "serving_tp4": phase_timing(attention, (1, 1024, 4, 1, 128))}
     rank_train = phase_training_timing(attention, (1, 4096, 8, 2, 128),
                                        "per-rank training shape at tp 2")
+    # fully-sharded and sequence-parallel training on gloo ranks sharing the
+    # card, after every earlier phase so that those run as before; then the
+    # kernels at the ring's non-causal pair shape, timed as in phase 7
+    t_sp = time.perf_counter()
+    workdir = pathlib.Path(__file__).resolve().parent / "build"
+    pair_err = phase_ring(attention, tmesh, workdir)
+    ring_launches = phase_fsdp_sp(attention, optim, workload, tmesh, train,
+                                  workdir)
+    phase_dryrun(attention, workload, tmesh, workdir)
+    ring_timing = phase_training_timing(
+        attention, RING_CHUNK, "ring shape, non-causal pairs", causal=False)
+    ring_timing["flash_bwd_dq"]["max_abs_err"] = pair_err[0]
+    ring_timing["flash_bwd_dkdv"]["max_abs_err"] = pair_err[1]
+    print(json.dumps({"phases_23_25_s": time.perf_counter() - t_sp}))
+    ring = {name: {"ring_launches": {"per_step_by_sp_index": {
+        i: c[j] for i, c in sorted(ring_launches.items())}},
+        "ring_shape": {"shape": list(RING_CHUNK), "causal": False,
+                       **ring_timing[name]}}
+        for j, name in enumerate(("flash_fwd", "flash_bwd_dkdv",
+                                  "flash_bwd_dq"))}
     two, four = tp["two"][0], tp["four"][0]
     tp_fwd = {"serving_tp2_per_rank": two["llama_like_big"]["launches"],
               "serving_tp4_per_rank": four["llama_like_big"]["launches"],
@@ -2084,19 +2452,22 @@ def main(argv) -> int:
                             **timing["flash_fwd"]},
          "tp_launches": tp_fwd,
          "tp_shapes": {**tp_timing,
-                       "training_tp2": rank_train["flash_fwd"]}},
+                       "training_tp2": rank_train["flash_fwd"]},
+         **ring["flash_fwd"]},
         {"name": "flash_bwd_dkdv", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "218",
          "launches": train_launches[1], "max_abs_err": bwd_err[1],
          **timing["flash_bwd_dkdv"],
          "tp_launches": {"training_tp2_per_rank": two["train"]["launches"][1]},
-         "tp_shapes": {"training_tp2": rank_train["flash_bwd_dkdv"]}},
+         "tp_shapes": {"training_tp2": rank_train["flash_bwd_dkdv"]},
+         **ring["flash_bwd_dkdv"]},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "265",
          "launches": train_launches[2], "max_abs_err": bwd_err[0],
          **timing["flash_bwd_dq"],
          "tp_launches": {"training_tp2_per_rank": two["train"]["launches"][2]},
-         "tp_shapes": {"training_tp2": rank_train["flash_bwd_dq"]}}]}))
+         "tp_shapes": {"training_tp2": rank_train["flash_bwd_dq"]},
+         **ring["flash_bwd_dq"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of tpusched_torch (mesh.py
 included), and not chip_smoke.py, imports JAX, optax or anything of the
 tpusched package (the machine with the card has none of them); the serving,
-speculative and tensor-parallel paths run with all three refused."""
+speculative, tensor-parallel and fsdp×sp training paths run with all three
+refused."""
 from __future__ import annotations
 
 import ast
@@ -151,7 +152,23 @@ RANKS = REFUSE + (
     "    _, _, loss = step(shards, init_opt(shards), toks)\n"
     "    bad = sorted(m for m in sys.modules if m.split('.')[0] in"
     " ('tpusched', 'optax') or m.split('.')[0].startswith('jax'))\n"
-    "    return done, float(loss), bad\n")
+    "    return done, float(loss), bad\n"
+    "def fsdp_sp_rank(mesh):\n"
+    "    torch.set_num_threads(1)\n"
+    "    import dataclasses\n"
+    "    out = []\n"
+    "    for attn in ('ring', 'ringflash'):\n"
+    "        cfg = dataclasses.replace(wl.ModelConfig.tiny(), attn=attn,"
+    " remat=True)\n"
+    "        p = wl.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+    "        step, init_opt, _, _ = wl.make_optax_train_step(mesh, cfg,"
+    " optim.adamw(1e-3))\n"
+    "        shards = wl.shard_params(p, cfg, mesh)\n"
+    "        toks = torch.arange(2 * cfg.seq).reshape(2, cfg.seq) % cfg.vocab\n"
+    "        out.append(float(step(shards, init_opt(shards), toks)[2]))\n"
+    "    bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+    " ('tpusched', 'optax') or m.split('.')[0].startswith('jax'))\n"
+    "    return out, bad\n")
 
 
 def test_tp_paths_run_with_jax_unimportable(tmp_path):
@@ -173,6 +190,26 @@ def test_tp_paths_run_with_jax_unimportable(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().splitlines()[-1] == "sharded"
+
+
+def test_fsdp_sp_paths_run_with_jax_unimportable(tmp_path):
+    """As above, four gloo ranks on {"fsdp": 2, "sp": 2} take an AdamW step
+    with the ring and with ring-flash attention (remat on); the ranks agree
+    on the losses and none has loaded JAX, optax or tpusched."""
+    (tmp_path / "refusing_ranks.py").write_text(RANKS)
+    prog = REFUSE + (
+        f"sys.path.insert(0, {str(tmp_path)!r})\n"
+        "import refusing_ranks\n"
+        "from tpusched_torch import mesh\n"
+        "out = mesh.launch(refusing_ranks.fsdp_sp_rank, {'fsdp': 2, 'sp': 2},"
+        f" backend='gloo', device='cpu', workdir={str(tmp_path)!r})\n"
+        "assert all(o == out[0] for o in out) and out[0][1] == [], out\n"
+        "assert abs(out[0][0][0] - out[0][0][1]) < 1e-5, out\n"
+        "print('sequence-parallel')\n")
+    r = subprocess.run([sys.executable, "-c", prog], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().splitlines()[-1] == "sequence-parallel"
 
 
 def _imports(path: pathlib.Path):

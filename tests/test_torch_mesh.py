@@ -3,8 +3,9 @@ tpusched.jaxbridge.mesh and jaxbridge.workload.param_specs: factor_mesh,
 param_specs leaf for leaf on dense, MoE and vocab-parallel configs over
 several meshes, shard_params then a gather, slice_assignment on pods made
 with tpusched.testing, the axis groups and collectives of a four-rank gloo
-mesh (one spawn; the ranks import no JAX) and the refusals: nccl with more
-ranks than cards, and the fsdp, sp, ep and pp axes."""
+mesh, the ring hop of sp and the gather of fsdp with their backwards (one
+spawn; the ranks import no JAX) and the refusals: nccl with more ranks than
+cards, the ep and pp axes, and serving over fsdp or sp."""
 from __future__ import annotations
 
 import dataclasses
@@ -146,6 +147,43 @@ def test_shard_then_gather_returns_the_tree(four_ranks):
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
+def test_ring_shift_and_its_backward(four_ranks):
+    """On {"sp": 4}, ring_shift hands each rank's tensor to index + 1 and
+    its gradient comes back from there (the receiver's weight 1 + its
+    rank); shift by −1 goes the other way."""
+    _, ranks = four_ranks
+    for r, out in enumerate(ranks):
+        got = out["sp_fsdp"]
+        np.testing.assert_array_equal(got["shifted"],
+                                      np.full((2, 3), (r - 1) % 4))
+        np.testing.assert_array_equal(got["shift_grad"],
+                                      np.full((2, 3), 1 + (r + 1) % 4))
+        assert got["back"] == (r + 1) % 4
+
+
+def test_gather_and_its_reduce_scatter_backward(four_ranks):
+    """On {"fsdp": 2, "sp": 2} (sp fastest), each fsdp group is the two
+    ranks of one sp index: gather joins their chunks along dim 0, and the
+    backward sums both ranks' gradients of the whole (weights 1 + rank)
+    and keeps this rank's chunk. The data axes (batch and sp) hold all four
+    ranks, the same without fsdp the sp pair."""
+    _, ranks = four_ranks
+    for r, out in enumerate(ranks):
+        got = out["sp_fsdp"]
+        f, s = divmod(r, 2)
+        assert got["coord"] == {"fsdp": f, "sp": s}
+        assert list(got["fsdp_ranks"]) == [s, 2 + s]
+        assert list(got["batch_ranks"]) == [s, 2 + s]
+        assert list(got["sp_ranks"]) == [2 * f, 2 * f + 1]
+        assert list(got["data_ranks"]) == [0, 1, 2, 3]
+        assert got["sums"] == [10.0, float(2 * (2 * f + 1) + 1)]
+        chunk = np.arange(6.0).reshape(2, 3)
+        np.testing.assert_array_equal(got["gathered"], np.concatenate(
+            [chunk + 10 * s, chunk + 10 * (2 + s)]))
+        np.testing.assert_array_equal(got["gather_grad"],
+                                      np.full((2, 3), 4.0 + 2 * s))
+
+
 def test_nccl_with_more_ranks_than_cards_is_refused(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match="backend='gloo'"):
@@ -156,20 +194,35 @@ def test_nccl_with_more_ranks_than_cards_is_refused(monkeypatch):
 
 @pytest.mark.parametrize("axis", ["fsdp", "sp", "ep", "pp"])
 def test_unported_axes_are_refused(axis):
-    """shard_params, every train step and the engine refuse an fsdp, sp, ep
-    or pp axis, naming ROADMAP."""
+    """shard_params, every train step and the engine refuse an ep or pp
+    axis, naming ROADMAP. fsdp and sp train (tests/test_torch_fsdp_sp_train.
+    py), but the engine refuses either of size 2: its forward neither
+    gathers fsdp-sharded weights nor splits the sequence; of size 1 it
+    serves."""
     cfg = wl.ModelConfig.tiny()
-    mesh = tmesh.Mesh({axis: 1, "tp": 1}, device="cpu")
     p = wl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    calls = [lambda: wl.shard_params(p, cfg, mesh),
-             lambda: wl.make_sharded_train_step(mesh, cfg),
-             lambda: wl.make_optax_train_step(mesh, cfg, optim.adamw(1e-3)),
-             lambda: wl.make_accum_train_step(mesh, cfg, optim.adamw(1e-3), 2),
-             lambda: ServeEngine(p, cfg, mesh=mesh, slots=1, max_seq=32,
-                                 prompt_bucket=8)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match=f"'{axis}'.*ROADMAP"):
-            call()
+
+    def calls(mesh):
+        return [lambda: wl.shard_params(p, cfg, mesh),
+                lambda: wl.make_sharded_train_step(mesh, cfg),
+                lambda: wl.make_optax_train_step(mesh, cfg,
+                                                 optim.adamw(1e-3)),
+                lambda: wl.make_accum_train_step(mesh, cfg,
+                                                 optim.adamw(1e-3), 2),
+                lambda: ServeEngine(p, cfg, mesh=mesh, slots=1, max_seq=32,
+                                    prompt_bucket=8)]
+    if axis in ("ep", "pp"):
+        for call in calls(tmesh.Mesh({axis: 1, "tp": 1}, device="cpu")):
+            with pytest.raises(NotImplementedError,
+                               match=f"'{axis}'.*ROADMAP"):
+                call()
+        return
+    *train, serve = calls(tmesh.Mesh({axis: 2, "tp": 1}, device="cpu"))
+    for call in train:
+        call()
+    with pytest.raises(NotImplementedError, match=f"'{axis}'.*ROADMAP"):
+        serve()
+    calls(tmesh.Mesh({axis: 1, "tp": 1}, device="cpu"))[-1]()
 
 
 def test_layout_mesh_refuses_collectives():

@@ -190,7 +190,7 @@ def test_sampled_engine_is_seeded(model):
 
 
 @pytest.mark.parametrize("option,error,match", [
-    (dict(mesh=tmesh.Mesh({"fsdp": 1, "tp": 1}, device="cpu")),
+    (dict(mesh=tmesh.Mesh({"fsdp": 2, "tp": 1}, device="cpu")),
      NotImplementedError, "ROADMAP"),
     (dict(draft_params=None, draft_cfg=wl.ModelConfig.tiny()), ValueError,
      "draft_cfg without draft_params"),
@@ -199,7 +199,8 @@ def test_sampled_engine_is_seeded(model):
      "needs temperature > 0")], ids=["option0", "option1", "option2",
                                      "option3"])
 def test_options_not_ported_yet_raise(model, option, error, match):
-    """A mesh with an fsdp (sp, ep, pp) axis is not ported yet; tp meshes
+    """Serving over an fsdp (or sp) axis of size > 1, or an ep or pp axis,
+    is not ported yet; tp meshes
     are (tests/test_torch_tp_serve.py), as are speculation and
     request-keyed sampling (tests/test_torch_serve_spec.py), which refuse
     what the reference refuses: a draft config without its weights, weights

@@ -131,12 +131,12 @@ def test_cross_entropy_matches_reference(dtype, tol):
 
 
 def test_vocab_parallel_loss_waits_for_the_parallelism_slice():
-    """The vocab-parallel loss runs on tp meshes
-    (tests/test_torch_tp_train.py); with the sequence sp-sharded, as the
-    reference keeps it, it waits for the sp item."""
+    """The vocab-parallel loss runs on tp meshes, the sequence sp-sharded
+    too (tests/test_torch_tp_train.py, tests/test_torch_fsdp_sp_train.py);
+    on a mesh with an ep axis it waits for the ep item."""
     cfg = dataclasses.replace(wl.ModelConfig.tiny(), vocab_parallel_loss=True)
     with pytest.raises(NotImplementedError, match="Parallelism"):
-        wl.make_sharded_train_step(tmesh.Mesh({"sp": 1, "tp": 1}), cfg)
+        wl.make_sharded_train_step(tmesh.Mesh({"ep": 1, "tp": 1}), cfg)
 
 
 def test_sgd_steps_match_reference():
@@ -306,9 +306,10 @@ def test_mixed_precision_masters_and_mu_stay_f32():
 @pytest.mark.parametrize("make", ["make_optax_train_step",
                                   "make_accum_train_step"])
 def test_sharded_steps_wait_for_the_parallelism_slice(make):
-    """slice, dp and tp meshes train (tests/test_torch_tp_train.py); an
-    fsdp axis waits for its ROADMAP item."""
+    """slice, dp, fsdp, sp and tp meshes train
+    (tests/test_torch_tp_train.py, tests/test_torch_fsdp_sp_train.py); a pp
+    axis waits for its ROADMAP item."""
     args = (4,) if make == "make_accum_train_step" else ()
     with pytest.raises(NotImplementedError, match="Parallelism"):
-        getattr(wl, make)(tmesh.Mesh({"dp": 1, "fsdp": 2, "tp": 1}),
+        getattr(wl, make)(tmesh.Mesh({"dp": 1, "pp": 2, "tp": 1}),
                           wl.ModelConfig.tiny(), optim.adamw(1e-3), *args)

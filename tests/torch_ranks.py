@@ -1,4 +1,5 @@
-"""Rank programs for the port's tensor- and data-parallel tests.
+"""Rank programs for the port's parallel tests (tensor, data, fully-sharded
+and sequence parallelism).
 
 ``tpusched_torch.mesh.launch`` runs each of these in every spawned gloo rank
 on the CPU. This module imports torch, numpy and the port only, never JAX:
@@ -9,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from tpusched_torch import interop, mesh as tmesh, optim, workload as wl
+from tpusched_torch import attention, interop, mesh as tmesh, optim
+from tpusched_torch import workload as wl
 from tpusched_torch.serve import ServeEngine
 
 
@@ -19,7 +21,8 @@ def _np_tree(tree):
 
 def mesh_rank(m: tmesh.Mesh, cfg: wl.ModelConfig, tree) -> dict:
     """Axis layout and collectives of a {"dp": 2, "tp": 2} mesh, and
-    shard_params then gather_params of ``tree``."""
+    shard_params then gather_params of ``tree``; then :func:`shift_rank`
+    on the same ranks."""
     torch.set_num_threads(1)
     out = {"rank": m.rank, "coord": dict(m.coord)}
     x = torch.tensor([float(m.rank)])
@@ -36,6 +39,7 @@ def mesh_rank(m: tmesh.Mesh, cfg: wl.ModelConfig, tree) -> dict:
     out["shard_shapes"] = {k: tuple(shards[k].shape)
                            for k in ("embed", "out")}
     out["gathered"] = _np_tree(wl.gather_params(shards, cfg, m))
+    out["sp_fsdp"] = shift_rank(m)
     return out
 
 
@@ -76,6 +80,54 @@ def serve_rank(m: tmesh.Mesh, cases: dict) -> dict:
     return out
 
 
+def _train_case(m: tmesh.Mesh, kind: str, cfg, tree, tokens) -> dict:
+    """One case of :func:`train_rank` or :func:`sharded_train_rank` on
+    ``m``."""
+    params = interop.params_from_numpy(tree, cfg, "cpu")
+    shards = wl.shard_params(params, cfg, m)
+    if kind in ("grads", "mesh_grads"):
+        toks = torch.from_numpy(tokens).long()
+        if kind == "grads":
+            loss, grads = wl.value_and_grad(shards, toks, cfg, tp=m.tp)
+        else:    # the train steps' global loss and gradients
+            ts = wl.TrainShardings(m, cfg)
+            loss, grads = ts.mean(*ts(shards, ts.local(toks)))
+        ref_loss, ref = wl.value_and_grad(params, toks, cfg)
+        return {"loss": float(loss), "ref_loss": float(ref_loss),
+                "grads": _np_tree(wl.gather_params(grads, cfg, m)),
+                "ref": _np_tree(ref)}
+    if kind == "loss":
+        with torch.no_grad():
+            loss = wl.loss_fn(shards, torch.from_numpy(tokens).long(),
+                              cfg, tp=m.tp)
+        return {"loss": float(loss)}
+    losses, moments, moment_shapes = [], None, None
+    if kind == "sgd":
+        step, specs, tspec = wl.make_sharded_train_step(m, cfg)
+        for toks in tokens:
+            shards, loss = step(shards, torch.from_numpy(toks).long())
+            losses.append(float(loss))
+    else:
+        tx = optim.adamw(1e-3)
+        make = (wl.make_optax_train_step if kind == "adamw"
+                else wl.make_accum_train_step)
+        step, init_opt, specs, tspec = make(
+            m, cfg, tx, *((4,) if kind == "accum" else ()))
+        opt = init_opt(shards)
+        for toks in tokens:
+            shards, opt, loss = step(shards, opt,
+                                     torch.from_numpy(toks).long())
+            losses.append(float(loss))
+        moments = sorted({str(t.dtype) for t in
+                          wl.tree_leaves(opt.mu) + wl.tree_leaves(opt.nu)})
+        moment_shapes = [tuple(t.shape) for t in wl.tree_leaves(opt.mu)]
+    return {"losses": losses, "token_spec": tspec,
+            "dtypes": sorted({str(t.dtype) for t in wl.tree_leaves(shards)}),
+            "moments": moments, "moment_shapes": moment_shapes,
+            "shard_shapes": [tuple(t.shape) for t in wl.tree_leaves(shards)],
+            "params": _np_tree(wl.gather_params(shards, cfg, m))}
+
+
 def train_rank(m: tmesh.Mesh, cases: dict) -> dict:
     """Training on a {"dp": 2, "tp": 2} mesh. Each case ``name -> (kind,
     cfg, numpy tree, tokens)``: kind "sgd", "adamw" or "accum" runs two
@@ -85,47 +137,86 @@ def train_rank(m: tmesh.Mesh, cases: dict) -> dict:
     loss and gradients at tp = 2 (value_and_grad on the shards, gathered)
     and unsharded; "loss" returns the loss_fn at tp = 2."""
     torch.set_num_threads(1)
+    return {name: _train_case(m, *case) for name, case in cases.items()}
+
+
+def sharded_train_rank(m: tmesh.Mesh, cases: dict) -> dict:
+    """:func:`train_rank`'s cases, each on a mesh of its own over the same
+    ranks: ``name -> (axis sizes, kind, cfg, numpy tree, tokens)``; kind
+    "mesh_grads" returns the train steps' global loss and gradients
+    (``TrainShardings``: this rank's rows and sequence chunk, then
+    ``mean``) beside the unsharded model's."""
+    torch.set_num_threads(1)
+    meshes = {tuple(m.shape.items()): m}
     out = {}
-    for name, (kind, cfg, tree, tokens) in cases.items():
-        params = interop.params_from_numpy(tree, cfg, "cpu")
-        shards = wl.shard_params(params, cfg, m)
-        if kind == "grads":
-            toks = torch.from_numpy(tokens).long()
-            loss, grads = wl.value_and_grad(shards, toks, cfg, tp=m.tp)
-            ref_loss, ref = wl.value_and_grad(params, toks, cfg)
-            out[name] = {"loss": float(loss), "ref_loss": float(ref_loss),
-                         "grads": _np_tree(wl.gather_params(grads, cfg, m)),
-                         "ref": _np_tree(ref)}
-            continue
-        if kind == "loss":
-            with torch.no_grad():
-                loss = wl.loss_fn(shards, torch.from_numpy(tokens).long(),
-                                  cfg, tp=m.tp)
-            out[name] = {"loss": float(loss)}
-            continue
-        losses, moments = [], None
-        if kind == "sgd":
-            step, specs, tspec = wl.make_sharded_train_step(m, cfg)
-            for toks in tokens:
-                shards, loss = step(shards, torch.from_numpy(toks).long())
-                losses.append(float(loss))
-        else:
-            tx = optim.adamw(1e-3)
-            make = (wl.make_optax_train_step if kind == "adamw"
-                    else wl.make_accum_train_step)
-            step, init_opt, specs, tspec = make(
-                m, cfg, tx, *((4,) if kind == "accum" else ()))
-            opt = init_opt(shards)
-            for toks in tokens:
-                shards, opt, loss = step(shards, opt,
-                                         torch.from_numpy(toks).long())
-                losses.append(float(loss))
-            moments = sorted({str(t.dtype) for t in
-                              wl.tree_leaves(opt.mu) + wl.tree_leaves(opt.nu)})
-        out[name] = {"losses": losses, "token_spec": tspec,
-                     "dtypes": sorted({str(t.dtype)
-                                       for t in wl.tree_leaves(shards)}),
-                     "moments": moments,
-                     "params": _np_tree(wl.gather_params(shards, cfg, m))}
+    for name, (sizes, *case) in cases.items():
+        key = tuple(sizes.items())
+        if key not in meshes:
+            meshes[key] = tmesh.build_named_mesh(sizes, "gloo", "cpu")
+        out[name] = _train_case(meshes[key], *case)
     return out
 
+
+def ring_rank(m: tmesh.Mesh, cases: dict) -> dict:
+    """Ring attention on this rank's sequence chunks. ``m`` is {"sp": 4}
+    over four ranks; the same ranks also form {"dp": 2, "sp": 2} for sp = 2.
+    Each case ``name -> (sp, causal, flash, q, k, v)`` (numpy, the whole
+    sequence) returns this rank's chunk of out and of the gradients of
+    sum(out²) over every rank, the sp index, and the calls the rank made to
+    the flash forward and backward."""
+    torch.set_num_threads(1)
+    meshes = {4: m, 2: tmesh.build_named_mesh({"dp": 2, "sp": 2}, "gloo",
+                                              "cpu")}
+    calls = {"forward": 0, "backward": 0}
+
+    def counted(fn, what):
+        def wrapper(*args, **kwargs):
+            calls[what] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+    attention.flash_forward = counted(attention.flash_forward, "forward")
+    attention._flash_backward = counted(attention._flash_backward,
+                                        "backward")
+    out = {}
+    for name, (sp, causal, flash, *qkv) in cases.items():
+        axis = meshes[sp].sp
+        q, k, v = (tmesh.local_chunk(torch.from_numpy(x), axis, 1).clone()
+                   .requires_grad_(True) for x in qkv)
+        calls.update(forward=0, backward=0)
+        fn = (attention.ring_flash_attention if flash
+              else attention.ring_attention)
+        o = fn(q, k, v, axis, causal)
+        o.square().sum().backward()
+        out[name] = {"index": axis.index, "calls": dict(calls),
+                     **{n: t.detach().numpy() for n, t in
+                        (("out", o), ("dq", q.grad), ("dk", k.grad),
+                         ("dv", v.grad))}}
+    return out
+
+
+def shift_rank(m: tmesh.Mesh) -> dict:
+    """The collectives of sequence and fully-sharded parallelism over four
+    ranks: ring_shift and its backward, and shift by −1, on {"sp": 4}; the
+    axes' groups, and gather along dim 0 and its reduce-scatter backward
+    over fsdp, on {"fsdp": 2, "sp": 2}. Each rank's loss weighs what it
+    holds by 1 + its rank, so a gradient names the ranks it came from."""
+    torch.set_num_threads(1)
+    ring = tmesh.build_named_mesh({"sp": 4}, "gloo", "cpu")
+    x = torch.full((2, 3), float(m.rank), requires_grad=True)
+    y = tmesh.ring_shift(x, ring.sp)
+    (y * (1.0 + m.rank)).sum().backward()
+    back = tmesh.shift([torch.tensor([m.rank])], ring.sp, -1)[0]
+    two = tmesh.build_named_mesh({"fsdp": 2, "sp": 2}, "gloo", "cpu")
+    w = (torch.arange(6.0).reshape(2, 3) + 10 * m.rank).requires_grad_(True)
+    whole = tmesh.gather(w, two.fsdp, 0)
+    (whole * (1.0 + m.rank)).sum().backward()
+    return {"shifted": y.detach().numpy(), "shift_grad": x.grad.numpy(),
+            "back": int(back), "coord": dict(two.coord),
+            "sp_ranks": two.sp.ranks, "fsdp_ranks": two.fsdp.ranks,
+            "data_ranks": two.data.ranks, "batch_ranks": two.batch.ranks,
+            "gathered": whole.detach().numpy(),
+            "gather_grad": w.grad.numpy(),
+            "sums": [float(tmesh.all_reduce(torch.tensor([1.0 + m.rank]),
+                                            two.axis(names))[0])
+                     for names in (tmesh.DATA_AXES,
+                                   tmesh.DATA_AXES_BUT_FSDP)]}

@@ -11,6 +11,13 @@ Counterpart of ``tpusched/jaxbridge/attention.py``:
   kernels' plain versions, :func:`flash_attention_plain` and
   :func:`flash_backward_plain`. K2's work at bf16 d=128 follows a schedule
   built here, :func:`_dkdv_schedule`.
+- :func:`ring_attention` and :func:`ring_flash_attention` are sequence
+  parallelism over a mesh axis (``sp``): each rank holds one chunk of the
+  sequence, and K/V ride the ring of ranks while the queries stay. The
+  first is the blockwise online-softmax ring in f32; the second runs the
+  flash kernels on every (resident Q, visiting K/V) chunk pair and merges
+  the partials by their logsumexps (:func:`_combine_partials`), and its
+  backward is a second ring.
 
 GQA everywhere: k/v may carry h/n_rep heads, and no path expands them.
 """
@@ -18,12 +25,13 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from . import _build
+from .mesh import Axis, ring_shift, shift
 
 NEG_INF = float(np.finfo(np.float32).min)
 
@@ -392,3 +400,149 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
     """Alias of :func:`flash_attention`, the name the model resolves."""
     return flash_attention(q, k, v, causal)
+
+
+# -- ring attention (sequence parallelism over the sp mesh axis) ------------------
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   axis: Optional[Axis], causal: bool = True) -> torch.Tensor:
+    """Blockwise attention with K/V going round the ring of ``axis``: the
+    operands are this rank's chunks (b, s_loc, h, d), rank i holding the
+    sequence's chunk i. Each of the n steps attends the resident Q chunk
+    to the K/V chunk held, then hands that chunk on to index + 1 (the last
+    step's hop, whose chunk no step reads, is left out). Online softmax in
+    f32 makes the result exact; under ``causal`` a future chunk's logits
+    are masked to the finite ``NEG_INF``, so every exp() argument stays
+    finite and an all-masked row keeps l = 1. GQA is folded into the
+    einsums: K/V ride the ring kv_heads-sized. Gradients flow through
+    autograd, the hops' included (:func:`mesh.ring_shift`)."""
+    n, my = (axis.size, axis.index) if axis is not None else (1, 0)
+    b, s_loc, h, d = q.shape
+    kv = k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    q32 = q.float().reshape(b, s_loc, kv, h // kv, d)
+    # step 0 attends the diagonal chunk, where every causal row has an
+    # unmasked key: the running max is finite from the first step on
+    m = torch.full((b, kv, h // kv, s_loc, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q32)
+    rows = torch.arange(s_loc, device=q.device)
+    k_cur, v_cur = k, v
+    for t in range(n):
+        src = (my - t) % n                   # the global chunk now held
+        s = torch.einsum("bqgrd,bkgd->bgrqk", q32, k_cur.float()) * scale
+        if causal:
+            visible = (my * s_loc + rows[:, None]) >= (src * s_loc
+                                                       + rows[None, :])
+            s = torch.where(visible, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)             # masked: exp(NEG_INF − m) = 0
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        pv = torch.einsum("bgrqk,bkgd->bqgrd", p, v_cur.float())
+        acc = acc * alpha.permute(0, 3, 1, 2, 4) + pv
+        m = m_new
+        if t < n - 1:
+            k_cur, v_cur = ring_shift(k_cur, axis), ring_shift(v_cur, axis)
+    l = torch.where(l == 0.0, 1.0, l).permute(0, 3, 1, 2, 4)
+    return (acc / l).reshape(b, s_loc, h, d).to(q.dtype)
+
+
+def _combine_partials(o_acc: torch.Tensor, lse_acc: torch.Tensor,
+                      o_t: torch.Tensor, lse_t: torch.Tensor):
+    """Two normalized attention partials merged by their logsumexps: o
+    (b·h, s, d) f32, lse (b·h, s, 1) f32."""
+    lse_new = torch.logaddexp(lse_acc, lse_t)
+    return (o_acc * torch.exp(lse_acc - lse_new)
+            + o_t * torch.exp(lse_t - lse_new)), lse_new
+
+
+def _excluded(src: int, my: int, causal: bool) -> bool:
+    """Whether the pair (resident chunk ``my``, visiting chunk ``src``)
+    lies wholly in the causal future, so that no kernel may run on it: a
+    masked key whose logit exceeds the row's global lse would give
+    exp(s − lse) = inf there, and 0·inf poisons the accumulators."""
+    return causal and src > my
+
+
+def _ring_flash_forward(q, k, v, axis: Optional[Axis], causal: bool):
+    """(out (b, s, h, d) in q's dtype, lse (b·h, s, 1) f32) of the ring:
+    K1 on the diagonal pair (causal or not), then n − 1 hops of K/V, K1
+    non-causal on each visiting chunk not excluded, the partials combined
+    in f32 from K1's out in q's dtype. Every rank makes every hop."""
+    n, my = (axis.size, axis.index) if axis is not None else (1, 0)
+    b, _, h, _ = q.shape
+    out, lse = flash_forward(q, k, v, causal)
+    o_acc = _to_bh(out).float()
+    k_cur, v_cur = k, v
+    for t in range(1, n):
+        k_cur, v_cur = shift((k_cur, v_cur), axis)
+        if _excluded((my - t) % n, my, causal):
+            continue
+        o_t, lse_t = flash_forward(q, k_cur, v_cur, False)
+        o_acc, lse = _combine_partials(o_acc, lse, _to_bh(o_t).float(), lse_t)
+    return _from_bh(o_acc.to(q.dtype), b, h), lse
+
+
+class RingFlashAttention(torch.autograd.Function):
+    """Ring-flash attention with its own backward, the reference's second
+    ring: D = Σ dO∘O once for every pair; dQ accumulates in place in f32;
+    dK and dV accumulate in f32 buffers that travel with their chunk and
+    come home on one last hop. Each pair not excluded runs K2 then K3 with
+    the ring's global out and lse (on the CPU, their plain version)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, axis, causal):
+        out, lse = _ring_flash_forward(q, k, v, axis, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.axis, ctx.causal = axis, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        axis, causal = ctx.axis, ctx.causal
+        n, my = (axis.size, axis.index) if axis is not None else (1, 0)
+        do = do.contiguous()
+        dd = _to_bh((do.float() * out.float()).sum(dim=-1, keepdim=True))
+        dq, dk, dv = _flash_backward(q, k, v, out, lse, do, causal, dd)
+        dq, dk, dv = dq.float(), dk.float(), dv.float()
+        k_cur, v_cur = k, v
+        for t in range(1, n):
+            # the chunk and its gradient buffers hop together
+            k_cur, v_cur, dk, dv = shift((k_cur, v_cur, dk, dv), axis)
+            if _excluded((my - t) % n, my, causal):
+                continue
+            dq_t, dk_t, dv_t = _flash_backward(q, k_cur, v_cur, out, lse, do,
+                                               False, dd)
+            dq.add_(dq_t.float())
+            dk.add_(dk_t.float())
+            dv.add_(dv_t.float())
+        dk, dv = shift((dk, dv), axis)       # the last hop brings them home
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         axis: Optional[Axis],
+                         causal: bool = True) -> torch.Tensor:
+    """Ring attention whose work on each chunk pair is the flash kernels
+    (K1 forward, K2 and K3 backward), with gradients. A CUDA tensor goes
+    through the kernels or raises: the reference's fallback to the naive
+    ring, for shapes its Pallas kernels cannot tile, has no counterpart,
+    since the CUDA kernels take ragged lengths."""
+    _check_gqa(q, k, v)
+    return RingFlashAttention.apply(q, k, v, axis, causal)
+
+
+def make_ring_attention(axis: Optional[Axis],
+                        causal: bool = True) -> Callable:
+    """:func:`ring_attention` bound to the sp axis, as the model calls an
+    attention function: ``fn(q, k, v)``."""
+    return lambda q, k, v: ring_attention(q, k, v, axis, causal)
+
+
+def make_ring_flash_attention(axis: Optional[Axis],
+                              causal: bool = True) -> Callable:
+    """:func:`ring_flash_attention` bound to the sp axis."""
+    return lambda q, k, v: ring_flash_attention(q, k, v, axis, causal)

@@ -8,9 +8,12 @@ the model code calls the collectives itself: the two Megatron-style
 autograd functions around a column- and a row-parallel product
 (:func:`copy_to`, :func:`reduce_from`), a gather along the last dim whose
 backward takes this rank's slice (:func:`gather_last`) and its inverse
-(:func:`scatter_last`). A collective on an axis of size 1, or on no axis
-(``None``), is the identity, so one code path serves the sharded and the
-unsharded model.
+(:func:`scatter_last`); for fully-sharded weights a gather along any dim
+whose backward is the reduce-scatter sum (:func:`gather`), and for
+sequence parallelism the ring hop (:func:`ring_shift`, ``lax.ppermute``'s
+counterpart). A collective on an axis of size 1, or on no axis (``None``),
+is the identity, so one code path serves the sharded and the unsharded
+model.
 
 Ranks are laid out row-major over the axes in the order given, as the
 reference reshapes its device list: the last axis (``tp``) varies fastest,
@@ -39,6 +42,13 @@ import torch.multiprocessing as mp
 COORD_ANNOTATION = "topology.tpu.dev/coord"
 
 BATCH_AXES = ("slice", "dp", "fsdp")
+# the axes a loss and its gradients are summed over: the batch axes and sp
+# (each sp rank holds a share of the positions); a leaf whose fsdp
+# reduce-scatter has summed it over fsdp already is summed over the rest
+DATA_AXES = BATCH_AXES + ("sp",)
+DATA_AXES_BUT_FSDP = ("slice", "dp", "sp")
+# axis tuples that get a process group of their own, beside each axis
+GROUPED_AXES = (BATCH_AXES, DATA_AXES, DATA_AXES_BUT_FSDP)
 
 
 def parse_coord(s: str) -> Tuple[int, ...]:
@@ -114,9 +124,22 @@ class Mesh:
         return self.axis("tp")
 
     @property
+    def sp(self) -> Optional[Axis]:
+        return self.axis("sp")
+
+    @property
+    def fsdp(self) -> Optional[Axis]:
+        return self.axis("fsdp")
+
+    @property
     def batch(self) -> Optional[Axis]:
         """The batch axes (slice, dp, fsdp present on the mesh) as one."""
         return self.axis(BATCH_AXES)
+
+    @property
+    def data(self) -> Optional[Axis]:
+        """The batch axes and sp as one: what a loss is summed over."""
+        return self.axis(DATA_AXES)
 
 
 def _unravel(i: int, sizes: Sequence[int]) -> Tuple[int, ...]:
@@ -154,7 +177,8 @@ def build_named_mesh(axis_sizes: Dict[str, int], backend: str = "nccl",
     Initializes the default process group (``backend``, world size the
     mesh's, ``rank`` with ``init_method`` or ``store``) unless one is up, in
     which case its backend and world size must match. Then every rank
-    builds every axis's groups, and the batch axes' together, in one order.
+    builds every axis's groups, and those of each tuple in
+    :data:`GROUPED_AXES` with two or more axes on the mesh, in one order.
 
     ``backend="nccl"`` (the default) runs one card per rank, rank r on
     ``cuda:r``, and raises when there are more ranks than cards.
@@ -198,9 +222,10 @@ def build_named_mesh(axis_sizes: Dict[str, int], backend: str = "nccl",
     shape = dict(axis_sizes)
     sizes = tuple(shape.values())
     names_list = [(a,) for a in shape]
-    batch = tuple(a for a in BATCH_AXES if a in shape)
-    if len(batch) > 1:
-        names_list.append(batch)
+    for grouped in GROUPED_AXES:
+        present = tuple(a for a in grouped if a in shape)
+        if len(present) > 1 and present not in names_list:
+            names_list.append(present)
     groups = {}
     for names in names_list:
         # every rank creates every group of this axis, in one order
@@ -228,8 +253,10 @@ def mesh_from_slice_shape(shape: Tuple[int, ...], **kwargs) -> Mesh:
     return build_mesh(math.prod(shape), **kwargs)
 
 
-def _launched(rank: int, fn: Callable, axis_sizes: Dict[str, int], args,
+def _launched(rank: int, fn: Callable, axis_sizes: Dict[str, int],
               backend: str, device, workdir: str) -> None:
+    with open(os.path.join(workdir, "args.pkl"), "rb") as f:
+        args = pickle.load(f)
     store = dist.FileStore(os.path.join(workdir, "store"),
                            math.prod(axis_sizes.values()))
     mesh = build_named_mesh(axis_sizes, backend, device, rank=rank,
@@ -248,15 +275,20 @@ def launch(fn: Callable, axis_sizes: Dict[str, int], *args,
     """Run ``fn(mesh, *args)`` on every rank of a new mesh, one spawned
     process a rank, and return the ranks' results in rank order. The ranks
     meet through a ``FileStore`` in a new temporary directory under
-    ``workdir`` (the system's when None), so no port is opened, and pass
-    their results back through it; ``backend`` and ``device``
-    go to :func:`build_named_mesh`. ``fn`` must be importable (a module's
-    top-level function) and its result picklable. A rank that raises ends
-    the launch, and the exception is raised here."""
+    ``workdir`` (the system's when None), so no port is opened, and take
+    ``args`` and pass their results back through it; ``backend`` and
+    ``device`` go to :func:`build_named_mesh`. ``fn`` must be importable
+    (a module's top-level function) and its result picklable. A rank that
+    raises ends the launch, and the exception is raised here."""
     n = math.prod(axis_sizes.values())
     with tempfile.TemporaryDirectory(dir=workdir) as d:
-        mp.spawn(_launched, args=(fn, dict(axis_sizes), args, backend, device,
-                                  d), nprocs=n, join=True)
+        # the arguments go through a file: in the spawn arguments, anything
+        # past a pipe's buffer makes each rank's start wait until the rank
+        # before it has imported torch and read them
+        with open(os.path.join(d, "args.pkl"), "wb") as f:
+            pickle.dump(args, f)
+        mp.spawn(_launched, args=(fn, dict(axis_sizes), backend, device, d),
+                 nprocs=n, join=True)
         out = []
         for r in range(n):
             with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
@@ -344,6 +376,40 @@ def local_chunk(x: torch.Tensor, axis: Optional[Axis],
                     n // axis.size)
 
 
+def shift(tensors: Sequence[torch.Tensor], axis: Optional[Axis],
+          step: int = 1) -> List[torch.Tensor]:
+    """One ring hop of each tensor along ``axis``, as new tensors: this
+    rank's go to index + ``step`` and the ones of index − ``step`` come
+    back (mod the axis size), ``lax.ppermute`` with ``perm = [(i, (i +
+    step) % n)]``. Every send and receive is posted before any is waited
+    on, so no rank blocks in a send while its neighbour blocks in one too:
+    under NCCL in one ``batch_isend_irecv``. Gloo's point-to-point ops
+    read and write host memory only, so under gloo a CUDA tensor's hop is
+    staged through a host copy (one device-to-host and one host-to-device
+    copy of its bytes, where an all-gather would move the axis size
+    times them)."""
+    if not _live(axis):
+        return list(tensors)
+    n = axis.size
+    dst = axis.ranks[(axis.index + step) % n]
+    src = axis.ranks[(axis.index - step) % n]
+    if dist.get_backend(axis.group) == "nccl":
+        sends = [t.contiguous() for t in tensors]
+        recvs = [torch.empty_like(t) for t in sends]
+        ops = ([dist.P2POp(dist.isend, t, dst, axis.group) for t in sends]
+               + [dist.P2POp(dist.irecv, r, src, axis.group) for r in recvs])
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return recvs
+    sends = [t.detach().to("cpu").contiguous() for t in tensors]
+    recvs = [torch.empty_like(t) for t in sends]
+    works = ([dist.isend(t, dst, group=axis.group) for t in sends]
+             + [dist.irecv(r, src, group=axis.group) for r in recvs])
+    for work in works:
+        work.wait()
+    return [r.to(t.device) for r, t in zip(recvs, tensors)]
+
+
 class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
@@ -365,15 +431,33 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
-class _GatherLast(torch.autograd.Function):
+class _Gather(torch.autograd.Function):
+    """The ranks' chunks joined along ``dim``; backward, this rank's chunk
+    of the gradient, summed over the axis first when ``reduce`` (the
+    ranks' gradients of the whole differ)."""
+
     @staticmethod
-    def forward(ctx, x, axis):
-        ctx.axis = axis
-        return all_gather(x, axis, -1)
+    def forward(ctx, x, axis, dim, reduce):
+        ctx.axis, ctx.dim, ctx.reduce = axis, dim, reduce
+        return all_gather(x, axis, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return local_chunk(g, ctx.axis, -1).contiguous(), None
+        if ctx.reduce:
+            g = all_reduce(g, ctx.axis)
+        return (local_chunk(g, ctx.axis, ctx.dim).contiguous(), None, None,
+                None)
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return shift([x], axis)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return shift([g], ctx.axis, -1)[0], None
 
 
 class _ScatterLast(torch.autograd.Function):
@@ -402,7 +486,22 @@ def reduce_from(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
 def gather_last(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     """The ranks' chunks of the last dim joined forward; this rank's chunk
     of the gradient backward."""
-    return _GatherLast.apply(x, axis) if _live(axis) else x
+    return _Gather.apply(x, axis, -1, False) if _live(axis) else x
+
+
+def gather(x: torch.Tensor, axis: Optional[Axis], dim: int) -> torch.Tensor:
+    """The ranks' chunks of ``dim`` joined forward; backward, the sum of the
+    ranks' gradients of the whole over ``axis``, this rank's chunk of it
+    (a reduce-scatter). Where the ranks hold different data, as fsdp's
+    weight gathers and the sequence gathers of sp do, each rank's gradient
+    of the whole is a partial one."""
+    return _Gather.apply(x, axis, dim, True) if _live(axis) else x
+
+
+def ring_shift(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """:func:`shift` by one with gradients: the gradient hops the other
+    way, as the transpose of ``lax.ppermute`` does."""
+    return _RingShift.apply(x, axis) if _live(axis) else x
 
 
 def scatter_last(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:

@@ -26,7 +26,9 @@ With ``mesh`` the engine serves tensor-parallel, SPMD: every rank of the
 mesh builds the same engine from the full weights, keeps its shard of them
 (``workload.shard_params``) and its kv_heads/tp of the arena, and runs the
 same ``submit``/``tick`` sequence; each host decision (a sampled token, a
-speculative round's proposals and outcome) is tp rank 0's, broadcast.
+speculative round's proposals and outcome) is tp rank 0's, broadcast. An
+fsdp or sp axis of size > 1 is refused: the engine's forward neither
+gathers sharded weights nor splits the sequence.
 
 Pad keys land at positions >= the prompt's true length, which the causal
 cursor masks until the decode step overwrites them. Idle slots decode
@@ -107,7 +109,8 @@ class ServeEngine:
     ``draft_params``/``draft_cfg`` every tick is a speculative round of
     ``spec_k`` proposals. Runs on the CUDA card unless ``device="cpu"``;
     ``params`` and ``draft_params`` must already be there. With ``mesh``
-    (axes in slice, dp, tp; see the module docstring) it runs on
+    (axes in slice, dp, tp, and fsdp or sp of size 1; see the module
+    docstring) it runs on
     ``mesh.device`` and takes the full weights from anywhere."""
 
     def __init__(self, params: Params, cfg: ModelConfig, *,
@@ -122,6 +125,12 @@ class ServeEngine:
                  spec_k: int = 4, device=None):
         if mesh is not None:
             check_mesh_axes(mesh)
+            for a in ("fsdp", "sp"):
+                if mesh.shape.get(a, 1) > 1:
+                    # the engine's forward neither gathers fsdp-sharded
+                    # weights nor splits the sequence over sp
+                    raise _not_ported(f"serving over the {a!r} mesh axis",
+                                      "Parallelism")
             if (device is not None and mesh.device is not None
                     and resolve_device(device) != mesh.device):
                 raise ValueError(f"the mesh runs on {mesh.device}, not "

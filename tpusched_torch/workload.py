@@ -11,13 +11,16 @@ work. Training: ``loss_fn``, ``value_and_grad`` (autograd over the dict's
 tensors), ``sgd_train_step``, and ``make_optax_train_step``/
 ``make_accum_train_step`` around an optimizer from ``optim``.
 
-Tensor and data parallelism (``mesh``): ``param_specs`` gives each leaf the
-reference's partition spec, ``shard_params`` cuts this rank's slice, and the
-forward, decode and loss take the tp axis (``tp=``) and run one code path
-for tp = 1 and tp > 1, with head counts read from the shard's weights and
-the collectives of :mod:`.mesh` after the row-parallel products. The three
-train steps take meshes whose axes are in {slice, dp, tp}; an fsdp, sp, ep
-or pp axis raises until its ROADMAP item is ported.
+Parallelism (``mesh``): ``param_specs`` gives each leaf the reference's
+partition spec, ``shard_params`` cuts this rank's slice, and the forward,
+decode and loss take the tp axis (``tp=``) and run one code path for tp = 1
+and tp > 1, with head counts read from the shard's weights and the
+collectives of :mod:`.mesh` after the row-parallel products. The forward
+and loss also take the fsdp axis (``fsdp=``: each sharded weight gathered
+where it is used, its gradient reduce-scattered) and the sp axis (``sp=``:
+this rank's chunk of the sequence, attention by :class:`TrainShardings`).
+The three train steps take meshes whose axes are in {slice, dp, fsdp, sp,
+tp}; an ep or pp axis raises until its ROADMAP item is ported.
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no explicit device it raises.
@@ -25,6 +28,7 @@ Every entry point runs on the CUDA card unless the caller passes
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -34,8 +38,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import attention
-from .mesh import (BATCH_AXES, Axis, Mesh, all_reduce, copy_to, gather_last,
-                   local_chunk, reduce_from, scatter_last)
+from .mesh import (BATCH_AXES, DATA_AXES_BUT_FSDP, Axis, Mesh, all_reduce,
+                   copy_to, gather, gather_last, local_chunk, reduce_from,
+                   scatter_last)
 from .mesh import all_gather as mesh_all_gather
 
 Params = Dict[str, Any]
@@ -382,9 +387,11 @@ def _finish_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
 
 def _block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
            attn_fn: Optional[Callable] = None, dropless: bool = False,
-           tp: Optional[Axis] = None):
+           tp: Optional[Axis] = None, pos_offset: int = 0,
+           fsdp: Optional[Axis] = None):
+    p = _gather_fsdp(p, cfg, fsdp)
     h = _rmsnorm(x, p["ln_attn"])
-    q, k, v = _qkv(h, p, cfg, tp=tp)
+    q, k, v = _qkv(h, p, cfg, pos_offset, tp)
     if attn_fn is None:
         attn_fn = attention.naive_attention
     return _finish_block(x, p, attn_fn(q, k, v), cfg, dropless, tp)
@@ -398,47 +405,82 @@ def _resolve_attn_fn(cfg: ModelConfig, attn_fn: Optional[Callable] = None):
     return attention.naive_attention
 
 
-def embed(params: Params, tokens: torch.Tensor,
-          tp: Optional[Axis] = None) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _fsdp_dims(cfg: ModelConfig) -> Dict[str, Optional[int]]:
+    """By leaf name (the top-level ones and a layer's), the dim that
+    :func:`param_specs` puts over fsdp, or None for a leaf whole over it."""
+    specs = param_specs(cfg, Mesh({"fsdp": 1}))
+    named = {**{k: specs[k] for k in ("embed", "out", "ln_f")},
+             **specs["layers"][0]}
+    return {k: spec.index("fsdp") if "fsdp" in spec else None
+            for k, spec in named.items()}
+
+
+def _gather_fsdp(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                 fsdp: Optional[Axis]) -> Dict[str, torch.Tensor]:
+    """The leaves of ``p`` (a layer, or the top-level leaves) whole: each
+    leaf sharded over fsdp gathered along its dim, its gradient
+    reduce-scattered back (:func:`mesh.gather`). Called where the weights
+    are used, inside a checkpointed block too, so remat gathers again, as
+    ZeRO-3 does."""
+    if fsdp is None or fsdp.size == 1:
+        return p
+    dims = _fsdp_dims(cfg)
+    return {k: w if dims[k] is None else gather(w, fsdp, dims[k])
+            for k, w in p.items()}
+
+
+def embed(params: Params, tokens: torch.Tensor, tp: Optional[Axis] = None,
+          cfg: Optional[ModelConfig] = None,
+          fsdp: Optional[Axis] = None) -> torch.Tensor:
     """The token embeddings (b, s, d); under tp each rank holds d/tp of the
-    columns and the rows are joined across tp."""
-    return gather_last(params["embed"][tokens], tp)
+    columns and the rows are joined across tp. Under fsdp (with ``cfg``)
+    the table's vocab rows are gathered first."""
+    table = _gather_fsdp({"embed": params["embed"]}, cfg, fsdp)["embed"]
+    return gather_last(table[tokens], tp)
 
 
 def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig,
-            tp: Optional[Axis] = None) -> torch.Tensor:
+            tp: Optional[Axis] = None,
+            fsdp: Optional[Axis] = None) -> torch.Tensor:
     """Logits of the final hidden states ``x`` (already normed). Under tp
     ``out`` is row-parallel and the logits are summed over tp, or, with
     ``cfg.vocab_parallel_loss``, column-parallel and each rank keeps its
-    vocab/tp of them (for :func:`_cross_entropy` with ``vocab_axis``)."""
+    vocab/tp of them (for :func:`_nll` with ``vocab_axis``).
+    Under fsdp ``out`` is gathered first."""
+    out = _gather_fsdp({"out": params["out"]}, cfg, fsdp)["out"]
     if cfg.vocab_parallel_loss:
-        return copy_to(x, tp) @ params["out"]
-    return reduce_from(scatter_last(x, tp) @ params["out"], tp)
+        return copy_to(x, tp) @ out
+    return reduce_from(scatter_last(x, tp) @ out, tp)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             attn_fn: Optional[Callable] = None, with_aux: bool = False,
-            dropless: bool = False, tp: Optional[Axis] = None):
+            dropless: bool = False, tp: Optional[Axis] = None,
+            fsdp: Optional[Axis] = None, pos_offset: int = 0):
     """Logits (b, s, vocab) for tokens (b, s), and with ``with_aux`` also
     the MoE aux loss summed over layers (an f32 scalar, 0 for a dense
     model). ``dropless`` routes MoE layers as inference does. With
     ``cfg.remat`` and gradients on, each block is checkpointed: its
     activations are dropped after the forward and recomputed in the
     backward, as under the reference's ``jax.checkpoint`` (so flash
-    attention's forward kernel runs twice per layer and step). ``tp``: the
-    tensor-parallel axis of sharded ``params`` (``shard_params``)."""
+    attention's forward kernel runs twice per layer and step). ``tp`` and
+    ``fsdp``: the tensor-parallel and fully-sharded axes of sharded
+    ``params`` (``shard_params``). ``pos_offset``: the position of
+    ``tokens``' first column, a sequence chunk's under sp."""
     attn_fn = _resolve_attn_fn(cfg, attn_fn)
     remat = cfg.remat and torch.is_grad_enabled()
-    x = embed(params, tokens, tp)
+    x = embed(params, tokens, tp, cfg, fsdp)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params["layers"]:
         if remat:
             x, aux = checkpoint(_block, x, layer, cfg, attn_fn, dropless, tp,
-                                use_reentrant=False)
+                                pos_offset, fsdp, use_reentrant=False)
         else:
-            x, aux = _block(x, layer, cfg, attn_fn, dropless, tp)
+            x, aux = _block(x, layer, cfg, attn_fn, dropless, tp, pos_offset,
+                            fsdp)
         aux_total = aux_total + aux
-    logits = unembed(params, _rmsnorm(x, params["ln_f"]), cfg, tp)
+    logits = unembed(params, _rmsnorm(x, params["ln_f"]), cfg, tp, fsdp)
     return (logits, aux_total) if with_aux else logits
 
 
@@ -480,7 +522,13 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 
 def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                    vocab_axis: Optional[Axis] = None) -> torch.Tensor:
-    """Token-mean NLL: f32 log-softmax, the target's entry, the mean. With
+    """Token-mean NLL (:func:`_nll`'s mean)."""
+    return _nll(logits, targets, vocab_axis).mean()
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor,
+         vocab_axis: Optional[Axis] = None) -> torch.Tensor:
+    """Each position's NLL, f32: log-softmax, the target's entry. With
     ``vocab_axis`` the logits are this rank's vocab/tp columns and the loss
     takes the logsumexp form over the sharded vocabulary, as the
     reference's: the max and the sum of exponentials are reduced over the
@@ -489,7 +537,7 @@ def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     logits = logits.float()
     if vocab_axis is None or vocab_axis.size == 1:
         logp = torch.log_softmax(logits, dim=-1)
-        return -logp.gather(-1, targets[..., None]).mean()
+        return -logp.gather(-1, targets[..., None])[..., 0]
     m = all_reduce(logits.detach().amax(dim=-1, keepdim=True), vocab_axis,
                    "max")
     lse = torch.log(reduce_from(torch.exp(logits - m).sum(dim=-1),
@@ -499,34 +547,50 @@ def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     mine = (local >= 0) & (local < v)
     picked = logits.gather(-1, local.clamp(0, v - 1)[..., None])[..., 0]
     target_logit = reduce_from(torch.where(mine, picked, 0.0), vocab_axis)
-    return (lse - target_logit).mean()
+    return lse - target_logit
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-            attn_fn: Optional[Callable] = None,
-            tp: Optional[Axis] = None) -> torch.Tensor:
-    """Next-token loss over the full sequence's logits plus
-    ``cfg.moe_aux_weight`` times the MoE aux loss (0 for a dense model),
-    through the compute-dtype cast (so master-dtype gradients come back).
-    With ``cfg.vocab_parallel_loss`` under tp, the vocab-parallel form."""
+            attn_fn: Optional[Callable] = None, tp: Optional[Axis] = None,
+            sp: Optional[Axis] = None,
+            fsdp: Optional[Axis] = None) -> torch.Tensor:
+    """Next-token loss, the mean over every row's S − 1 predicted positions,
+    plus ``cfg.moe_aux_weight`` times the MoE aux loss (0 for a dense
+    model), through the compute-dtype cast (so master-dtype gradients come
+    back). With ``cfg.vocab_parallel_loss`` under tp, the vocab-parallel
+    form. Under ``sp`` the rank runs its chunk of the sequence (rotary from
+    the chunk's offset): a position's target is the next token of the whole
+    sequence, so the last position of chunk i takes chunk i + 1's first
+    token and only the last chunk drops one, and the rank returns its share
+    of the mean over all B × (S − 1) positions; the sum over sp is the
+    loss, never a mean of the ranks' means."""
     params = cast_params_for_compute(params, cfg)
-    logits, aux = forward(params, tokens, cfg, attn_fn, with_aux=True, tp=tp)
+    b, s = tokens.shape
+    n, i = (sp.size, sp.index) if sp is not None else (1, 0)
+    if s % n:
+        raise ValueError(f"seq {s} does not split over sp of {n}")
+    lo, hi = i * (s // n), (i + 1) * (s // n)
+    targets = tokens[:, lo + 1:hi + 1]
+    logits, aux = forward(params, tokens[:, lo:hi], cfg, attn_fn,
+                          with_aux=True, tp=tp, fsdp=fsdp, pos_offset=lo)
     vocab_axis = tp if cfg.vocab_parallel_loss else None
-    return (_cross_entropy(logits[:, :-1], tokens[:, 1:], vocab_axis)
-            + cfg.moe_aux_weight * aux)
+    nll = _nll(logits[:, :targets.shape[1]], targets, vocab_axis)
+    return nll.sum() / (b * (s - 1)) + cfg.moe_aux_weight * aux
 
 
 def value_and_grad(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                    attn_fn: Optional[Callable] = None,
-                   tp: Optional[Axis] = None):
+                   tp: Optional[Axis] = None, sp: Optional[Axis] = None,
+                   fsdp: Optional[Axis] = None):
     """(loss, grads) of :func:`loss_fn`, grads in the parameter tree's
     structure and dtypes; ``params`` themselves are left untouched. Under
     tp the grads are this rank's shards' and every replicated leaf's full
-    gradient."""
+    gradient; under fsdp a sharded leaf's gradient is summed over fsdp
+    (the reduce-scatter); under sp every grad is this rank's share."""
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     it = iter(leaves)
     loss = loss_fn(tree_map(lambda _: next(it), params), tokens, cfg, attn_fn,
-                   tp)
+                   tp, sp, fsdp)
     grads = iter(torch.autograd.grad(loss, leaves))
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
@@ -542,11 +606,12 @@ def sgd_train_step(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 # -- shardings -------------------------------------------------------------------
 #
 # Axis conventions, as the reference's (any subset may be on the mesh):
-# slice and dp (and fsdp) shard the batch, tp the model. The port runs slice,
-# dp and tp; an fsdp, sp, ep or pp axis raises until its ROADMAP item lands.
+# slice, dp and fsdp shard the batch, fsdp also every matrix's non-tp dim
+# (ZeRO-3), sp the sequence, tp the model. An ep or pp axis raises until
+# its ROADMAP item lands.
 
-PORTED_AXES = ("slice", "dp", "tp")
-NOT_PORTED_AXES = ("fsdp", "sp", "ep", "pp")
+PORTED_AXES = ("slice", "dp", "fsdp", "sp", "tp")
+NOT_PORTED_AXES = ("ep", "pp")
 
 
 def check_mesh_axes(mesh: Optional[Mesh]) -> None:
@@ -556,8 +621,7 @@ def check_mesh_axes(mesh: Optional[Mesh]) -> None:
         if a in NOT_PORTED_AXES:
             raise NotImplementedError(
                 f"the {a!r} mesh axis is not ported yet: ROADMAP "
-                f"'Parallelism' (Queue 1 item 3: fsdp, then sp ring and "
-                f"ring-flash, ep, pp)")
+                f"'Parallelism' (Queue 1 item 3: ep, then pp)")
         if a not in PORTED_AXES:
             raise ValueError(f"unknown mesh axis {a!r}")
 
@@ -624,39 +688,91 @@ def gather_params(shards: Params, cfg: ModelConfig, mesh: Mesh) -> Params:
     return tree_map(join, shards, param_specs(cfg, mesh))
 
 
-class _ShardedGrads:
-    """(loss, grads) of this rank's share of a global batch on ``mesh``:
-    the batch's rows split over the batch axes, gradients and loss averaged
-    over them (one f32 all-reduce), the model sharded over tp."""
+def _sequence_gathered(attn_fn: Callable, sp: Optional[Axis]) -> Callable:
+    """``attn_fn`` over the whole sequence on every sp rank: q, k and v
+    gathered along the sequence, attention, this rank's rows kept; the
+    gradients of q, k and v reduce-scattered back. What GSPMD makes of an
+    attention it cannot split (the reference's naive and flash under its sp
+    sharding constraint)."""
+    def fn(q, k, v):
+        return local_chunk(attn_fn(*(gather(t, sp, 1) for t in (q, k, v))),
+                           sp, 1)
+    return fn
+
+
+class TrainShardings:
+    """What a train step on ``mesh`` needs, derived once from (mesh, cfg),
+    as the reference's ``TrainShardings``: the axes (tp; sp; fsdp; the
+    batch axes, which split the global batch's rows) and the attention,
+    resolved for sp: ``ring`` is :func:`attention.make_ring_attention` and
+    ``ringflash`` :func:`attention.make_ring_flash_attention` on the sp
+    axis, ``naive`` and ``flash`` run over the gathered sequence
+    (:func:`_sequence_gathered`); without sp every name resolves as on one
+    card (ring and ringflash to naive)."""
 
     def __init__(self, mesh: Optional[Mesh], cfg: ModelConfig):
         check_mesh_axes(mesh)
         self.cfg = cfg
-        self.tp = mesh.tp if mesh is not None else None
-        self.batch = mesh.batch if mesh is not None else None
-        if cfg.n_experts and self.batch is not None and self.batch.size > 1:
+        self.mesh = mesh
+        axis = mesh.axis if mesh is not None else (lambda _: None)
+        self.tp, self.sp, self.fsdp = axis("tp"), axis("sp"), axis("fsdp")
+        self.batch = axis(BATCH_AXES)
+        if self.sp is None:
+            self.attn_fn = _resolve_attn_fn(cfg)
+        elif cfg.attn == "ring":
+            self.attn_fn = attention.make_ring_attention(self.sp)
+        elif cfg.attn == "ringflash":
+            self.attn_fn = attention.make_ring_flash_attention(self.sp)
+        else:
+            self.attn_fn = _sequence_gathered(_resolve_attn_fn(cfg), self.sp)
+        if cfg.n_experts and any(a is not None and a.size > 1
+                                 for a in (self.batch, self.sp)):
             # the reference's capacity dispatch ranks every token of the
             # GLOBAL batch for expert slots; a rank's share alone would drop
             # other tokens
             raise NotImplementedError(
-                "MoE capacity routing over a data-parallel batch is not "
-                "ported yet: ROADMAP 'Parallelism' (ep)")
+                "MoE capacity routing over a data-parallel batch or an sp "
+                "split sequence is not ported yet: ROADMAP 'Parallelism' "
+                "(ep)")
 
     def local(self, tokens: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's rows of the global batch (the whole sequence: the
+        loss takes the sp chunk)."""
         return local_chunk(tokens, self.batch, dim)
 
     def __call__(self, params: Params, tokens: torch.Tensor):
-        return value_and_grad(params, tokens, self.cfg, tp=self.tp)
+        """(loss, grads) of this rank's rows, as :func:`value_and_grad`."""
+        return value_and_grad(params, tokens, self.cfg, self.attn_fn,
+                              self.tp, self.sp, self.fsdp)
 
-    def mean(self, loss: torch.Tensor, grads: List[torch.Tensor]):
-        """Loss and f32 grads averaged over the batch axes."""
-        if self.batch is None or self.batch.size == 1:
+    def mean(self, loss: torch.Tensor, grads: Params):
+        """The global loss and f32 gradients (a tree) from this rank's:
+        summed over sp, averaged over the batch axes. The loss and every
+        leaf whole over fsdp go in one f32 all-reduce over the batch axes
+        and sp; the fsdp-sharded leaves, which their reduce-scatter has
+        summed over fsdp already, in one over the other axes, since summing
+        them over fsdp again would count them fsdp times."""
+        if self.mesh is None:
             return loss, grads
-        flat = all_reduce(torch.cat([loss.float().reshape(1)]
-                                    + [g.float().reshape(-1) for g in grads]),
-                          self.batch) / self.batch.size
-        out = list(torch.split(flat[1:], [g.numel() for g in grads]))
-        return flat[0], [o.reshape(g.shape) for o, g in zip(out, grads)]
+        n = self.batch.size if self.batch is not None else 1
+        sharded = self.fsdp is not None and self.fsdp.size > 1
+        over_fsdp = [False] + tree_leaves(tree_map(
+            lambda _, spec: sharded and "fsdp" in spec, grads,
+            param_specs(self.cfg, self.mesh)))
+        leaves = [loss.reshape(1)] + tree_leaves(grads)
+        out = list(leaves)
+        for fsdp_leaf, axis in ((False, self.mesh.data),
+                                (True, self.mesh.axis(DATA_AXES_BUT_FSDP))):
+            idx = [i for i, o in enumerate(over_fsdp) if o == fsdp_leaf]
+            if not idx or (n == 1 and (axis is None or axis.size == 1)):
+                continue
+            flat = all_reduce(torch.cat([leaves[i].float().reshape(-1)
+                                         for i in idx]), axis) / n
+            for i, t in zip(idx, torch.split(flat, [leaves[i].numel()
+                                                    for i in idx])):
+                out[i] = t.reshape(leaves[i].shape)
+        it = iter(out[1:])
+        return out[0][0], tree_map(lambda _: next(it), grads)
 
 
 def _specs_or_none(mesh: Optional[Mesh], cfg: ModelConfig):
@@ -666,19 +782,19 @@ def _specs_or_none(mesh: Optional[Mesh], cfg: ModelConfig):
 
 def make_sharded_train_step(mesh: Optional[Mesh], cfg: ModelConfig,
                             lr: float = 1e-3):
-    """SGD over ``mesh`` (axes in slice, dp, tp): ``step(params, tokens) ->
-    (params, loss)`` on this rank's shards (:func:`shard_params`) and the
-    GLOBAL batch (B, S), whose rows the step splits over the batch axes;
-    gradients and the loss are averaged over them (the loss is the global
-    mean). Returns (step, param_specs, token_spec) where the reference
-    returns ``NamedSharding``s."""
-    vg = _ShardedGrads(mesh, cfg)
+    """SGD over ``mesh`` (axes in slice, dp, fsdp, sp, tp):
+    ``step(params, tokens) -> (params, loss)`` on this rank's shards
+    (:func:`shard_params`) and the GLOBAL batch (B, S), whose rows the step
+    splits over the batch axes and whose sequence the loss splits over sp;
+    gradients and the loss are averaged over the batch axes and summed over
+    sp (:meth:`TrainShardings.mean`: the loss is the global mean). Returns
+    (step, param_specs, token_spec) where the reference returns
+    ``NamedSharding``s."""
+    ts = TrainShardings(mesh, cfg)
 
     def step(params, tokens):
-        loss, grads = vg(params, vg.local(tokens))
-        loss, flat = vg.mean(loss, tree_leaves(grads))
-        it = iter(flat)
-        new = tree_map(lambda p: p - lr * next(it).to(p.dtype), params)
+        loss, grads = ts.mean(*ts(params, ts.local(tokens)))
+        new = tree_map(lambda p, g: p - lr * g.to(p.dtype), params, grads)
         return new, loss
 
     return (step, *_specs_or_none(mesh, cfg))
@@ -691,13 +807,11 @@ def make_optax_train_step(mesh: Optional[Mesh], cfg: ModelConfig, tx):
     param_specs, token_spec), both specs None without a mesh. On a mesh as
     :func:`make_sharded_train_step`; ``tx.init`` runs on the shards, so the
     optimizer state mirrors each (AdamW is elementwise)."""
-    vg = _ShardedGrads(mesh, cfg)
+    ts = TrainShardings(mesh, cfg)
 
     def step(params, opt_state, tokens):
-        loss, grads = vg(params, vg.local(tokens))
-        loss, flat = vg.mean(loss, tree_leaves(grads))
-        it = iter(flat)
-        tx.update_(tree_map(lambda p: next(it).to(p.dtype), params),
+        loss, grads = ts.mean(*ts(params, ts.local(tokens)))
+        tx.update_(tree_map(lambda p, g: g.to(p.dtype), params, grads),
                    opt_state, params)
         return params, opt_state, loss
 
@@ -714,23 +828,21 @@ def make_accum_train_step(mesh: Optional[Mesh], cfg: ModelConfig, tx,
     microbatch's B splits over the batch axes (the token spec is (None,
     batch, None)) and the sums are averaged over them once a step. Returns
     as :func:`make_optax_train_step`."""
-    vg = _ShardedGrads(mesh, cfg)
+    ts = TrainShardings(mesh, cfg)
 
     def step(params, opt_state, token_stack):
-        token_stack = vg.local(token_stack, 1)
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for p in tree_leaves(params)]
+        token_stack = ts.local(token_stack, 1)
+        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                             device=p.device), params)
         losses = []
         for tokens in token_stack:
-            loss, grads = vg(params, tokens)
-            for a, g in zip(acc, tree_leaves(grads)):
-                a.add_(g.float())
+            loss, grads = ts(params, tokens)
+            tree_map(lambda a, g: a.add_(g.float()), acc, grads)
             losses.append(loss)
         n_micro = token_stack.shape[0]
-        loss, flat = vg.mean(torch.stack(losses).mean(),
-                             [a / n_micro for a in acc])
-        it = iter(flat)
-        tx.update_(tree_map(lambda p: next(it).to(p.dtype), params),
+        loss, grads = ts.mean(torch.stack(losses).mean(),
+                              tree_map(lambda a: a / n_micro, acc))
+        tx.update_(tree_map(lambda p, g: g.to(p.dtype), params, grads),
                    opt_state, params)
         return params, opt_state, loss
 
