@@ -119,11 +119,33 @@ Phases, in order; any failure raises and the script exits non-zero:
     loss within 1e-5 of the whole model's with naive attention, K1
     launches a rank as in phase 24 at tiny's 2 layers. Then K1, K2 and K3
     non-causal at the ring's chunk are timed as in phase 7 (bounds: whole
-    (s, s, d) products). Phases 23-25 run gloo through the host too.
+    (s, s, d) products). Phases 23-25 run gloo through the host too;
+26. expert parallelism at full width: ``mixtral_like(seq=1024)`` on
+    {"dp": 2, "ep": 2} (four gloo ranks), a seeded global batch of 2 rows,
+    three SGD steps at phase 10's lr, against one process on the same
+    weights and batch: losses within 2e-2 and falling, a positive aux, 4
+    of the 8 experts a rank, no flash launch; then ``mixtral_like`` served
+    on {"ep": 2} with phase 8's traffic and geometry: the ranks agree, each
+    stream equals phase 8's or first differs at a near tie, no flash
+    launch; peak memory a rank and step times printed;
+27. the GPipe pipeline at full width: ``llama_like_big(seq=4096)`` on
+    {"pp": 2}, a seeded global batch of 4, 4 microbatches, three SGD steps:
+    K1 = K2 = K3 = 6·4 = 24 a stage a step (no remat inside a stage), the
+    first loss within 2e-2 of one process's ``loss_fn`` on the same
+    weights and batch, falling losses; peak memory a stage and step times
+    printed;
+28. tiny f32 (TF32 off) on the reference dryrun's meshes: MoE (4 experts,
+    top-2) on {"dp": 2, "ep": 2, "tp": 2} at capacity factors 1.25 and 0.5
+    (drops present) and tiny on {"pp": 2, "dp": 4} with 2 microbatches,
+    each loss within 1e-5 relative of the whole model's; a tiny flash
+    pipeline on {"pp": 2}: (L/pp)·n_micro launches of each kernel a stage
+    and every gradient within 1e-5 of the naive pipeline's. The times of
+    phases 26-28 are gloo through the host with every rank on one card.
 
 The second-to-last line is the ``kernels`` JSON object (each kernel also
-with ``ring_launches`` from phase 24 and ``ring_shape`` times), the last
-line the ``ok`` JSON object. Imports neither JAX nor the JAX package.
+with ``ring_launches`` from phase 24, ``ring_shape`` times and
+``pp_launches`` from phases 27 and 28), the last line the ``ok`` JSON
+object. Imports neither JAX nor the JAX package.
 
     python3 chip_smoke.py --ab DIR
 
@@ -837,7 +859,8 @@ def phase_moe_training(measure, workload):
     batch with a finite, falling loss and a finite, positive aux loss after
     them; then measure.measure_train_step. Last, the card against the CPU:
     loss and every gradient (the router's included) of tiny f32 with 4
-    experts, TF32 off, within 1e-4 relative (L2, per leaf)."""
+    experts, TF32 off, within 1e-4 relative (L2, per leaf). Returns the
+    steps' peak memory and times."""
     cfg = workload.ModelConfig.mixtral_like(seq=1024)
     batch = 1
     params = workload.init_params(
@@ -897,6 +920,7 @@ def phase_moe_training(measure, workload):
           f"{r_err:.3e} (tol 1e-4)")
     check(loss_err < 1e-4 and g_err < 1e-4,
           "MoE gradients on the card disagree with the CPU's")
+    return {"peak_mem_gib": peak_gib, "step_s": step_s}
 
 
 def phase_moe_decode(measure, workload, kv_cache_dtype=None):
@@ -1642,7 +1666,7 @@ def tp_serve(mesh, name):
     done = eng.run_until_drained()
     torch.cuda.synchronize()
     drain_s = time.perf_counter() - t0
-    check_completions(done, reqs, cfg.vocab, f"{name} at tp {mesh.tp.size}")
+    check_completions(done, reqs, cfg.vocab, f"{name} on {mesh.shape}")
     return dict(launches=attention.FLASH_FWD_LAUNCHES, prefills=eng.prefills,
                 ticks=eng.tick_count, kv_heads=int(eng.cache[0]["k"].shape[2]),
                 tokens={c.rid: c.tokens for c in done},
@@ -2260,6 +2284,359 @@ def phase_dryrun(attention, workload, tmesh, workdir):
 
 
 
+# -- phases 26-28: expert and pipeline parallelism -------------------------------
+
+EP_MESH = {"dp": 2, "ep": 2}            # phase 26's training
+EP_SERVE_MESH = {"ep": 2}               # phase 26's serving
+EP_LR = 0.1                             # phase 10's SGD
+PP_MESH = {"pp": 2}                     # phase 27
+PP_MICRO = 4
+PP_LR = 1.0
+DRYRUN_MOE_MESH = {"dp": 2, "ep": 2, "tp": 2}   # phase 28, the reference's
+DRYRUN_PP_MESH = {"pp": 2, "dp": 4}
+
+
+def ep_cfg(workload):
+    """Phase 26's training model: phase 10's mixtral_like(seq=1024)."""
+    return workload.ModelConfig.mixtral_like(seq=1024)
+
+
+def ep_steps(attention, workload, mesh=None, steps=3):
+    """Three SGD steps (lr EP_LR) of :func:`ep_cfg` on a seeded global batch
+    of 2 rows through make_sharded_train_step, on one process or as this
+    rank's shards on ``mesh``: the losses, step times, flash launches of
+    the steps, the aux after them (the global batch's), the experts a rank
+    holds and the peak memory of the steps."""
+    cfg = ep_cfg(workload)
+    params = seeded_params(workload, cfg)
+    tokens = torch.as_tensor(np.random.default_rng(26).integers(
+        0, cfg.vocab, (2, cfg.seq)), device="cuda")
+    step, _, _ = workload.make_sharded_train_step(mesh, cfg, lr=EP_LR)
+    ts = workload.TrainShardings(mesh, cfg)
+    if mesh is not None:
+        params = workload.shard_params(params, cfg, mesh)
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(attention)
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, loss = step(params, tokens)
+        losses.append(loss.item())             # the fence
+        step_s.append(time.perf_counter() - t0)
+    launches = bwd_counts(attention)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.no_grad():
+        _, aux = workload.forward(params, ts.local(tokens), cfg,
+                                  with_aux=True, moe=ts.moe)
+    return dict(losses=losses, step_s=step_s, launches=launches,
+                aux=aux.item(), experts=params["layers"][0]["w_gate"].shape[0],
+                peak_mem_gib=peak)
+
+
+def ep_train_rank(mesh):
+    from tpusched_torch import attention, workload
+    return ep_steps(attention, workload, mesh)
+
+
+def ep_serve_rank(mesh):
+    return {"mixtral_like": tp_serve(mesh, "mixtral_like")}
+
+
+def phase_ep(attention, decode, serve, workload, tmesh, moe_mono, moe_train,
+             workdir):
+    """Phase 26: expert parallelism at full width, gloo ranks sharing the
+    card. Training: :func:`ep_steps` on one process, then on EP_MESH (four
+    ranks): losses within 2e-2 of the one process's and falling, a positive
+    aux, E/ep experts a rank, no flash launch (mixtral_like attends
+    naively). Serving: phase 8's traffic on EP_SERVE_MESH: the ranks agree,
+    every stream equals phase 8's or first differs at a near tie, no flash
+    launch."""
+    t0 = time.perf_counter()
+    cfg = ep_cfg(workload)
+    ref = ep_steps(attention, workload)
+    torch.cuda.empty_cache()
+    ranks = tmesh.launch(ep_train_rank, EP_MESH, backend="gloo",
+                         device="cuda", workdir=str(workdir))
+    want_experts = cfg.n_experts // EP_MESH["ep"]
+    for r, run in enumerate(ranks):
+        check(run["launches"] == (0, 0, 0),
+              f"ep rank {r} launched the flash kernels {run['launches']}")
+        check(run["experts"] == want_experts,
+              f"ep rank {r} holds {run['experts']} experts, wanted "
+              f"{want_experts}")
+        check(run["losses"] == ranks[0]["losses"],
+              f"ep: the ranks' losses differ: {run['losses']}")
+    losses = ranks[0]["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"ep loss did not fall: {losses}")
+    check(max(rel) <= TRAIN_LOSS_RTOL,
+          f"ep losses {losses} against one process's {ref['losses']}: rel "
+          f"{rel} (tol {TRAIN_LOSS_RTOL})")
+    check(np.isfinite(ranks[0]["aux"]) and ranks[0]["aux"] > 0,
+          f"ep aux {ranks[0]['aux']}")
+    print(json.dumps({
+        "ep_training": "mixtral_like", "seq": cfg.seq, "batch": 2,
+        "mesh": EP_MESH, "backend": "gloo", "optimizer": f"sgd lr {EP_LR}",
+        "capacity": workload.moe_capacity(cfg, 2 * cfg.seq),
+        "losses": losses, "one_process_losses": ref["losses"],
+        "loss_rel_diff": rel, "loss_rtol": TRAIN_LOSS_RTOL,
+        "aux": ranks[0]["aux"], "one_process_aux": ref["aux"],
+        "experts_per_rank": want_experts,
+        "flash_launches_per_rank": [r["launches"] for r in ranks],
+        "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in ranks],
+        "one_process_peak_mem_gib": ref["peak_mem_gib"],
+        "phase_10_peak_mem_gib": moe_train["peak_mem_gib"],
+        "step_s_per_rank": [r["step_s"] for r in ranks],
+        "one_process_step_s": ref["step_s"], "step_s_note": GLOO_NOTE}))
+    torch.cuda.empty_cache()
+    served = tmesh.launch(ep_serve_rank, EP_SERVE_MESH, backend="gloo",
+                          device="cuda", workdir=str(workdir))
+    ranks_agree(served, "mixtral_like", "mixtral_like on ep 2")
+    runs = [r["mixtral_like"] for r in served]
+    check(all(r["launches"] == 0 for r in runs),
+          "mixtral_like on ep 2 launched the flash kernel")
+    moe_cfg = workload.ModelConfig.mixtral_like()
+    params = seeded_params(workload, moe_cfg)
+    reqs = make_requests(moe_cfg, serve)
+    ties = {}
+    for rid, toks in runs[0]["tokens"].items():
+        tie = near_tie(decode, params, moe_cfg, reqs[rid].prompt,
+                       moe_mono["tokens"][rid], toks, "cuda")
+        if tie is not None:
+            ties[rid] = tie
+    del params
+    print(json.dumps({
+        "ep_serving": "mixtral_like", "mesh": EP_SERVE_MESH,
+        "backend": "gloo", "ranks_agree": True,
+        "flash_launches_per_rank": [r["launches"] for r in runs],
+        "ticks": runs[0]["ticks"], "unsharded_ticks":
+        moe_mono["stats"]["ticks"],
+        "streams_equal_to_phase_8": len(runs[0]["tokens"]) - len(ties),
+        "near_ties": ties,
+        "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in runs],
+        "unsharded_peak_mem_gib": moe_mono["peak_mem_gib"],
+        "drain_s_per_rank": [r["drain_s"] for r in runs],
+        "drain_s_note": GLOO_NOTE,
+        "phase_26_s": time.perf_counter() - t0}))
+
+
+def pp_cfg(workload):
+    """Phase 27's model: phase 6's llama_like_big(seq=4096) (its remat does
+    not apply inside a stage)."""
+    return workload.ModelConfig.llama_like_big(seq=4096)
+
+
+def pp_tokens(cfg):
+    """Phase 27's global batch: four seeded rows."""
+    return torch.as_tensor(np.random.default_rng(27).integers(
+        0, cfg.vocab, (4, cfg.seq)), device="cuda")
+
+
+def pp_rank(mesh, lr=PP_LR, steps=3):
+    """Phase 27 on one stage of PP_MESH: ``steps`` pipelined SGD steps (lr
+    ``lr``, PP_MICRO microbatches) of :func:`pp_cfg` on phase 6's seeded
+    weights, each step's (K1, K2, K3) launches counted."""
+    from tpusched_torch import attention, pipeline, workload
+    cfg = pp_cfg(workload)
+    step, _, _ = pipeline.make_pipeline_train_step(mesh, cfg, PP_MICRO, lr)
+    shards = pipeline.shard_pipeline_params(pipeline.init_pipeline_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg,
+        mesh)
+    torch.cuda.empty_cache()
+    tokens = pp_tokens(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, launches = [], [], []
+    for _ in range(steps):
+        zero_counts(attention)
+        t0 = time.perf_counter()
+        shards, loss = step(shards, tokens)
+        losses.append(loss.item())             # the fence
+        step_s.append(time.perf_counter() - t0)
+        launches.append(bwd_counts(attention))
+    return dict(stage=mesh.pp.index, losses=losses, step_s=step_s,
+                launches=launches,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_pp(attention, workload, tmesh, train, workdir):
+    """Phase 27: the GPipe pipeline at full width, two gloo ranks (stages)
+    sharing the card: every stage launches K1, K2 and K3 (L/pp)·n_micro =
+    24 times a step; the first loss within 2e-2 of one process's loss_fn
+    on the same weights and batch, the losses falling and equal on both
+    stages. Returns the launches a stage a step."""
+    t0 = time.perf_counter()
+    cfg = pp_cfg(workload)
+    with torch.no_grad():
+        whole = workload.loss_fn(seeded_params(workload, cfg),
+                                 pp_tokens(cfg), cfg).item()
+    torch.cuda.empty_cache()
+    ranks = tmesh.launch(pp_rank, PP_MESH, backend="gloo", device="cuda",
+                         workdir=str(workdir))
+    per = cfg.n_layers // PP_MESH["pp"] * PP_MICRO
+    for run in ranks:
+        check(all(c == (per, per, per) for c in run["launches"]),
+              f"pp stage {run['stage']} launched (K1, K2, K3) "
+              f"{run['launches']} a step, wanted {per} each")
+        check(run["losses"] == ranks[0]["losses"],
+              f"pp: the stages' losses differ: {run['losses']}")
+    losses = ranks[0]["losses"]
+    rel = abs(losses[0] - whole) / abs(whole)
+    check(rel <= TRAIN_LOSS_RTOL, f"pp first loss {losses[0]} against one "
+          f"process's loss_fn {whole}: rel {rel} (tol {TRAIN_LOSS_RTOL})")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"pp loss did not fall: {losses}")
+    print(json.dumps({
+        "pp_training": "llama_like_big", "seq": cfg.seq, "batch": 4,
+        "n_micro": PP_MICRO, "mesh": PP_MESH, "backend": "gloo",
+        "optimizer": f"sgd lr {PP_LR}", "losses": losses,
+        "one_process_loss": whole, "first_loss_rel_diff": rel,
+        "loss_rtol": TRAIN_LOSS_RTOL,
+        "launches_per_step_per_stage": dict(zip(
+            ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"), (per,) * 3)),
+        "peak_mem_gib_per_stage": [r["peak_mem_gib"] for r in ranks],
+        "phase_6_peak_mem_gib": train["peak_mem_gib"],
+        "step_s_per_stage": [r["step_s"] for r in ranks],
+        "step_s_note": GLOO_NOTE, "phase_27_s": time.perf_counter() - t0}))
+    return per
+
+
+def dryrun_moe_cfg(workload, cf):
+    """Phase 28's MoE model: the reference dryrun's tiny with 4 experts,
+    top-2, at capacity factor ``cf``."""
+    return dataclasses.replace(workload.ModelConfig.tiny(), n_experts=4,
+                               moe_top_k=2, moe_capacity_factor=cf)
+
+
+def dryrun_pp_tokens(cfg, rows):
+    return torch.as_tensor(np.random.default_rng(28).integers(
+        0, cfg.vocab, (rows, cfg.seq)), device="cuda")
+
+
+def dryrun_moe_pp_rank(mesh):
+    """Phase 28 on one of eight ranks: one SGD step of the MoE model on
+    DRYRUN_MOE_MESH at capacity factors 1.25 and 0.5, then one pipelined
+    SGD step of tiny (2 layers, n_micro 2) on DRYRUN_PP_MESH over the same
+    ranks; the losses (TF32 off)."""
+    from tpusched_torch import mesh as tmesh, pipeline, workload
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for cf in (1.25, 0.5):
+        cfg = dryrun_moe_cfg(workload, cf)
+        step, _, _ = workload.make_sharded_train_step(mesh, cfg)
+        params = workload.shard_params(seeded_params(workload, cfg), cfg,
+                                       mesh)
+        out[f"moe_cf{cf}"] = step(params, dryrun_tokens(cfg))[1].item()
+    pp = tmesh.build_named_mesh(DRYRUN_PP_MESH, "gloo", "cuda")
+    cfg = workload.ModelConfig.tiny()
+    step, _, _ = pipeline.make_pipeline_train_step(pp, cfg, 2)
+    shards = pipeline.shard_pipeline_params(pipeline.init_pipeline_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"), cfg, pp)
+    out["pp"] = step(shards, dryrun_pp_tokens(cfg, 8))[1].item()
+    return out
+
+
+# phase 28's flash pipeline: tiny at 4 layers, so a stage holds 2
+PP_FLASH_LAYERS, PP_FLASH_MICRO, PP_FLASH_LR = 4, 2, 1e3
+
+
+def pp_flash_rank(mesh):
+    """Phase 28's flash half on one stage of PP_MESH: one pipelined SGD
+    step of tiny f32 (4 layers) with flash and with naive attention on the
+    same weights and batch (TF32 off); each run's loss, (K1, K2, K3)
+    launches and gradients, read off the update (lr PP_FLASH_LR: the
+    update dwarfs the weights' rounding)."""
+    from tpusched_torch import attention, pipeline, workload
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"stage": mesh.pp.index}
+    for attn in ("flash", "naive"):
+        cfg = dataclasses.replace(workload.ModelConfig.tiny(), attn=attn,
+                                  remat=True, n_layers=PP_FLASH_LAYERS)
+        step, _, _ = pipeline.make_pipeline_train_step(
+            mesh, cfg, PP_FLASH_MICRO, PP_FLASH_LR)
+        shards = pipeline.shard_pipeline_params(
+            pipeline.init_pipeline_params(
+                cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"),
+            cfg, mesh)
+        zero_counts(attention)
+        new, loss = step(shards, dryrun_pp_tokens(cfg, 4))
+        grads = [((p - n) / PP_FLASH_LR).cpu() for p, n in zip(
+            workload.tree_leaves(list(shards)),
+            workload.tree_leaves(list(new)))]
+        out[attn] = {"loss": loss.item(), "launches": bwd_counts(attention),
+                     "grads": grads}
+    return out
+
+
+def phase_dryrun_ep_pp(attention, workload, tmesh, workdir):
+    """Phase 28: tiny f32 on the reference dryrun's MoE and pipeline meshes
+    (eight gloo ranks), each loss within 1e-5 relative of the whole
+    model's; the 0.5 capacity factor drops slots (the whole model's loss
+    moves from the one with room for all); then a tiny flash pipeline on
+    PP_MESH: K1, K2 and K3 (L/pp)·n_micro times a stage, none with naive
+    attention, and every gradient leaf within 1e-5 relative L2 of the
+    naive pipeline's. Returns the flash launches a stage."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    whole = {}
+    with torch.no_grad():
+        for cf in (1.25, 0.5, 100.0):
+            cfg = dryrun_moe_cfg(workload, cf)
+            whole[f"moe_cf{cf}"] = workload.loss_fn(
+                seeded_params(workload, cfg), dryrun_tokens(cfg), cfg).item()
+        cfg = workload.ModelConfig.tiny()
+        whole["pp"] = workload.loss_fn(seeded_params(workload, cfg),
+                                       dryrun_pp_tokens(cfg, 8), cfg).item()
+    check(abs(whole["moe_cf0.5"] - whole["moe_cf100.0"]) > 1e-4,
+          f"capacity factor 0.5 drops no slot: {whole}")
+    ranks = tmesh.launch(dryrun_moe_pp_rank, DRYRUN_MOE_MESH, backend="gloo",
+                         device="cuda", workdir=str(workdir))
+    rels = {}
+    for name in ("moe_cf1.25", "moe_cf0.5", "pp"):
+        rels[name] = max(abs(r[name] - whole[name]) / abs(whole[name])
+                         for r in ranks)
+        check(rels[name] <= 1e-5, f"dryrun {name}: losses "
+              f"{[r[name] for r in ranks]} against the whole model's "
+              f"{whole[name]} (rel {rels[name]:.3e}, tol 1e-5)")
+    stages = tmesh.launch(pp_flash_rank, PP_MESH, backend="gloo",
+                          device="cuda", workdir=str(workdir))
+    per = PP_FLASH_LAYERS // PP_MESH["pp"] * PP_FLASH_MICRO
+    worst = 0.0
+    for run in stages:
+        check(run["flash"]["launches"] == (per, per, per)
+              and run["naive"]["launches"] == (0, 0, 0),
+              f"pp flash stage {run['stage']}: launched "
+              f"{run['flash']['launches']} (naive "
+              f"{run['naive']['launches']}), wanted {per} each")
+        check(abs(run["flash"]["loss"] - run["naive"]["loss"])
+              <= 1e-5 * abs(run["naive"]["loss"]),
+              f"pp flash loss {run['flash']['loss']} against naive "
+              f"{run['naive']['loss']}")
+        worst = max(worst, grad_rel_err(run["flash"]["grads"],
+                                        run["naive"]["grads"]))
+    check(worst <= 1e-5, f"pp flash gradients against naive: worst leaf rel "
+          f"L2 {worst:.3e} (tol 1e-5)")
+    print(json.dumps({
+        "dryrun_ep_pp": "tiny f32", "moe_mesh": DRYRUN_MOE_MESH,
+        "pp_mesh": DRYRUN_PP_MESH, "backend": "gloo", "whole_losses": whole,
+        "losses": {n: ranks[0][n] for n in ("moe_cf1.25", "moe_cf0.5",
+                                            "pp")},
+        "loss_rel_diff": rels, "pp_flash": {
+            "mesh": PP_MESH, "layers": PP_FLASH_LAYERS,
+            "n_micro": PP_FLASH_MICRO, "launches_per_stage": per,
+            "loss": stages[0]["flash"]["loss"],
+            "naive_loss": stages[0]["naive"]["loss"],
+            "worst_grad_rel_l2": worst},
+        "phase_28_s": time.perf_counter() - t0}))
+    return per
+
+
 def ab_turn(tree: str, other_root: str) -> None:
     """One turn of ``--ab``, in a process of its own: builds the kernels of
     the ``tpusched_torch`` on PYTHONPATH, then prints one JSON line of
@@ -2370,7 +2747,7 @@ def main(argv) -> int:
     moe_mono = phase_serving(attention, serve, workload, "mixtral_like")
     phase_parity(attention, decode, serve, workload, "naive", n_experts=4)
     phase_parity(attention, decode, serve, workload, "flash", n_experts=4)
-    phase_moe_training(measure, workload)
+    moe_train = phase_moe_training(measure, workload)
     exact_decode = phase_moe_decode(measure, workload)
     # int8 KV, chunked prefill, prefix caching and the SLO harness, then
     # the profiler traces, after every earlier phase so that those run as
@@ -2423,6 +2800,16 @@ def main(argv) -> int:
     ring_timing["flash_bwd_dq"]["max_abs_err"] = pair_err[0]
     ring_timing["flash_bwd_dkdv"]["max_abs_err"] = pair_err[1]
     print(json.dumps({"phases_23_25_s": time.perf_counter() - t_sp}))
+    # expert and pipeline parallelism on gloo ranks sharing the card, after
+    # every earlier phase so that those run as before
+    t_ep = time.perf_counter()
+    phase_ep(attention, decode, serve, workload, tmesh, moe_mono, moe_train,
+             workdir)
+    pp_step = phase_pp(attention, workload, tmesh, train, workdir)
+    pp_tiny = phase_dryrun_ep_pp(attention, workload, tmesh, workdir)
+    print(json.dumps({"phases_26_28_s": time.perf_counter() - t_ep}))
+    pp_launches = {"llama_like_big_per_stage_per_step": pp_step,
+                   "tiny_flash_per_stage_per_step": pp_tiny}
     ring = {name: {"ring_launches": {"per_step_by_sp_index": {
         i: c[j] for i, c in sorted(ring_launches.items())}},
         "ring_shape": {"shape": list(RING_CHUNK), "causal": False,
@@ -2453,21 +2840,21 @@ def main(argv) -> int:
          "tp_launches": tp_fwd,
          "tp_shapes": {**tp_timing,
                        "training_tp2": rank_train["flash_fwd"]},
-         **ring["flash_fwd"]},
+         **ring["flash_fwd"], "pp_launches": pp_launches},
         {"name": "flash_bwd_dkdv", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "218",
          "launches": train_launches[1], "max_abs_err": bwd_err[1],
          **timing["flash_bwd_dkdv"],
          "tp_launches": {"training_tp2_per_rank": two["train"]["launches"][1]},
          "tp_shapes": {"training_tp2": rank_train["flash_bwd_dkdv"]},
-         **ring["flash_bwd_dkdv"]},
+         **ring["flash_bwd_dkdv"], "pp_launches": pp_launches},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "265",
          "launches": train_launches[2], "max_abs_err": bwd_err[0],
          **timing["flash_bwd_dq"],
          "tp_launches": {"training_tp2_per_rank": two["train"]["launches"][2]},
          "tp_shapes": {"training_tp2": rank_train["flash_bwd_dq"]},
-         **ring["flash_bwd_dq"]}]}))
+         **ring["flash_bwd_dq"], "pp_launches": pp_launches}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

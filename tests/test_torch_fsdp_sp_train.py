@@ -214,8 +214,11 @@ def test_dryrun_mesh_matches_reference(dryrun):
 @pytest.mark.parametrize("sizes", [{"sp": 2}, {"dp": 2}])
 def test_moe_capacity_over_sp_or_dp_is_refused(sizes):
     """Capacity routing ranks every token of the global batch for expert
-    slots, which a rank's rows or sequence chunk cannot: refused, naming
-    ROADMAP, until ep."""
+    slots, which a rank's rows or sequence chunk alone cannot: the MoE
+    layer gathers them (tests/test_torch_ep.py holds it to the reference),
+    so sp and dp are no longer refused; an ep beside them that does not
+    divide the experts is."""
     cfg = dataclasses.replace(wl.ModelConfig.tiny(), n_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*ep"):
-        wl.make_sharded_train_step(tmesh.Mesh(sizes), cfg)
+    wl.make_sharded_train_step(tmesh.Mesh(sizes), cfg)
+    with pytest.raises(ValueError, match="not divisible by ep"):
+        wl.make_sharded_train_step(tmesh.Mesh({**sizes, "ep": 3}), cfg)

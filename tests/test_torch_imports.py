@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no module of tpusched_torch (mesh.py
 included), and not chip_smoke.py, imports JAX, optax or anything of the
 tpusched package (the machine with the card has none of them); the serving,
-speculative, tensor-parallel and fsdp×sp training paths run with all three
-refused."""
+speculative, tensor-parallel, fsdp×sp, expert-parallel and pipelined paths
+run with all three refused."""
 from __future__ import annotations
 
 import ast
@@ -168,6 +168,30 @@ RANKS = REFUSE + (
     "        out.append(float(step(shards, init_opt(shards), toks)[2]))\n"
     "    bad = sorted(m for m in sys.modules if m.split('.')[0] in"
     " ('tpusched', 'optax') or m.split('.')[0].startswith('jax'))\n"
+    "    return out, bad\n"
+    "def ep_pp_rank(mesh):\n"
+    "    torch.set_num_threads(1)\n"
+    "    import dataclasses\n"
+    "    from tpusched_torch import mesh as tmesh, pipeline\n"
+    "    cfg = dataclasses.replace(wl.ModelConfig.tiny(), n_experts=4,"
+    " n_layers=4)\n"
+    "    p = wl.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+    "    toks = torch.arange(4 * cfg.seq).reshape(4, cfg.seq) % cfg.vocab\n"
+    "    step, _, _ = wl.make_sharded_train_step(mesh, cfg)\n"
+    "    out = [float(step(wl.shard_params(p, cfg, mesh), toks)[1])]\n"
+    "    ep = tmesh.build_named_mesh({'ep': 2, 'tp': 2}, 'gloo', 'cpu')\n"
+    "    eng = serve.ServeEngine(p, cfg, slots=2, max_seq=32,"
+    " prompt_bucket=8, mesh=ep, device='cpu')\n"
+    "    eng.submit(serve.Request(rid=0, prompt=np.arange(5, dtype=np.int32),"
+    " max_new_tokens=3))\n"
+    "    out.append(eng.run_until_drained()[0].tokens.tolist())\n"
+    "    pp = tmesh.build_named_mesh({'pp': 2, 'ep': 2}, 'gloo', 'cpu')\n"
+    "    step, _, _ = pipeline.make_pipeline_train_step(pp, cfg, 2)\n"
+    "    whole = (pipeline.stack_layers(p), p['embed'], p['out'], p['ln_f'])\n"
+    "    shards = pipeline.shard_pipeline_params(whole, cfg, pp)\n"
+    "    out.append(float(step(shards, toks)[1]))\n"
+    "    bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+    " ('tpusched', 'optax') or m.split('.')[0].startswith('jax'))\n"
     "    return out, bad\n")
 
 
@@ -231,3 +255,25 @@ def test_source_names_no_jax_or_tpusched_import(path):
 def test_chip_smoke_imports_the_port():
     assert any(m.split(".")[0] == "tpusched_torch"
                for m in _imports(ROOT / "chip_smoke.py"))
+
+
+def test_ep_pp_paths_run_with_jax_unimportable(tmp_path):
+    """As above, four gloo ranks take an MoE SGD step on {"dp": 2, "ep":
+    2}, serve an MoE model on {"ep": 2, "tp": 2} and take a pipelined MoE
+    step on {"pp": 2, "ep": 2}; the ranks agree and none has loaded JAX,
+    optax or tpusched."""
+    (tmp_path / "refusing_ranks.py").write_text(RANKS)
+    prog = REFUSE + (
+        f"sys.path.insert(0, {str(tmp_path)!r})\n"
+        "import refusing_ranks\n"
+        "from tpusched_torch import mesh\n"
+        "out = mesh.launch(refusing_ranks.ep_pp_rank, {'dp': 2, 'ep': 2},"
+        f" backend='gloo', device='cpu', workdir={str(tmp_path)!r})\n"
+        "assert all(o == out[0] for o in out) and out[0][1] == [], out\n"
+        "assert len(out[0][0][1]) == 3, out\n"
+        "print('expert-parallel and pipelined')\n")
+    r = subprocess.run([sys.executable, "-c", prog], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().splitlines()[-1] == ("expert-parallel and "
+                                                 "pipelined")

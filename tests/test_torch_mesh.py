@@ -194,11 +194,13 @@ def test_nccl_with_more_ranks_than_cards_is_refused(monkeypatch):
 
 @pytest.mark.parametrize("axis", ["fsdp", "sp", "ep", "pp"])
 def test_unported_axes_are_refused(axis):
-    """shard_params, every train step and the engine refuse an ep or pp
-    axis, naming ROADMAP. fsdp and sp train (tests/test_torch_fsdp_sp_train.
-    py), but the engine refuses either of size 2: its forward neither
-    gathers fsdp-sharded weights nor splits the sequence; of size 1 it
-    serves."""
+    """shard_params, every train step and the engine refuse a pp axis,
+    naming the pipeline's step (pp trains through
+    ``pipeline.make_pipeline_train_step``, tests/test_torch_pipeline.py)
+    and ROADMAP. fsdp and sp train (tests/test_torch_fsdp_sp_train.py), but
+    the engine refuses either of size 2: its forward neither gathers
+    fsdp-sharded weights nor splits the sequence; of size 1 it serves. ep
+    of size 2 trains and serves (tests/test_torch_ep.py)."""
     cfg = wl.ModelConfig.tiny()
     p = wl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 
@@ -211,15 +213,18 @@ def test_unported_axes_are_refused(axis):
                                                  optim.adamw(1e-3), 2),
                 lambda: ServeEngine(p, cfg, mesh=mesh, slots=1, max_seq=32,
                                     prompt_bucket=8)]
-    if axis in ("ep", "pp"):
+    if axis == "pp":
         for call in calls(tmesh.Mesh({axis: 1, "tp": 1}, device="cpu")):
-            with pytest.raises(NotImplementedError,
-                               match=f"'{axis}'.*ROADMAP"):
+            with pytest.raises(NotImplementedError, match=(
+                    "'pp'.*make_pipeline_train_step.*ROADMAP")):
                 call()
         return
     *train, serve = calls(tmesh.Mesh({axis: 2, "tp": 1}, device="cpu"))
     for call in train:
         call()
+    if axis == "ep":
+        serve()
+        return
     with pytest.raises(NotImplementedError, match=f"'{axis}'.*ROADMAP"):
         serve()
     calls(tmesh.Mesh({axis: 1, "tp": 1}, device="cpu"))[-1]()

@@ -133,9 +133,9 @@ def test_prompt_goes_to_smallest_fitting_bucket(model, monkeypatch):
     padded = []
     real = serve._prefill_slot
 
-    def spy(params_, cache, prompt, slot, true_len, cfg_, tp=None):
+    def spy(params_, cache, prompt, slot, true_len, cfg_, *axes):
         padded.append((len(prompt), true_len))
-        return real(params_, cache, prompt, slot, true_len, cfg_, tp)
+        return real(params_, cache, prompt, slot, true_len, cfg_, *axes)
 
     monkeypatch.setattr(serve, "_prefill_slot", spy)
     eng = ServeEngine(params, cfg, slots=2, max_seq=64,

@@ -315,8 +315,8 @@ def test_idle_slots_stay_finite_and_never_wrap(tiny, monkeypatch):
     spans = []
     real = serve.score_span
 
-    def spy(params, cache, tokens, pos, cfg, tp=None):
-        logits, cache = real(params, cache, tokens, pos, cfg, tp)
+    def spy(params, cache, tokens, pos, cfg, *axes):
+        logits, cache = real(params, cache, tokens, pos, cfg, *axes)
         spans.append(bool(torch.isfinite(logits).all()))
         return logits, cache
 

@@ -193,7 +193,10 @@ def test_every_leaf_gradient_matches_unsharded(trained, name):
 
 def test_moe_over_a_data_parallel_batch_is_refused():
     """Capacity routing ranks the global batch's tokens for expert slots,
-    which a rank's share cannot: refused, naming ROADMAP."""
+    which a rank's share alone cannot: the MoE layer gathers the batch
+    (tests/test_torch_ep.py holds it to the reference), so a dp batch is
+    no longer refused; an ep that does not divide the experts is."""
     cfg = dataclasses.replace(wl.ModelConfig.tiny(), n_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wl.make_sharded_train_step(tmesh.Mesh({"dp": 2, "tp": 1}), cfg)
+    wl.make_sharded_train_step(tmesh.Mesh({"dp": 2, "tp": 1}), cfg)
+    with pytest.raises(ValueError, match="not divisible by ep"):
+        wl.make_sharded_train_step(tmesh.Mesh({"dp": 2, "ep": 3}), cfg)

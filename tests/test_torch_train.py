@@ -132,11 +132,14 @@ def test_cross_entropy_matches_reference(dtype, tol):
 
 def test_vocab_parallel_loss_waits_for_the_parallelism_slice():
     """The vocab-parallel loss runs on tp meshes, the sequence sp-sharded
-    too (tests/test_torch_tp_train.py, tests/test_torch_fsdp_sp_train.py);
-    on a mesh with an ep axis it waits for the ep item."""
+    too (tests/test_torch_tp_train.py, tests/test_torch_fsdp_sp_train.py),
+    and on meshes with an ep axis; a pp axis trains only through the
+    pipeline's step, whose loss is the plain one, so the flat step refuses
+    it, naming ROADMAP's 'Parallelism'."""
     cfg = dataclasses.replace(wl.ModelConfig.tiny(), vocab_parallel_loss=True)
+    wl.make_sharded_train_step(tmesh.Mesh({"ep": 1, "tp": 1}), cfg)
     with pytest.raises(NotImplementedError, match="Parallelism"):
-        wl.make_sharded_train_step(tmesh.Mesh({"ep": 1, "tp": 1}), cfg)
+        wl.make_sharded_train_step(tmesh.Mesh({"pp": 1, "tp": 1}), cfg)
 
 
 def test_sgd_steps_match_reference():

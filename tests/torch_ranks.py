@@ -1,5 +1,5 @@
-"""Rank programs for the port's parallel tests (tensor, data, fully-sharded
-and sequence parallelism).
+"""Rank programs for the port's parallel tests (tensor, data, fully-sharded,
+sequence, expert and pipeline parallelism).
 
 ``tpusched_torch.mesh.launch`` runs each of these in every spawned gloo rank
 on the CPU. This module imports torch, numpy and the port only, never JAX:
@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from tpusched_torch import attention, interop, mesh as tmesh, optim
-from tpusched_torch import workload as wl
+from tpusched_torch import pipeline, workload as wl
 from tpusched_torch.serve import ServeEngine
 
 
@@ -50,6 +50,31 @@ def _completions(eng: ServeEngine, reqs) -> dict:
     return {"tokens": {c.rid: c.tokens.tolist() for c in done},
             "ticks": eng.tick_count,
             "spec_stats": dict(eng.spec_stats)}
+
+
+def _count_flash_calls() -> dict:
+    """Counts of this rank's calls to the flash forward and backward from
+    now on (the wrappers stay for the rank's life): the plain versions'
+    launches on the CPU."""
+    calls = {"forward": 0, "backward": 0}
+
+    def counted(fn, what):
+        def wrapper(*args, **kwargs):
+            calls[what] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+    attention.flash_forward = counted(attention.flash_forward, "forward")
+    attention._flash_backward = counted(attention._flash_backward,
+                                        "backward")
+    return calls
+
+
+def _mesh_of(meshes: dict, sizes: dict) -> tmesh.Mesh:
+    """The mesh of ``sizes`` over this launch's ranks, built once."""
+    key = tuple(sizes.items())
+    if key not in meshes:
+        meshes[key] = tmesh.build_named_mesh(sizes, "gloo", "cpu")
+    return meshes[key]
 
 
 def serve_rank(m: tmesh.Mesh, cases: dict) -> dict:
@@ -148,12 +173,34 @@ def sharded_train_rank(m: tmesh.Mesh, cases: dict) -> dict:
     ``mean``) beside the unsharded model's."""
     torch.set_num_threads(1)
     meshes = {tuple(m.shape.items()): m}
+    return {name: _train_case(_mesh_of(meshes, sizes), *case)
+            for name, (sizes, *case) in cases.items()}
+
+
+def pipeline_rank(m: tmesh.Mesh, cases: dict) -> dict:
+    """One pipelined SGD step a case, each on a mesh of its own over the
+    same ranks: ``name -> (axis sizes, cfg, n_micro, lr, numpy tree,
+    tokens)``. Returns the loss, the gathered (stacked, embed, out, ln_f)
+    after the step, this rank's pp index, its shards' shapes and its calls
+    to the flash forward and backward in the step."""
+    torch.set_num_threads(1)
+    meshes = {tuple(m.shape.items()): m}
+    calls = _count_flash_calls()
     out = {}
-    for name, (sizes, *case) in cases.items():
-        key = tuple(sizes.items())
-        if key not in meshes:
-            meshes[key] = tmesh.build_named_mesh(sizes, "gloo", "cpu")
-        out[name] = _train_case(meshes[key], *case)
+    for name, (sizes, cfg, n_micro, lr, tree, tokens) in cases.items():
+        mesh = _mesh_of(meshes, sizes)
+        step, _, token_spec = pipeline.make_pipeline_train_step(
+            mesh, cfg, n_micro, lr)
+        shards = pipeline.shard_pipeline_params(
+            interop.pipeline_params_from_numpy(tree, cfg, "cpu"), cfg, mesh)
+        calls.update(forward=0, backward=0)
+        new, loss = step(shards, torch.from_numpy(tokens).long())
+        out[name] = {"loss": float(loss), "stage": mesh.pp.index,
+                     "calls": dict(calls), "token_spec": token_spec,
+                     "shapes": [tuple(t.shape) for t in
+                                wl.tree_leaves(list(shards))],
+                     "params": _np_tree(list(
+                         pipeline.gather_pipeline_params(new, cfg, mesh)))}
     return out
 
 
@@ -167,16 +214,7 @@ def ring_rank(m: tmesh.Mesh, cases: dict) -> dict:
     torch.set_num_threads(1)
     meshes = {4: m, 2: tmesh.build_named_mesh({"dp": 2, "sp": 2}, "gloo",
                                               "cpu")}
-    calls = {"forward": 0, "backward": 0}
-
-    def counted(fn, what):
-        def wrapper(*args, **kwargs):
-            calls[what] += 1
-            return fn(*args, **kwargs)
-        return wrapper
-    attention.flash_forward = counted(attention.flash_forward, "forward")
-    attention._flash_backward = counted(attention._flash_backward,
-                                        "backward")
+    calls = _count_flash_calls()
     out = {}
     for name, (sp, causal, flash, *qkv) in cases.items():
         axis = meshes[sp].sp

@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of the tpusched workload layer (``tpusched/jaxbridge``).
 
 Modules mirror the reference by name: ``workload`` (config, parameters,
-forward, train steps, and the shardings of tensor and data parallelism),
+forward, train steps, and the shardings of data, fully-sharded, sequence,
+expert and tensor parallelism), ``pipeline`` (the GPipe schedule over pp),
 ``attention`` (naive attention and FlashAttention-2, whose forward and
 backward CUDA kernels live in ``csrc/``), ``decode`` (KV cache, prefill,
 decode, sampling, keyed sampling and the speculative draft rollout),

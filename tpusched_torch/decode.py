@@ -10,7 +10,9 @@ every function that takes a cache mutate it and return the same object.
 Under tensor parallelism (``tp=``, the tp axis of a ``mesh``) every
 function here takes this rank's shards of the weights and a cache of its
 kv_heads/tp heads; attention and cache writes stay local, and the logits
-come back whole on every rank.
+come back whole on every rank. Under expert parallelism (``ep=``) each
+rank holds E/ep of an MoE layer's experts and the same whole cache; the
+experts' outputs are gathered over ep before the dropless combine.
 
 Speculative decoding's draft phase (``draft_rollout``,
 ``sampling_draft_rollout``) and request-keyed sampling
@@ -31,8 +33,8 @@ import torch
 
 from . import attention
 from .mesh import Axis
-from .workload import (ModelConfig, Params, _as_pos_vec, _finish_block,
-                       _qkv, _resolve_attn_fn, _rmsnorm,
+from .workload import (ExpertAxes, ModelConfig, Params, _as_pos_vec,
+                       _finish_block, _qkv, _resolve_attn_fn, _rmsnorm,
                        cast_params_for_compute, embed, resolve_device,
                        unembed)
 
@@ -146,7 +148,8 @@ def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
 
 
 def _layer_decode(x: torch.Tensor, layer: Dict[str, torch.Tensor], c, pos,
-                  cfg: ModelConfig, tp: Optional[Axis] = None) -> torch.Tensor:
+                  cfg: ModelConfig, tp: Optional[Axis] = None,
+                  ep: Optional[Axis] = None) -> torch.Tensor:
     h = _rmsnorm(x, layer["ln_attn"])
     q, k, v = _qkv(h, layer, cfg, pos_offset=pos, tp=tp)
     cache_update(c, k, v, pos)
@@ -154,12 +157,14 @@ def _layer_decode(x: torch.Tensor, layer: Dict[str, torch.Tensor], c, pos,
     # the group size is the config's on every rank: tp splits whole groups
     o = _cached_attention(q, ck, cv, pos, cfg.n_heads // cfg.kv_heads)
     # dropless: a decoded token's MoE output depends on that token alone
-    return _finish_block(x, layer, o, cfg, dropless=True, tp=tp)[0]
+    return _finish_block(x, layer, o, cfg, dropless=True, tp=tp,
+                         moe=ExpertAxes(ep))[0]
 
 
 def _layer_prefill(x: torch.Tensor, layer: Dict[str, torch.Tensor], c,
                    cfg: ModelConfig, attn_fn,
-                   tp: Optional[Axis] = None) -> torch.Tensor:
+                   tp: Optional[Axis] = None,
+                   ep: Optional[Axis] = None) -> torch.Tensor:
     """Prefill layer: attention over the prompt through the configured
     implementation (the flash kernel when cfg.attn == 'flash'), K/V
     recorded into the cache from position 0. Attention takes the FRESH
@@ -168,43 +173,45 @@ def _layer_prefill(x: torch.Tensor, layer: Dict[str, torch.Tensor], c,
     q, k, v = _qkv(h, layer, cfg, tp=tp)
     cache_update(c, k, v, 0)
     return _finish_block(x, layer, attn_fn(q, k, v), cfg, dropless=True,
-                         tp=tp)[0]
+                         tp=tp, moe=ExpertAxes(ep))[0]
 
 
 def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
-            cfg: ModelConfig, tp: Optional[Axis] = None
-            ) -> Tuple[torch.Tensor, KVCache]:
+            cfg: ModelConfig, tp: Optional[Axis] = None,
+            ep: Optional[Axis] = None) -> Tuple[torch.Tensor, KVCache]:
     """Run the prompt (b, s), filling the cache from position 0. Returns
     (logits (b, s, vocab), cache). ``tp``: the tensor-parallel axis of
     sharded ``params`` and a cache from ``init_kv_cache(..., tp=tp)``; the
-    logits are whole on every rank."""
+    logits are whole on every rank. ``ep``: the expert-parallel axis of
+    sharded MoE ``params``."""
     params = cast_params_for_compute(params, cfg)
     x = embed(params, tokens, tp)
     attn_fn = _resolve_attn_fn(cfg)
     for layer, c in zip(params["layers"], cache):
-        x = _layer_prefill(x, layer, c, cfg, attn_fn, tp)
+        x = _layer_prefill(x, layer, c, cfg, attn_fn, tp, ep)
     return unembed(params, _rmsnorm(x, params["ln_f"]), cfg, tp), cache
 
 
 def score_span(params: Params, cache: KVCache, tokens: torch.Tensor, pos,
-               cfg: ModelConfig, tp: Optional[Axis] = None
-               ) -> Tuple[torch.Tensor, KVCache]:
+               cfg: ModelConfig, tp: Optional[Axis] = None,
+               ep: Optional[Axis] = None) -> Tuple[torch.Tensor, KVCache]:
     """Teacher-force ``tokens`` (b, n) at positions pos..pos+n-1 (``pos``
-    scalar or (b,)): returns (logits (b, n, vocab), cache). ``tp`` as in
-    :func:`prefill`."""
+    scalar or (b,)): returns (logits (b, n, vocab), cache). ``tp`` and
+    ``ep`` as in :func:`prefill`."""
     params = cast_params_for_compute(params, cfg)
     x = embed(params, tokens, tp)
     for layer, c in zip(params["layers"], cache):
-        x = _layer_decode(x, layer, c, pos, cfg, tp)
+        x = _layer_decode(x, layer, c, pos, cfg, tp, ep)
     return unembed(params, _rmsnorm(x, params["ln_f"]), cfg, tp), cache
 
 
 def decode_step(params: Params, cache: KVCache, tokens_t: torch.Tensor, pos,
-                cfg: ModelConfig, tp: Optional[Axis] = None
-                ) -> Tuple[torch.Tensor, KVCache]:
+                cfg: ModelConfig, tp: Optional[Axis] = None,
+                ep: Optional[Axis] = None) -> Tuple[torch.Tensor, KVCache]:
     """One token per sequence, tokens_t (b,), at ``pos`` (scalar or (b,)).
     Returns (logits (b, vocab), cache)."""
-    logits, cache = score_span(params, cache, tokens_t[:, None], pos, cfg, tp)
+    logits, cache = score_span(params, cache, tokens_t[:, None], pos, cfg, tp,
+                               ep)
     return logits[:, 0], cache
 
 
@@ -404,19 +411,21 @@ def upload_pos(pos: Pos, device) -> Union[int, torch.Tensor]:
 
 def draft_rollout(params: Params, cache: KVCache, feed: torch.Tensor,
                   pos: Pos, cfg: ModelConfig, k: int,
-                  tp: Optional[Axis] = None) -> Tuple[torch.Tensor, KVCache]:
+                  tp: Optional[Axis] = None, ep: Optional[Axis] = None
+                  ) -> Tuple[torch.Tensor, KVCache]:
     """Greedy draft rollout: ingest ``feed`` (b, p) at rows pos..pos+p-1,
     take the argmax of its last row, then propose k - 1 more tokens one
     ``score_span`` step at a time. The token chain stays on the device (no
     host read per step). ``pos`` is an int or a (b,) vector (host or
     device). Returns (proposals (b, k) on the device, cache)."""
     pos = upload_pos(pos, feed.device)
-    logits, cache = score_span(params, cache, feed, pos, cfg, tp)
+    logits, cache = score_span(params, cache, feed, pos, cfg, tp, ep)
     tok = torch.argmax(logits[:, -1], dim=-1)
     toks = [tok]
     p = pos + feed.shape[1]
     for _ in range(k - 1):
-        logits, cache = score_span(params, cache, tok[:, None], p, cfg, tp)
+        logits, cache = score_span(params, cache, tok[:, None], p, cfg, tp,
+                                   ep)
         tok = torch.argmax(logits[:, 0], dim=-1)
         toks.append(tok)
         p = p + 1
@@ -428,7 +437,8 @@ def sampling_draft_rollout(params: Params, cache: KVCache,
                            cfg: ModelConfig, k: int,
                            key: Union[int, Sequence[int]],
                            temperature: float = 1.0, top_k: int = 0,
-                           top_p: float = 1.0, tp: Optional[Axis] = None
+                           top_p: float = 1.0, tp: Optional[Axis] = None,
+                           ep: Optional[Axis] = None
                            ) -> Tuple[np.ndarray, np.ndarray, KVCache]:
     """``draft_rollout``'s sampling sibling: ingest ``feed`` (b, p) at rows
     pos..pos+p-1, then propose k tokens, the one occupying row ``q`` drawn
@@ -443,7 +453,7 @@ def sampling_draft_rollout(params: Params, cache: KVCache,
     rows = np.broadcast_to(np.asarray(pos, dtype=np.int64), (b,)) + \
         feed.shape[1]                       # the row the first proposal takes
     p = upload_pos(pos, feed.device)
-    logits, cache = score_span(params, cache, feed, p, cfg, tp)
+    logits, cache = score_span(params, cache, feed, p, cfg, tp, ep)
     row_logits = logits[:, -1]
     p = p + feed.shape[1]
     toks, probs = [], []
@@ -458,7 +468,7 @@ def sampling_draft_rollout(params: Params, cache: KVCache,
         if i < k - 1:
             logits, cache = score_span(
                 params, cache, torch.from_numpy(tok).to(feed.device)[:, None],
-                p, cfg, tp)
+                p, cfg, tp, ep)
             row_logits = logits[:, 0]
             p = p + 1
     return np.stack(toks, axis=1), np.stack(probs, axis=1), cache

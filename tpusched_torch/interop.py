@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .pipeline import stack_layers
 from .workload import (ModelConfig, Params, param_dtype, param_shapes,
                        resolve_device)
 
@@ -52,3 +53,13 @@ def params_from_numpy(tree: Params, cfg: ModelConfig, device=None) -> Params:
                           f"layers[{i}].{name}", device)
             for name in want})
     return out
+
+
+def pipeline_params_from_numpy(tree: Params, cfg: ModelConfig, device=None):
+    """The pipeline's (stacked layers, embed, out, ln_f) from the
+    reference's tree of numpy arrays (checked as by
+    :func:`params_from_numpy`): the weights the reference's
+    ``stack_layers`` would stack."""
+    params = params_from_numpy(tree, cfg, device)
+    return (stack_layers(params), params["embed"], params["out"],
+            params["ln_f"])

@@ -11,9 +11,10 @@ backward takes this rank's slice (:func:`gather_last`) and its inverse
 (:func:`scatter_last`); for fully-sharded weights a gather along any dim
 whose backward is the reduce-scatter sum (:func:`gather`), and for
 sequence parallelism the ring hop (:func:`ring_shift`, ``lax.ppermute``'s
-counterpart). A collective on an axis of size 1, or on no axis (``None``),
-is the identity, so one code path serves the sharded and the unsharded
-model.
+counterpart); for the pipeline's hand-offs one point-to-point message
+between two ranks of an axis (:func:`send`, :func:`recv`). A collective on
+an axis of size 1, or on no axis (``None``), is the identity, so one code
+path serves the sharded and the unsharded model.
 
 Ranks are laid out row-major over the axes in the order given, as the
 reference reshapes its device list: the last axis (``tp``) varies fastest,
@@ -47,8 +48,11 @@ BATCH_AXES = ("slice", "dp", "fsdp")
 # reduce-scatter has summed it over fsdp already is summed over the rest
 DATA_AXES = BATCH_AXES + ("sp",)
 DATA_AXES_BUT_FSDP = ("slice", "dp", "sp")
+# the axes that split the model over ranks holding the same tokens: a
+# serving engine's host decisions come from rank 0 of them
+MODEL_AXES = ("ep", "tp")
 # axis tuples that get a process group of their own, beside each axis
-GROUPED_AXES = (BATCH_AXES, DATA_AXES, DATA_AXES_BUT_FSDP)
+GROUPED_AXES = (BATCH_AXES, DATA_AXES, DATA_AXES_BUT_FSDP, MODEL_AXES)
 
 
 def parse_coord(s: str) -> Tuple[int, ...]:
@@ -130,6 +134,14 @@ class Mesh:
     @property
     def fsdp(self) -> Optional[Axis]:
         return self.axis("fsdp")
+
+    @property
+    def ep(self) -> Optional[Axis]:
+        return self.axis("ep")
+
+    @property
+    def pp(self) -> Optional[Axis]:
+        return self.axis("pp")
 
     @property
     def batch(self) -> Optional[Axis]:
@@ -408,6 +420,37 @@ def shift(tensors: Sequence[torch.Tensor], axis: Optional[Axis],
     for work in works:
         work.wait()
     return [r.to(t.device) for r, t in zip(recvs, tensors)]
+
+
+def send(x: torch.Tensor, axis: Axis, index: int):
+    """Post ``x`` to the rank at ``index`` along ``axis`` without waiting;
+    returns a handle whose ``wait()`` ends the send (hold it until then).
+    Under gloo a CUDA tensor goes through a host copy, as in
+    :func:`shift`."""
+    if dist.get_backend(axis.group) == "nccl":
+        buf = x.detach().contiguous()
+    else:
+        buf = x.detach().to("cpu").contiguous()
+    return _Sent(dist.isend(buf, axis.ranks[index], group=axis.group), buf)
+
+
+def recv(axis: Axis, index: int, shape, dtype: torch.dtype,
+         device) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` on ``device``, received from the
+    rank at ``index`` along ``axis`` (blocking)."""
+    nccl = dist.get_backend(axis.group) == "nccl"
+    buf = torch.empty(shape, dtype=dtype, device=device if nccl else "cpu")
+    dist.recv(buf, axis.ranks[index], group=axis.group)
+    return buf.to(device)
+
+
+@dataclasses.dataclass
+class _Sent:
+    work: dist.Work
+    buf: torch.Tensor          # kept alive until the send ends
+
+    def wait(self) -> None:
+        self.work.wait()
 
 
 class _CopyTo(torch.autograd.Function):

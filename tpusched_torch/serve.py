@@ -22,13 +22,14 @@ request's key and absolute row (``decode.keyed_sample``), so a sampled
 request's tokens do not depend on its neighbours; sampled speculation
 needs it.
 
-With ``mesh`` the engine serves tensor-parallel, SPMD: every rank of the
-mesh builds the same engine from the full weights, keeps its shard of them
-(``workload.shard_params``) and its kv_heads/tp of the arena, and runs the
-same ``submit``/``tick`` sequence; each host decision (a sampled token, a
-speculative round's proposals and outcome) is tp rank 0's, broadcast. An
-fsdp or sp axis of size > 1 is refused: the engine's forward neither
-gathers sharded weights nor splits the sequence.
+With ``mesh`` the engine serves tensor- and expert-parallel, SPMD: every
+rank of the mesh builds the same engine from the full weights, keeps its
+shard of them (``workload.shard_params``: E/ep of an MoE layer's experts)
+and its kv_heads/tp of the arena (replicated over ep), and runs the same
+``submit``/``tick`` sequence; each host decision (a sampled token, a
+speculative round's proposals and outcome) is rank 0's of the model group
+(ep × tp), broadcast. An fsdp or sp axis of size > 1 is refused: the
+engine's forward neither gathers sharded weights nor splits the sequence.
 
 Pad keys land at positions >= the prompt's true length, which the causal
 cursor masks until the decode step overwrites them. Idle slots decode
@@ -49,7 +50,7 @@ from .decode import (KVCache, cache_update, decode_step, draft_rollout,
                      keyed_categorical, keyed_sample, prefill,
                      probs_from_adjusted, sample_token,
                      sampling_draft_rollout, score_span, upload_pos)
-from .mesh import broadcast
+from .mesh import MODEL_AXES, broadcast
 from .spec_decode import accept_span, round_uniforms
 from .workload import (ModelConfig, Params, check_mesh_axes, resolve_device,
                        shard_params)
@@ -86,12 +87,12 @@ def _slot_view(cache: KVCache, slot: int) -> KVCache:
 
 def _prefill_slot(params: Params, cache: KVCache, prompt: torch.Tensor,
                   slot: int, true_len: int, cfg: ModelConfig,
-                  tp=None) -> torch.Tensor:
+                  tp=None, ep=None) -> torch.Tensor:
     """Prefill one padded prompt (bucket,) into ``slot``'s rows with the
     configured attention; returns the next-token logits (vocab,) of the
     last real prompt position."""
     logits, _ = prefill(params, _slot_view(cache, slot), prompt[None], cfg,
-                        tp)
+                        tp, ep)
     return logits[0, true_len - 1]
 
 
@@ -109,7 +110,7 @@ class ServeEngine:
     ``draft_params``/``draft_cfg`` every tick is a speculative round of
     ``spec_k`` proposals. Runs on the CUDA card unless ``device="cpu"``;
     ``params`` and ``draft_params`` must already be there. With ``mesh``
-    (axes in slice, dp, tp, and fsdp or sp of size 1; see the module
+    (axes in slice, dp, ep, tp, and fsdp or sp of size 1; see the module
     docstring) it runs on
     ``mesh.device`` and takes the full weights from anywhere."""
 
@@ -124,7 +125,7 @@ class ServeEngine:
                  draft_cfg: Optional[ModelConfig] = None,
                  spec_k: int = 4, device=None):
         if mesh is not None:
-            check_mesh_axes(mesh)
+            check_mesh_axes(mesh, cfg)
             for a in ("fsdp", "sp"):
                 if mesh.shape.get(a, 1) > 1:
                     # the engine's forward neither gathers fsdp-sharded
@@ -164,6 +165,8 @@ class ServeEngine:
             raise ValueError("request_keyed sampling needs temperature > 0 "
                              "(greedy consumes no randomness)")
         self._tp = mesh.tp if mesh is not None else None
+        self._ep = mesh.ep if mesh is not None else None
+        self._model = mesh.axis(MODEL_AXES) if mesh is not None else None
         tp = self._tp.size if self._tp is not None else 1
         if mesh is not None:
             if cfg.kv_heads % tp:
@@ -299,7 +302,7 @@ class ServeEngine:
         # slot's leading rows. Exact: the engine refuses int8 with chunking
         kv = prefill(self.params,
                      init_kv_cache(self.cfg, 1, p, self.device, self._tp),
-                     tokens[None], self.cfg, self._tp)[1]
+                     tokens[None], self.cfg, self._tp, self._ep)[1]
         self._prefixes[prefix_id] = {"len": p, "kv": kv}
 
     def submit(self, req: Request) -> None:
@@ -414,7 +417,8 @@ class ServeEngine:
             padded[:true_len] = req.prompt
             padded = torch.from_numpy(padded).to(self.device)
             first_logits = _prefill_slot(self.params, self.cache, padded,
-                                         slot, true_len, self.cfg, self._tp)
+                                         slot, true_len, self.cfg, self._tp,
+                                         self._ep)
             self.prefills += 1
             tok = self._first_token(req.rid, first_logits, true_len, slot)
             self.slot_prefix[slot] = 0
@@ -428,7 +432,8 @@ class ServeEngine:
                 # finish check: a request done at admission never reaches a
                 # speculative round
                 _prefill_slot(self.draft_params, self.draft_cache, padded,
-                              slot, true_len, self.draft_cfg, self._tp)
+                              slot, true_len, self.draft_cfg, self._tp,
+                              self._ep)
                 self.draft_prefills += 1
 
     def _advance_prefills(self) -> None:
@@ -453,7 +458,7 @@ class ServeEngine:
             logits, _ = score_span(
                 self.params, _slot_view(self.cache, slot),
                 torch.from_numpy(chunk).to(self.device)[None], off, self.cfg,
-                self._tp)
+                self._tp, self._ep)
             next_logits = logits[0, n - 1]     # the last real row
             off += n
             if off < true_len:
@@ -466,16 +471,16 @@ class ServeEngine:
             self._maybe_finish(slot)
 
     def _agree(self, x):
-        """Under tp, tp rank 0's ``x`` on every rank: a device tensor is
-        broadcast in place, a host array comes back as int64. Every host
-        decision of a tick passes through here, so the ranks' engines
-        never diverge."""
-        if self._tp is None or self._tp.size == 1:
+        """Under ep or tp, the model group's rank 0's ``x`` on every rank: a
+        device tensor is broadcast in place, a host array comes back as
+        int64. Every host decision of a tick passes through here, so the
+        ranks' engines never diverge."""
+        if self._model is None or self._model.size == 1:
             return x
         if isinstance(x, torch.Tensor):
-            return broadcast(x, self._tp)
+            return broadcast(x, self._model)
         t = torch.as_tensor(np.asarray(x, dtype=np.int64), device=self.device)
-        return broadcast(t, self._tp).cpu().numpy()
+        return broadcast(t, self._model).cpu().numpy()
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
         return self._agree(sample_token(logits, self.generator,
@@ -564,12 +569,12 @@ class ServeEngine:
             np.stack([self.prev_tok, self.next_tok], axis=1)).to(self.device)
         proposals_dev, _ = draft_rollout(self.draft_params, self.draft_cache,
                                          feed2, pos_dev - 1, self.draft_cfg,
-                                         k, self._tp)
+                                         k, self._tp, self._ep)
         proposals_dev = self._agree(proposals_dev)
         proposals = proposals_dev.cpu().numpy()              # (slots, k)
         scored = torch.cat([feed2[:, 1:], proposals_dev], dim=1)
         logits, _ = score_span(self.params, self.cache, scored, pos_dev,
-                               self.cfg, self._tp)
+                               self.cfg, self._tp, self._ep)
         t_arg = self._agree(torch.argmax(logits, dim=-1)).cpu().numpy()
         self._count_round()
         for s in active:
@@ -595,13 +600,13 @@ class ServeEngine:
         proposals, p_mat, _ = sampling_draft_rollout(
             self.draft_params, self.draft_cache, feed2, pos - 1,
             self.draft_cfg, k, self.slot_key, self.temperature, self.top_k,
-            self.top_p, self._tp)
+            self.top_p, self._tp, self._ep)
         proposals = self._agree(proposals)
         scored = torch.cat([feed2[:, 1:],
                             torch.from_numpy(proposals).to(self.device)],
                            dim=1)
         logits, _ = score_span(self.params, self.cache, scored, pos_dev,
-                               self.cfg, self._tp)
+                               self.cfg, self._tp, self._ep)
         adj = host_adjusted_logits(logits, self.temperature, self.top_k,
                                    self.top_p)               # (slots, k+1, V)
         self._count_round()
@@ -649,7 +654,8 @@ class ServeEngine:
         logits, _ = decode_step(
             self.params, self.cache,
             torch.from_numpy(self.next_tok).to(self.device),
-            torch.from_numpy(self.pos).to(self.device), self.cfg, self._tp)
+            torch.from_numpy(self.pos).to(self.device), self.cfg, self._tp,
+            self._ep)
         if self.request_keyed:
             # the token drawn now occupies row pos + 1 of its slot, the row
             # the solo position-keyed sampler keys

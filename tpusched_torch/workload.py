@@ -19,8 +19,11 @@ collectives of :mod:`.mesh` after the row-parallel products. The forward
 and loss also take the fsdp axis (``fsdp=``: each sharded weight gathered
 where it is used, its gradient reduce-scattered) and the sp axis (``sp=``:
 this rank's chunk of the sequence, attention by :class:`TrainShardings`).
+MoE layers take the ep axis and, in training, the axes the tokens are split
+over (``moe=``, :class:`ExpertAxes`): each rank runs its E/ep experts, and
+the capacity path routes the global batch's tokens as one program would.
 The three train steps take meshes whose axes are in {slice, dp, fsdp, sp,
-tp}; an ep or pp axis raises until its ROADMAP item is ported.
+ep, tp}; a pp axis trains through ``pipeline.make_pipeline_train_step``.
 
 Every entry point runs on the CUDA card unless the caller passes
 ``device="cpu"``; with no card and no explicit device it raises.
@@ -291,8 +294,32 @@ def _router_gates(x: torch.Tensor, p: Dict[str, torch.Tensor],
     return probs, gate / gate.sum(dim=-1, keepdim=True), idx
 
 
+@dataclasses.dataclass(frozen=True)
+class ExpertAxes:
+    """The mesh axes an MoE layer runs over besides tp: ``ep`` shards the
+    expert stacks (E/ep experts a rank), and the capacity path gathers its
+    input's rows over ``batch`` and its sequence over ``sp``, so that it
+    ranks the global batch's tokens for capacity as one program does. Every
+    rank of ep holds the same tokens (ep is not a batch axis)."""
+    ep: Optional[Axis] = None
+    batch: Optional[Axis] = None
+    sp: Optional[Axis] = None
+
+
+NO_EXPERT_AXES = ExpertAxes()
+
+
+def _my_experts(p: Dict[str, torch.Tensor], ep: Optional[Axis]) -> slice:
+    """This rank's columns of the (·, E) routing tensors: the experts its
+    stacks hold, the ep index's run of them."""
+    n = p["w_gate"].shape[0]
+    lo = ep.index * n if ep is not None else 0
+    return slice(lo, lo + n)
+
+
 def _moe_mlp(h: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
-             tp: Optional[Axis] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+             tp: Optional[Axis] = None, moe: ExpertAxes = NO_EXPERT_AXES
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k MoE with capacity dispatch (training): positions in each expert
     from an f32 cumsum over the k-major slots, so every top-1 slot claims
     capacity before any top-2 slot; a slot past capacity is dropped (its
@@ -301,15 +328,22 @@ def _moe_mlp(h: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
     ``cfg.dtype``. Returns (out, aux), aux the switch load-balance loss
     E·Σ f_e·P_e with f_e from the top-1 choices.
 
-    Under tp the expert stacks are sharded on d_ff, so each rank's expert
-    outputs are partial sums: the routing is replicated, the expert input
-    and the gates enter the rank-local products through ``copy_to`` (their
-    gradients, the router's included, are summed over tp) and the combined
-    f32 output is summed over tp before its cast."""
-    b, s, d = h.shape
+    The routing is replicated: the input is gathered over ``moe.sp`` along
+    the sequence and over ``moe.batch`` along the rows (each gather's
+    backward the reduce-scatter sum), so every rank ranks the global B·S
+    tokens in (b, s) order with the global capacity, f_e and P_e, and keeps
+    its own rows and chunk of the output at the end. Under tp the expert
+    stacks are sharded on d_ff and under ep on E, so each rank's expert
+    outputs are partial sums: the input and the gates enter the rank-local
+    products through ``copy_to`` over ep and tp (their gradients, the
+    router's included, are summed over both), each rank dispatches to its
+    own E/ep experts only, and the combined f32 output is summed over tp
+    and ep before its cast."""
+    whole = gather(gather(h, moe.sp, 1), moe.batch, 0)
+    b, s, d = whole.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     n = b * s
-    x = h.reshape(n, d)
+    x = whole.reshape(n, d)
     cap = moe_capacity(cfg, n)
     probs, gate, idx = _router_gates(x, p, cfg)
 
@@ -320,17 +354,21 @@ def _moe_mlp(h: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
     # a dropped slot's capacity one-hot is a zero row (F.one_hot would raise)
     cap_onehot = (slot_pos[:, None] == torch.arange(
         cap, device=h.device)).float()
-    dispatch = (flat * keep[:, None])[:, :, None] * cap_onehot[:, None, :]
-    x_rep = x.repeat(k, 1)                                 # k-major copies
+    mine = flat[:, _my_experts(p, moe.ep)] * keep[:, None]
+    dispatch = mine[:, :, None] * cap_onehot[:, None, :]   # (k·n, E/ep, C)
+    x_rep = copy_to(x, moe.ep).repeat(k, 1)                # k-major copies
     expert_in = copy_to(torch.einsum("tec,td->ecd", dispatch,
                                      x_rep.float()).to(cfg.dtype), tp)
     g = torch.einsum("ecd,edf->ecf", expert_in, p["w_gate"])
     u = torch.einsum("ecd,edf->ecf", expert_in, p["w_up"])
     out_e = torch.einsum("ecf,efd->ecd", F.silu(g) * u, p["w_down"])
-    combine = dispatch * copy_to(gate_flat, tp)[:, None, None]
+    combine = dispatch * copy_to(copy_to(gate_flat, moe.ep), tp)[:, None,
+                                                                None]
     out = torch.einsum("ecd,tec->td", out_e.float(), combine)
-    out = reduce_from(out.reshape(k, n, d).sum(dim=0), tp)
+    out = reduce_from(reduce_from(out.reshape(k, n, d).sum(dim=0), tp),
+                      moe.ep)
     out = out.reshape(b, s, d).to(h.dtype)
+    out = local_chunk(local_chunk(out, moe.batch, 0), moe.sp, 1)
 
     f_e = F.one_hot(idx[:, 0], e).float().mean(dim=0)
     aux = e * (f_e * probs.mean(dim=0)).sum()
@@ -338,36 +376,45 @@ def _moe_mlp(h: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def _moe_mlp_dropless(h: torch.Tensor, p: Dict[str, torch.Tensor],
-                      cfg: ModelConfig, tp: Optional[Axis] = None
+                      cfg: ModelConfig, tp: Optional[Axis] = None,
+                      ep: Optional[Axis] = None
                       ) -> Tuple[torch.Tensor, float]:
     """Inference MoE: every expert runs on every token and the top-k gates,
     scattered into an (n, E) f32 weight, combine them, so a token's output
     depends on that token alone (what a KV-cache decode of one token must
     reproduce from the prefill). Returns (out, 0.0). Under tp as
-    :func:`_moe_mlp`."""
+    :func:`_moe_mlp`. Under ep each rank runs its E/ep experts on every
+    token, and the experts' outputs are gathered over ep so that every rank
+    combines all E in one sum, in one card's order: partial sums over ep,
+    added after, round differently: on an H100 in bf16 they moved 12 of
+    16 greedy ``mixtral_like`` streams off one card's, where the gathered
+    combine moved none."""
     b, s, d = h.shape
     x = h.reshape(b * s, d)
     _, gate, idx = _router_gates(x, p, cfg)
     w = torch.zeros(b * s, cfg.n_experts, dtype=torch.float32,
                     device=h.device).scatter(1, idx, gate)
-    xc = copy_to(x.to(cfg.dtype), tp)
+    xc = copy_to(copy_to(x.to(cfg.dtype), ep), tp)
     g = torch.einsum("nd,edf->enf", xc, p["w_gate"])
     u = torch.einsum("nd,edf->enf", xc, p["w_up"])
     oe = torch.einsum("enf,efd->end", F.silu(g) * u, p["w_down"])
+    # (E/ep, n, d) -> (E, n, d), contiguous as one card's
+    oe = gather_last(oe.permute(1, 2, 0), ep).permute(2, 0, 1).contiguous()
     out = reduce_from(torch.einsum("end,ne->nd", oe.float(), copy_to(w, tp)),
                       tp)
     return out.reshape(b, s, d).to(h.dtype), 0.0
 
 
 def _mlp(h: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
-         dropless: bool = False, tp: Optional[Axis] = None):
+         dropless: bool = False, tp: Optional[Axis] = None,
+         moe: ExpertAxes = NO_EXPERT_AXES):
     """SwiGLU MLP, dense or MoE by config. Returns (out, aux); aux is 0.0
     but for the MoE capacity path. Under tp w_gate/w_up are column- and
     w_down row-parallel."""
     if cfg.n_experts:
         if dropless:
-            return _moe_mlp_dropless(h, p, cfg, tp)
-        return _moe_mlp(h, p, cfg, tp)
+            return _moe_mlp_dropless(h, p, cfg, tp, moe.ep)
+        return _moe_mlp(h, p, cfg, tp, moe)
     h = copy_to(h, tp)
     out = (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
     return reduce_from(out, tp), 0.0
@@ -375,26 +422,27 @@ def _mlp(h: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def _finish_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
                   o: torch.Tensor, cfg: ModelConfig, dropless: bool = False,
-                  tp: Optional[Axis] = None):
+                  tp: Optional[Axis] = None,
+                  moe: ExpertAxes = NO_EXPERT_AXES):
     """Residual and MLP tail, shared by the forward and the decode path;
     ``dropless`` selects the inference MoE routing. ``o`` holds this rank's
     heads under tp (wo is row-parallel). Returns (x, aux)."""
     b, s, _ = x.shape
     x = x + reduce_from(o.reshape(b, s, -1) @ p["wo"], tp)
-    out, aux = _mlp(_rmsnorm(x, p["ln_mlp"]), p, cfg, dropless, tp)
+    out, aux = _mlp(_rmsnorm(x, p["ln_mlp"]), p, cfg, dropless, tp, moe)
     return x + out, aux
 
 
 def _block(x: torch.Tensor, p: Dict[str, torch.Tensor], cfg: ModelConfig,
            attn_fn: Optional[Callable] = None, dropless: bool = False,
            tp: Optional[Axis] = None, pos_offset: int = 0,
-           fsdp: Optional[Axis] = None):
+           fsdp: Optional[Axis] = None, moe: ExpertAxes = NO_EXPERT_AXES):
     p = _gather_fsdp(p, cfg, fsdp)
     h = _rmsnorm(x, p["ln_attn"])
     q, k, v = _qkv(h, p, cfg, pos_offset, tp)
     if attn_fn is None:
         attn_fn = attention.naive_attention
-    return _finish_block(x, p, attn_fn(q, k, v), cfg, dropless, tp)
+    return _finish_block(x, p, attn_fn(q, k, v), cfg, dropless, tp, moe)
 
 
 def _resolve_attn_fn(cfg: ModelConfig, attn_fn: Optional[Callable] = None):
@@ -457,7 +505,8 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig,
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             attn_fn: Optional[Callable] = None, with_aux: bool = False,
             dropless: bool = False, tp: Optional[Axis] = None,
-            fsdp: Optional[Axis] = None, pos_offset: int = 0):
+            fsdp: Optional[Axis] = None, pos_offset: int = 0,
+            moe: ExpertAxes = NO_EXPERT_AXES):
     """Logits (b, s, vocab) for tokens (b, s), and with ``with_aux`` also
     the MoE aux loss summed over layers (an f32 scalar, 0 for a dense
     model). ``dropless`` routes MoE layers as inference does. With
@@ -467,7 +516,8 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     attention's forward kernel runs twice per layer and step). ``tp`` and
     ``fsdp``: the tensor-parallel and fully-sharded axes of sharded
     ``params`` (``shard_params``). ``pos_offset``: the position of
-    ``tokens``' first column, a sequence chunk's under sp."""
+    ``tokens``' first column, a sequence chunk's under sp. ``moe``: the
+    MoE layers' axes (:class:`ExpertAxes`)."""
     attn_fn = _resolve_attn_fn(cfg, attn_fn)
     remat = cfg.remat and torch.is_grad_enabled()
     x = embed(params, tokens, tp, cfg, fsdp)
@@ -475,10 +525,10 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     for layer in params["layers"]:
         if remat:
             x, aux = checkpoint(_block, x, layer, cfg, attn_fn, dropless, tp,
-                                pos_offset, fsdp, use_reentrant=False)
+                                pos_offset, fsdp, moe, use_reentrant=False)
         else:
             x, aux = _block(x, layer, cfg, attn_fn, dropless, tp, pos_offset,
-                            fsdp)
+                            fsdp, moe)
         aux_total = aux_total + aux
     logits = unembed(params, _rmsnorm(x, params["ln_f"]), cfg, tp, fsdp)
     return (logits, aux_total) if with_aux else logits
@@ -552,8 +602,8 @@ def _nll(logits: torch.Tensor, targets: torch.Tensor,
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             attn_fn: Optional[Callable] = None, tp: Optional[Axis] = None,
-            sp: Optional[Axis] = None,
-            fsdp: Optional[Axis] = None) -> torch.Tensor:
+            sp: Optional[Axis] = None, fsdp: Optional[Axis] = None,
+            moe: ExpertAxes = NO_EXPERT_AXES) -> torch.Tensor:
     """Next-token loss, the mean over every row's S − 1 predicted positions,
     plus ``cfg.moe_aux_weight`` times the MoE aux loss (0 for a dense
     model), through the compute-dtype cast (so master-dtype gradients come
@@ -563,7 +613,10 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     sequence, so the last position of chunk i takes chunk i + 1's first
     token and only the last chunk drops one, and the rank returns its share
     of the mean over all B × (S − 1) positions; the sum over sp is the
-    loss, never a mean of the ranks' means."""
+    loss, never a mean of the ranks' means. The MoE aux is the global
+    batch's on every rank (``moe`` gathers the tokens), so each sp rank
+    adds aux / sp: the sum over sp counts it once, in the loss and in the
+    router's gradient alike."""
     params = cast_params_for_compute(params, cfg)
     b, s = tokens.shape
     n, i = (sp.size, sp.index) if sp is not None else (1, 0)
@@ -572,16 +625,18 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     lo, hi = i * (s // n), (i + 1) * (s // n)
     targets = tokens[:, lo + 1:hi + 1]
     logits, aux = forward(params, tokens[:, lo:hi], cfg, attn_fn,
-                          with_aux=True, tp=tp, fsdp=fsdp, pos_offset=lo)
+                          with_aux=True, tp=tp, fsdp=fsdp, pos_offset=lo,
+                          moe=moe)
     vocab_axis = tp if cfg.vocab_parallel_loss else None
     nll = _nll(logits[:, :targets.shape[1]], targets, vocab_axis)
-    return nll.sum() / (b * (s - 1)) + cfg.moe_aux_weight * aux
+    return nll.sum() / (b * (s - 1)) + cfg.moe_aux_weight * aux / n
 
 
 def value_and_grad(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                    attn_fn: Optional[Callable] = None,
                    tp: Optional[Axis] = None, sp: Optional[Axis] = None,
-                   fsdp: Optional[Axis] = None):
+                   fsdp: Optional[Axis] = None,
+                   moe: ExpertAxes = NO_EXPERT_AXES):
     """(loss, grads) of :func:`loss_fn`, grads in the parameter tree's
     structure and dtypes; ``params`` themselves are left untouched. Under
     tp the grads are this rank's shards' and every replicated leaf's full
@@ -590,7 +645,7 @@ def value_and_grad(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     it = iter(leaves)
     loss = loss_fn(tree_map(lambda _: next(it), params), tokens, cfg, attn_fn,
-                   tp, sp, fsdp)
+                   tp, sp, fsdp, moe)
     grads = iter(torch.autograd.grad(loss, leaves))
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
@@ -607,23 +662,31 @@ def sgd_train_step(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 #
 # Axis conventions, as the reference's (any subset may be on the mesh):
 # slice, dp and fsdp shard the batch, fsdp also every matrix's non-tp dim
-# (ZeRO-3), sp the sequence, tp the model. An ep or pp axis raises until
-# its ROADMAP item lands.
+# (ZeRO-3), sp the sequence, ep the MoE experts, tp the model. A pp axis
+# trains through pipeline.make_pipeline_train_step, which stacks the
+# layers; the flat steps, shard_params and the engine refuse it.
 
-PORTED_AXES = ("slice", "dp", "fsdp", "sp", "tp")
-NOT_PORTED_AXES = ("ep", "pp")
+PORTED_AXES = ("slice", "dp", "fsdp", "sp", "ep", "tp")
 
 
-def check_mesh_axes(mesh: Optional[Mesh]) -> None:
-    """Raise for an axis the port does not run yet (NotImplementedError,
-    naming ROADMAP) or does not know (ValueError)."""
+def check_mesh_axes(mesh: Optional[Mesh],
+                    cfg: Optional[ModelConfig] = None) -> None:
+    """Raise for a pp axis (NotImplementedError, naming the pipeline and
+    ROADMAP), an axis the port does not know, or an ep that does not divide
+    ``cfg``'s experts (ValueError)."""
     for a in () if mesh is None else mesh.axis_names:
-        if a in NOT_PORTED_AXES:
+        if a == "pp":
             raise NotImplementedError(
-                f"the {a!r} mesh axis is not ported yet: ROADMAP "
-                f"'Parallelism' (Queue 1 item 3: ep, then pp)")
+                "the 'pp' mesh axis trains through "
+                "pipeline.make_pipeline_train_step (stacked layers); the "
+                "flat train steps, shard_params and the engine do not run "
+                "it: ROADMAP 'Parallelism'")
         if a not in PORTED_AXES:
             raise ValueError(f"unknown mesh axis {a!r}")
+    ep = mesh.shape.get("ep", 1) if mesh is not None else 1
+    if cfg is not None and cfg.n_experts % ep:
+        raise ValueError(f"n_experts {cfg.n_experts} not divisible by ep "
+                         f"{ep}")
 
 
 def batch_axes(mesh: Mesh) -> Tuple[str, ...]:
@@ -654,9 +717,34 @@ def param_specs(cfg: ModelConfig, mesh: Mesh) -> Params:
             "ln_f": vec, "layers": [dict(layer) for _ in range(cfg.n_layers)]}
 
 
+def moe_act_spec(cfg: ModelConfig, mesh: Mesh) -> Optional[Axis]:
+    """The axis the (E, C, d) expert buffers split their E over: the ep
+    axis, or None for a dense model or a mesh without ep (the reference's
+    ``P("ep", None, None)`` sharding)."""
+    return mesh.ep if cfg.n_experts else None
+
+
 def token_spec(mesh: Mesh) -> Tuple:
     """The tokens' (B, S) spec: B over the batch axes."""
     return (batch_axes(mesh) or None, None)
+
+
+def shard_leaf(x: torch.Tensor, spec: Tuple, mesh: Mesh) -> torch.Tensor:
+    """This rank's slice of ``x`` by its ``spec`` (a mesh axis name or None
+    a dim), as a new contiguous tensor on ``mesh.device``."""
+    for dim, name in enumerate(spec):
+        if name is not None:
+            x = local_chunk(x, mesh.axis(name), dim)
+    dev = mesh.device or x.device
+    return torch.empty(x.shape, dtype=x.dtype, device=dev).copy_(x)
+
+
+def gather_leaf(x: torch.Tensor, spec: Tuple, mesh: Mesh) -> torch.Tensor:
+    """The whole leaf back from every rank's :func:`shard_leaf`."""
+    for dim, name in enumerate(spec):
+        if name is not None:
+            x = mesh_all_gather(x, mesh.axis(name), dim)
+    return x
 
 
 def shard_params(params: Params, cfg: ModelConfig, mesh: Mesh) -> Params:
@@ -664,28 +752,16 @@ def shard_params(params: Params, cfg: ModelConfig, mesh: Mesh) -> Params:
     contiguous tensors on ``mesh.device`` (the full tree may live anywhere
     and can be dropped after). A leaf's dim over an axis of size 1, or over
     none, is whole."""
-    check_mesh_axes(mesh)
-
-    def cut(x, spec):
-        for dim, name in enumerate(spec):
-            if name is not None:
-                x = local_chunk(x, mesh.axis(name), dim)
-        dev = mesh.device or x.device
-        return torch.empty(x.shape, dtype=x.dtype, device=dev).copy_(x)
-
-    return tree_map(cut, params, param_specs(cfg, mesh))
+    check_mesh_axes(mesh, cfg)
+    return tree_map(lambda x, spec: shard_leaf(x, spec, mesh), params,
+                    param_specs(cfg, mesh))
 
 
 def gather_params(shards: Params, cfg: ModelConfig, mesh: Mesh) -> Params:
     """The full tree back from every rank's :func:`shard_params` (each rank
     gets it): for tests and checkpoints."""
-    def join(x, spec):
-        for dim, name in enumerate(spec):
-            if name is not None:
-                x = mesh_all_gather(x, mesh.axis(name), dim)
-        return x
-
-    return tree_map(join, shards, param_specs(cfg, mesh))
+    return tree_map(lambda x, spec: gather_leaf(x, spec, mesh), shards,
+                    param_specs(cfg, mesh))
 
 
 def _sequence_gathered(attn_fn: Callable, sp: Optional[Axis]) -> Callable:
@@ -702,8 +778,10 @@ def _sequence_gathered(attn_fn: Callable, sp: Optional[Axis]) -> Callable:
 
 class TrainShardings:
     """What a train step on ``mesh`` needs, derived once from (mesh, cfg),
-    as the reference's ``TrainShardings``: the axes (tp; sp; fsdp; the
-    batch axes, which split the global batch's rows) and the attention,
+    as the reference's ``TrainShardings``: the axes (tp; sp; fsdp; ep; the
+    batch axes, which split the global batch's rows; ``moe``, the MoE
+    layers' :class:`ExpertAxes`, which route the global batch) and the
+    attention,
     resolved for sp: ``ring`` is :func:`attention.make_ring_attention` and
     ``ringflash`` :func:`attention.make_ring_flash_attention` on the sp
     axis, ``naive`` and ``flash`` run over the gathered sequence
@@ -711,12 +789,14 @@ class TrainShardings:
     card (ring and ringflash to naive)."""
 
     def __init__(self, mesh: Optional[Mesh], cfg: ModelConfig):
-        check_mesh_axes(mesh)
+        check_mesh_axes(mesh, cfg)
         self.cfg = cfg
         self.mesh = mesh
         axis = mesh.axis if mesh is not None else (lambda _: None)
         self.tp, self.sp, self.fsdp = axis("tp"), axis("sp"), axis("fsdp")
         self.batch = axis(BATCH_AXES)
+        self.ep = moe_act_spec(cfg, mesh) if mesh is not None else None
+        self.moe = ExpertAxes(self.ep, self.batch, self.sp)
         if self.sp is None:
             self.attn_fn = _resolve_attn_fn(cfg)
         elif cfg.attn == "ring":
@@ -725,15 +805,6 @@ class TrainShardings:
             self.attn_fn = attention.make_ring_flash_attention(self.sp)
         else:
             self.attn_fn = _sequence_gathered(_resolve_attn_fn(cfg), self.sp)
-        if cfg.n_experts and any(a is not None and a.size > 1
-                                 for a in (self.batch, self.sp)):
-            # the reference's capacity dispatch ranks every token of the
-            # GLOBAL batch for expert slots; a rank's share alone would drop
-            # other tokens
-            raise NotImplementedError(
-                "MoE capacity routing over a data-parallel batch or an sp "
-                "split sequence is not ported yet: ROADMAP 'Parallelism' "
-                "(ep)")
 
     def local(self, tokens: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """This rank's rows of the global batch (the whole sequence: the
@@ -743,7 +814,7 @@ class TrainShardings:
     def __call__(self, params: Params, tokens: torch.Tensor):
         """(loss, grads) of this rank's rows, as :func:`value_and_grad`."""
         return value_and_grad(params, tokens, self.cfg, self.attn_fn,
-                              self.tp, self.sp, self.fsdp)
+                              self.tp, self.sp, self.fsdp, self.moe)
 
     def mean(self, loss: torch.Tensor, grads: Params):
         """The global loss and f32 gradients (a tree) from this rank's:
@@ -782,7 +853,7 @@ def _specs_or_none(mesh: Optional[Mesh], cfg: ModelConfig):
 
 def make_sharded_train_step(mesh: Optional[Mesh], cfg: ModelConfig,
                             lr: float = 1e-3):
-    """SGD over ``mesh`` (axes in slice, dp, fsdp, sp, tp):
+    """SGD over ``mesh`` (axes in slice, dp, fsdp, sp, ep, tp):
     ``step(params, tokens) -> (params, loss)`` on this rank's shards
     (:func:`shard_params`) and the GLOBAL batch (B, S), whose rows the step
     splits over the batch axes and whose sequence the loss splits over sp;
