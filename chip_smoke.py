@@ -140,11 +140,46 @@ Phases, in order; any failure raises and the script exits non-zero:
     each loss within 1e-5 relative of the whole model's; a tiny flash
     pipeline on {"pp": 2}: (L/pp)·n_micro launches of each kernel a stage
     and every gradient within 1e-5 of the naive pipeline's. The times of
-    phases 26-28 are gloo through the host with every rank on one card.
+    phases 26-28 are gloo through the host with every rank on one card;
+29. checkpoint and resume at full width: phase 6's ``llama_like_big(seq=
+    4096)`` AdamW (mu f32, flash, remat) fed by ``data.TokenBatcher(seed=
+    0)``, two steps, ``checkpoint.save`` of params and optimizer state
+    under the git-ignored ``.chipwork/`` (seconds and bytes on disk), two
+    more steps (the uninterrupted run), then the trained state freed,
+    ``checkpoint.restore`` into fresh tensors and two steps on
+    ``TokenBatcher(seed=0, start_step=2)``: the resumed losses within 1e-6
+    relative of the uninterrupted ones (bitwise equality printed), the
+    AdamW count 2, the two streams' batches 2-3 identical, K1/K2/K3 24/12/12
+    every step; peak memory beside phase 6's and the restore's seconds. Then
+    tiny f32 on four gloo ranks sharing the card: SGD saved on {"dp": 2,
+    "tp": 2} and restored onto {"fsdp": 2, "tp": 2}, and MoE (4 experts)
+    saved on {"dp": 2, "ep": 2} and restored onto {"ep": 4} (one expert a
+    rank), each continuation within 1e-5 of the uninterrupted run;
+30. train -> export -> serve: ``checkpoint.export_for_serving`` of phase
+    29's trained params (snapshot bytes), ``load_for_serving`` (seconds) and
+    phase 3's 16 requests and geometry served from it: completions equal an
+    engine's on the params in memory exactly, K1 once a layer a prefill;
+    then the snapshot read as shards by ``load_for_serving(mesh=)`` on
+    {"tp": 2} gloo ranks and served: every leaf at its shard's shape, the
+    ranks agree, each stream equals the one-card stream or first differs
+    at a near tie; then a ``measure.GoodputReporter`` with an in-process
+    recording client on ``measure_serving`` and ``measure_serving_slo``
+    over phase 13's traffic (monolithic): one report a harness, its
+    throughput the harness's tokens/s within 1e-6 relative, its step the
+    ticks, the SLO report's TTFT ``ttft_s_p50``;
+31. ``measure.calibrate()`` (a chain of 4096 x 4096 bf16 matmuls timed by
+    the slope of 16 and 64 links) must read above 0 and below 989 TFLOP/s,
+    printed beside ``device_peak_tflops``; then ``budget``'s HBM model on
+    ``h100-80gb`` for phase 6's training, phase 22's at tp 2, phase 3's
+    serving, phase 20's at tp 2 and phase 14's int8 arena, beside the peak
+    each of those phases measured in this run and their ratio (printed, not
+    held: the reference's model counts nu in f32 and has no ep or pp
+    factor), and the card's ``total_memory``.
 
 The second-to-last line is the ``kernels`` JSON object (each kernel also
-with ``ring_launches`` from phase 24, ``ring_shape`` times and
-``pp_launches`` from phases 27 and 28), the last line the ``ok`` JSON
+with ``ring_launches`` from phase 24, ``ring_shape`` times,
+``pp_launches`` from phases 27 and 28 and ``ckpt_launches`` from phase 29,
+K1 ``handoff_launches`` from phase 30), the last line the ``ok`` JSON
 object. Imports neither JAX nor the JAX package.
 
     python3 chip_smoke.py --ab DIR
@@ -155,9 +190,11 @@ DIR) and of this one in turns on the card (:func:`ab`) and runs no phase.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1162,7 +1199,8 @@ def phase_int8_serving(attention, serve, workload, exact, exact_decode,
     exact engine's (prefill attends the fresh K/V and reads no cache). The
     share of all tokens that agree is printed, not checked: random weights
     leave near-ties. Then phase 11's decode with an int8 cache, beside
-    phase 11's exact numbers. Returns the flash launches."""
+    phase 11's exact numbers. Returns the flash launches and the peak
+    memory of the drain."""
     cfg = dataclasses.replace(workload.ModelConfig.llama_like_big(),
                               kv_cache_dtype="int8")
     params = seeded_params(workload, cfg)
@@ -1219,7 +1257,7 @@ def phase_int8_serving(attention, serve, workload, exact, exact_decode,
             "bandwidth_utilization")
     print(json.dumps({"decode": "mixtral_like", "int8": {
         k: i8[k] for k in keys}, "exact": {k: exact_decode[k] for k in keys}}))
-    return launches
+    return launches, peak_gib
 
 
 def phase_trace(decode, workload):
@@ -2637,6 +2675,392 @@ def phase_dryrun_ep_pp(attention, workload, tmesh, workdir):
     return per
 
 
+# -- phases 29-31: checkpoint and resume, the hand-off to serving, calibrate
+# -- and the HBM budget --------------------------------------------------------
+
+CHIPWORK = pathlib.Path(__file__).resolve().parent / ".chipwork"
+CKPT_RTOL = 1e-6             # phase 29's resumed losses against uninterrupted
+# phase 29's mesh changes, tiny f32: name -> (saved on, restored onto,
+# experts), over the four ranks of the first
+CKPT_MESHES = {"dense": ({"dp": 2, "tp": 2}, {"fsdp": 2, "tp": 2}, 0),
+               "moe": ({"dp": 2, "ep": 2}, {"ep": 4}, 4)}
+HANDOFF_MESH = {"tp": 2}     # phase 30's sharded load
+
+
+def disk_bytes(path) -> int:
+    return sum(f.stat().st_size for f in pathlib.Path(path).rglob("*")
+               if f.is_file())
+
+
+def work_dir(prefix: str) -> pathlib.Path:
+    """A new directory under the git-ignored ``.chipwork/``."""
+    import tempfile
+    CHIPWORK.mkdir(exist_ok=True)
+    return pathlib.Path(tempfile.mkdtemp(prefix=prefix, dir=CHIPWORK))
+
+
+def adamw_skeleton(checkpoint, optim, workload, cfg, mu_dtype):
+    """The AdamW state's restore skeleton from the parameter skeleton: mu
+    in ``mu_dtype``, nu in the parameters' dtype, no tensor made."""
+    skel = checkpoint.param_skeleton(cfg)
+    return optim.AdamWState(0, workload.tree_map(
+        lambda a: dataclasses.replace(a, dtype=mu_dtype), skel), skel)
+
+
+def ckpt_mesh_rank(mesh, directory):
+    """Phase 29's mesh changes on one rank: for each CKPT_MESHES case, tiny
+    f32 (TF32 off) SGD, two steps on the first mesh, a save of the shards,
+    two more steps (the uninterrupted run), then a restore onto the second
+    mesh and two steps there. Returns the losses and the restored shapes."""
+    import os
+    from tpusched_torch import checkpoint, workload
+    from tpusched_torch import mesh as tmesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshes = {tuple(mesh.shape.items()): mesh}
+
+    def mesh_of(sizes):
+        key = tuple(sizes.items())
+        if key not in meshes:
+            meshes[key] = tmesh.build_named_mesh(sizes, "gloo", "cuda")
+        return meshes[key]
+
+    out = {}
+    for name, (sa, sb, experts) in CKPT_MESHES.items():
+        a, b = mesh_of(sa), mesh_of(sb)
+        cfg = dataclasses.replace(workload.ModelConfig.tiny(),
+                                  n_experts=experts)
+        tokens = torch.as_tensor(np.random.default_rng(11).integers(
+            0, cfg.vocab, (4, cfg.seq)), device="cuda")
+        step_a, specs_a, _ = workload.make_sharded_train_step(a, cfg)
+        shards = workload.shard_params(seeded_params(workload, cfg), cfg, a)
+        for _ in range(2):
+            shards, _ = step_a(shards, tokens)
+        d = os.path.join(directory, name)
+        checkpoint.save(d, shards, 2, mesh=a, specs=specs_a)
+        base = []
+        for _ in range(2):
+            shards, loss = step_a(shards, tokens)
+            base.append(loss.item())
+        step_b, specs_b, _ = workload.make_sharded_train_step(b, cfg)
+        restored, saved = checkpoint.restore(d, checkpoint.abstract_state(
+            checkpoint.param_skeleton(cfg), specs_b, b), mesh=b)
+        layer = restored["layers"][0]
+        shapes = {k: list(layer[k].shape) for k in ("wq", "w_gate")}
+        resumed = []
+        for _ in range(2):
+            restored, loss = step_b(restored, tokens)
+            resumed.append(loss.item())
+        out[name] = dict(base=base, resumed=resumed, saved=saved,
+                         shapes=shapes, device=str(layer["wq"].device))
+    return out
+
+
+def phase_checkpoint(attention, checkpoint, data, optim, workload, tmesh,
+                     train, workdir):
+    """Phase 29 (module docstring). Returns the trained params (for phase
+    30) and the kernels' launches a step."""
+    t0 = time.perf_counter()
+    cfg = workload.ModelConfig.llama_like_big(seq=4096)
+    mu_dtype = torch.float32
+    step, init_opt, _, _ = workload.make_optax_train_step(
+        None, cfg, optim.adamw(1e-4, mu_dtype=mu_dtype))
+    want = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    directory = work_dir("ckpt-")
+
+    def run(params, state, batches):
+        losses, step_s = [], []
+        for tokens in batches:
+            zero_counts(attention)
+            t = time.perf_counter()
+            params, state, loss = step(params, state, tokens)
+            losses.append(loss.item())              # the fence
+            step_s.append(time.perf_counter() - t)
+            check(bwd_counts(attention) == want, f"checkpointed step "
+                  f"launched (K1, K2, K3) = {bwd_counts(attention)}, wanted "
+                  f"{want}")
+        return losses, step_s
+
+    torch.cuda.empty_cache()
+    params = seeded_params(workload, cfg)
+    state = init_opt(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stream = iter(data.TokenBatcher(cfg, 1, seed=0, device="cuda"))
+    first, _ = run(params, state, (next(stream) for _ in range(2)))
+    t = time.perf_counter()
+    checkpoint.save(str(directory), params, 2, extra=state)
+    save_s = time.perf_counter() - t
+    save_bytes = disk_bytes(directory)
+    check(checkpoint.latest_step(str(directory)) == 2, "no step 2 saved")
+    batches = [next(stream) for _ in range(2)]
+    kept = [b.cpu() for b in batches]
+    uninterrupted, step_s = run(params, state, batches)
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    del params, state, batches, stream
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params, saved, state = checkpoint.restore(
+        str(directory), checkpoint.abstract_state(
+            checkpoint.param_skeleton(cfg)),
+        abstract_extra=adamw_skeleton(checkpoint, optim, workload, cfg,
+                                      mu_dtype), device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    check(saved == 2 and state.count == 2,
+          f"restored step {saved}, AdamW count {state.count}, wanted 2 and 2")
+    check(params["embed"].device.type == "cuda", "restore left the card")
+    resumed_batches = list(itertools.islice(
+        data.TokenBatcher(cfg, 1, seed=0, start_step=2, device="cuda"), 2))
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(resumed_batches, kept)),
+          "the resumed stream's batches 2-3 differ from the first's")
+    resumed, resumed_step_s = run(params, state, resumed_batches)
+    resumed_peak = torch.cuda.max_memory_allocated() / 2**30
+    rel = [abs(a - b) / abs(b) for a, b in zip(resumed, uninterrupted)]
+    check(max(rel) <= CKPT_RTOL, f"resumed losses {resumed} against the "
+          f"uninterrupted {uninterrupted}: rel {rel} (tol {CKPT_RTOL})")
+    del state
+    shutil.rmtree(directory)
+    print(json.dumps({
+        "checkpoint": "llama_like_big", "seq": cfg.seq, "batch": 1,
+        "optimizer": "adamw lr 1e-4 mu f32", "first_losses": first,
+        "uninterrupted_losses": uninterrupted, "resumed_losses": resumed,
+        "loss_rel_diff": rel, "loss_rtol": CKPT_RTOL,
+        "bitwise_equal": resumed == uninterrupted, "restored_count": 2,
+        "launches_per_step": dict(zip(
+            ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"), want)),
+        "save_s": save_s, "save_bytes": save_bytes,
+        "save_gib": save_bytes / 2**30, "restore_s": restore_s,
+        "step_s": step_s, "resumed_step_s": resumed_step_s,
+        "peak_mem_gib": train_peak, "resumed_peak_mem_gib": resumed_peak,
+        "phase_6_peak_mem_gib": train["peak_mem_gib"]}))
+    torch.cuda.empty_cache()
+    directory = work_dir("ckpt-mesh-")
+    ranks = tmesh.launch(ckpt_mesh_rank, CKPT_MESHES["dense"][0],
+                         str(directory), backend="gloo", device="cuda",
+                         workdir=str(workdir))
+    shutil.rmtree(directory)
+    worst = {}
+    for name in CKPT_MESHES:
+        runs = [r[name] for r in ranks]
+        check(all(r["resumed"] == runs[0]["resumed"] for r in runs),
+              f"{name}: the ranks' resumed losses differ")
+        for r in runs:
+            check(r["saved"] == 2, f"{name}: restored step {r['saved']}")
+            check(r["device"].startswith("cuda"), f"{name}: restored on "
+                  f"{r['device']}")
+        worst[name] = max(abs(a - b) / abs(b) for r in runs
+                          for a, b in zip(r["resumed"], r["base"]))
+        check(worst[name] <= 1e-5, f"{name} mesh change: resumed "
+              f"{runs[0]['resumed']} against {runs[0]['base']} (rel "
+              f"{worst[name]:.3e}, tol 1e-5)")
+    cfg_t = workload.ModelConfig.tiny()
+    check(ranks[0]["dense"]["shapes"]["wq"] == [cfg_t.d_model // 2] * 2,
+          f"dense restored wq {ranks[0]['dense']['shapes']['wq']}")
+    check(ranks[0]["moe"]["shapes"]["w_gate"][0] == 1,
+          f"moe restored w_gate {ranks[0]['moe']['shapes']['w_gate']}")
+    print(json.dumps({
+        "checkpoint_mesh_change": "tiny f32", "backend": "gloo",
+        "cases": {name: {"saved_on": sa, "restored_onto": sb,
+                         "experts": e, "uninterrupted": ranks[0][name]["base"],
+                         "resumed": ranks[0][name]["resumed"],
+                         "restored_shapes": ranks[0][name]["shapes"],
+                         "worst_rel": worst[name]}
+                  for name, (sa, sb, e) in CKPT_MESHES.items()},
+        "phase_29_s": time.perf_counter() - t0}))
+    return params, want
+
+
+def handoff_rank(mesh, directory):
+    """Phase 30's sharded load on one rank: this rank's shards of the
+    snapshot through ``load_for_serving(mesh=)``, served with phase 3's
+    traffic and geometry as a user drives the engine."""
+    from tpusched_torch import attention, checkpoint, serve, workload
+    cfg = workload.ModelConfig.llama_like_big()
+    t0 = time.perf_counter()
+    shards = checkpoint.load_for_serving(directory, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    sharded = all(workload.tree_leaves(workload.tree_map(
+        lambda x, whole, spec: tuple(x.shape) == workload.shard_shape(
+            whole, spec, mesh), shards, workload.param_shapes(cfg),
+        workload.param_specs(cfg, mesh))))
+    reqs = make_requests(cfg, serve)
+    attention.FLASH_FWD_LAUNCHES = 0
+    eng = serve.ServeEngine(shards, cfg, mesh=mesh, **SERVE_GEOMETRY)
+    eng.warmup()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run_until_drained()
+    check_completions(done, reqs, cfg.vocab, f"snapshot on {mesh.shape}")
+    return {"llama_like_big": dict(
+        tokens={c.rid: c.tokens for c in done}, load_s=load_s,
+        launches=attention.FLASH_FWD_LAUNCHES, prefills=eng.prefills,
+        sharded=sharded, ticks=eng.tick_count)}
+
+
+class ReportRecorder:
+    """An in-process stand-in for the scheduler's client: keeps what
+    ``GoodputReporter`` sends."""
+
+    def __init__(self):
+        self.reports = []
+
+    def report_status(self, reports):
+        self.reports.extend(reports)
+
+
+def phase_handoff(attention, checkpoint, decode, measure, serve, workload,
+                  tmesh, params, workdir):
+    """Phase 30 (module docstring). Returns K1's launches in the one-card
+    drain of the snapshot."""
+    t0 = time.perf_counter()
+    cfg = workload.ModelConfig.llama_like_big()
+    directory = work_dir("serving-")
+    t = time.perf_counter()
+    path = checkpoint.export_for_serving(str(directory), params, cfg, step=4)
+    export_s = time.perf_counter() - t
+    snapshot_bytes = disk_bytes(path)
+    reqs = make_requests(cfg, serve)
+
+    def drain(p):
+        eng = serve.ServeEngine(p, cfg, device="cuda", **SERVE_GEOMETRY)
+        eng.warmup()
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run_until_drained()
+        check_completions(done, reqs, cfg.vocab, "snapshot")
+        return {c.rid: c.tokens for c in done}, eng.prefills
+
+    in_memory, _ = drain(params)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loaded = checkpoint.load_for_serving(str(directory), cfg, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    check(all(torch.equal(a, b) for a, b in zip(
+        workload.tree_leaves(loaded), workload.tree_leaves(params))),
+          "the loaded snapshot differs from the params exported")
+    attention.FLASH_FWD_LAUNCHES = 0
+    got, prefills = drain(loaded)
+    launches = attention.FLASH_FWD_LAUNCHES
+    check(launches == cfg.n_layers * prefills and launches > 0,
+          f"snapshot serving: {launches} flash launches for {prefills} "
+          f"prefills")
+    differ = [rid for rid in got if not np.array_equal(got[rid],
+                                                       in_memory[rid])]
+    check(not differ, f"the snapshot's completions differ from the "
+          f"in-memory params' for requests {differ}")
+    torch.cuda.empty_cache()
+    ranks = tmesh.launch(handoff_rank, HANDOFF_MESH, str(directory),
+                         backend="gloo", device="cuda", workdir=str(workdir))
+    ranks_agree(ranks, "llama_like_big", "the snapshot at tp 2")
+    runs = [r["llama_like_big"] for r in ranks]
+    check(all(r["sharded"] for r in runs),
+          "load_for_serving(mesh=) returned leaves not at their shard shape")
+    ties = {}
+    for rid, toks in runs[0]["tokens"].items():
+        tie = near_tie(decode, loaded, cfg, reqs[rid].prompt, got[rid], toks,
+                       "cuda")
+        if tie is not None:
+            ties[rid] = tie
+    shutil.rmtree(directory)
+    # goodput: one report a harness on phase 13's traffic, monolithic
+    prefix, suffixes, gens, arrivals = slo_traffic(cfg.vocab)
+    slo_reqs = [serve.Request(rid=i, prompt=np.concatenate([prefix, s]),
+                              max_new_tokens=gens[i])
+                for i, s in enumerate(suffixes)]
+    reports = {}
+    for name, fn, args, kw in (
+            ("measure_serving", serve.measure_serving, (), {}),
+            ("measure_serving_slo", serve.measure_serving_slo, (arrivals,),
+             dict(ttft_slo_ticks=SLO_TICKS))):
+        client = ReportRecorder()
+        rep = measure.GoodputReporter(client, "default/serve-0",
+                                      gang="default/serve")
+        out = fn(cfg, loaded, slo_reqs, *args, reporter=rep, device="cuda",
+                 **SERVE_GEOMETRY, **kw)
+        check(rep.sent == 1 and len(client.reports) == 1,
+              f"{name}: {len(client.reports)} goodput reports, wanted 1")
+        r = client.reports[0]
+        check(r.step == int(out["ticks"]), f"{name}: report step {r.step}, "
+              f"ticks {out['ticks']}")
+        check(abs(r.throughput - out["tokens_per_s"])
+              <= 1e-6 * out["tokens_per_s"], f"{name}: report throughput "
+              f"{r.throughput} against {out['tokens_per_s']} tokens/s")
+        if args:
+            check(r.ttft_s == out["ttft_s_p50"], f"{name}: report ttft "
+                  f"{r.ttft_s} against ttft_s_p50 {out['ttft_s_p50']}")
+        reports[name] = {"report": dataclasses.asdict(r), "ticks":
+                         out["ticks"], "tokens_per_s": out["tokens_per_s"],
+                         "ttft_s_p50": out.get("ttft_s_p50")}
+    print(json.dumps({
+        "handoff": "llama_like_big", "snapshot_bytes": snapshot_bytes,
+        "snapshot_gib": snapshot_bytes / 2**30, "export_s": export_s,
+        "load_s": load_s, "requests": len(reqs), "prefills": prefills,
+        "flash_launches": launches, "equal_to_in_memory": len(got),
+        "tp": {"mesh": HANDOFF_MESH, "backend": "gloo", "ranks_agree": True,
+               "load_s_per_rank": [r["load_s"] for r in runs],
+               "flash_launches_per_rank": [r["launches"] for r in runs],
+               "streams_equal_to_one_card": len(got) - len(ties),
+               "near_ties": ties},
+        "goodput": reports, "phase_30_s": time.perf_counter() - t0}))
+    return launches
+
+
+def phase_budget(budget, measure, workload, mono, train, int8_peak, tp):
+    """Phase 31 (module docstring): calibrate, then the reference's HBM
+    model on the H100 beside the peaks this run measured."""
+    t0 = time.perf_counter()
+    tflops = measure.calibrate(device="cuda")
+    peak = measure.device_peak_tflops()
+    check(0 < tflops < 989, f"calibrate read {tflops} TFLOP/s, outside "
+          f"(0, 989): the timing path is broken")
+    print(json.dumps({"calibrate": {"n": 4096, "k1": 16, "k2": 64,
+                                    "tflops": tflops, "peak_tflops": peak,
+                                    "share_of_peak": tflops / 989}}))
+    acc = "h100-80gb"
+    train_cfg = workload.ModelConfig.llama_like_big(seq=4096)
+    serve_cfg = workload.ModelConfig.llama_like_big()
+    int8 = dataclasses.replace(serve_cfg, kv_cache_dtype="int8")
+    two = tp["two"]
+    slots, rows = SERVE_GEOMETRY["slots"], SERVE_GEOMETRY["max_seq"]
+    table = {
+        "train": (budget.train_hbm_breakdown(train_cfg, 1, mu_dtype="f32",
+                                             accelerator=acc),
+                  "phase 6", train["peak_mem_gib"]),
+        "train_tp2": (budget.train_hbm_breakdown(
+            train_cfg, 1, mu_dtype="f32", tp=2, accelerator=acc),
+            "phase 22", max(r["train"]["peak_mem_gib"] for r in two)),
+        "serve": (budget.serve_hbm_breakdown(serve_cfg, slots, rows,
+                                             accelerator=acc),
+                  "phase 3", mono["peak_mem_gib"]),
+        "serve_tp2": (budget.serve_hbm_breakdown(
+            serve_cfg, slots, rows, tp=2, accelerator=acc),
+            "phase 20", max(r["llama_like_big"]["peak_mem_gib"]
+                            for r in two)),
+        "serve_int8": (budget.serve_hbm_breakdown(int8, slots, rows,
+                                                  accelerator=acc),
+                       "phase 14", int8_peak),
+    }
+    n = budget.count_params(train_cfg)
+    print(json.dumps({"budget": {
+        name: {**bd.to_dict(), "measured_by": where, "measured_gib": got,
+               "measured_over_budget": got / bd.total_gib}
+        for name, (bd, where, got) in table.items()},
+        "accelerator": acc,
+        "table_hbm_mb": budget.ACCELERATORS[acc].hbm_mb_per_chip,
+        "device_total_memory_bytes":
+        torch.cuda.get_device_properties(0).total_memory,
+        "n_params": n,
+        # the model counts nu in mu's f32; optim.AdamW keeps it in the
+        # parameters' bf16, as optax does
+        "nu_counted_over_kept_gib": n * 2 / 2**30,
+        "phase_31_s": time.perf_counter() - t0}))
+
+
 def ab_turn(tree: str, other_root: str) -> None:
     """One turn of ``--ab``, in a process of its own: builds the kernels of
     the ``tpusched_torch`` on PYTHONPATH, then prints one JSON line of
@@ -2728,8 +3152,9 @@ def main(argv) -> int:
     if argv:
         print(__doc__, file=sys.stderr)
         return 2
-    from tpusched_torch import (_build, attention, decode, measure, optim,
-                                serve, spec_decode, workload)
+    from tpusched_torch import (_build, attention, budget, checkpoint, data,
+                                decode, measure, optim, serve, spec_decode,
+                                workload)
     from tpusched_torch import mesh as tmesh
 
     phase_environment(_build)
@@ -2755,8 +3180,8 @@ def main(argv) -> int:
     t_new = time.perf_counter()
     phase_chunked_serving(attention, serve, workload, mono)
     prefix_launches = phase_slo(attention, serve, workload)
-    int8_launches = phase_int8_serving(attention, serve, workload, mono,
-                                       exact_decode, measure)
+    int8_launches, int8_peak = phase_int8_serving(
+        attention, serve, workload, mono, exact_decode, measure)
     phase_parity(attention, decode, serve, workload, "flash",
                  chunk_prefill=5)
     phase_parity(attention, decode, serve, workload, "flash",
@@ -2808,6 +3233,21 @@ def main(argv) -> int:
     pp_step = phase_pp(attention, workload, tmesh, train, workdir)
     pp_tiny = phase_dryrun_ep_pp(attention, workload, tmesh, workdir)
     print(json.dumps({"phases_26_28_s": time.perf_counter() - t_ep}))
+    # checkpoint and resume, the hand-off to serving, calibrate and the
+    # budget, after every earlier phase so that those run as before
+    t_ck = time.perf_counter()
+    trained, ckpt_per_step = phase_checkpoint(
+        attention, checkpoint, data, optim, workload, tmesh, train, workdir)
+    handoff_launches = phase_handoff(attention, checkpoint, decode, measure,
+                                     serve, workload, tmesh, trained, workdir)
+    del trained
+    torch.cuda.empty_cache()
+    phase_budget(budget, measure, workload, mono, train, int8_peak, tp)
+    print(json.dumps({"phases_29_31_s": time.perf_counter() - t_ck}))
+    ckpt = {name: {"ckpt_launches": {"per_step": ckpt_per_step[j],
+                                     "steps": 6}}
+            for j, name in enumerate(("flash_fwd", "flash_bwd_dkdv",
+                                      "flash_bwd_dq"))}
     pp_launches = {"llama_like_big_per_stage_per_step": pp_step,
                    "tiny_flash_per_stage_per_step": pp_tiny}
     ring = {name: {"ring_launches": {"per_step_by_sp_index": {
@@ -2840,21 +3280,24 @@ def main(argv) -> int:
          "tp_launches": tp_fwd,
          "tp_shapes": {**tp_timing,
                        "training_tp2": rank_train["flash_fwd"]},
-         **ring["flash_fwd"], "pp_launches": pp_launches},
+         **ring["flash_fwd"], "pp_launches": pp_launches,
+         **ckpt["flash_fwd"], "handoff_launches": handoff_launches},
         {"name": "flash_bwd_dkdv", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "218",
          "launches": train_launches[1], "max_abs_err": bwd_err[1],
          **timing["flash_bwd_dkdv"],
          "tp_launches": {"training_tp2_per_rank": two["train"]["launches"][1]},
          "tp_shapes": {"training_tp2": rank_train["flash_bwd_dkdv"]},
-         **ring["flash_bwd_dkdv"], "pp_launches": pp_launches},
+         **ring["flash_bwd_dkdv"], "pp_launches": pp_launches,
+         **ckpt["flash_bwd_dkdv"]},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "265",
          "launches": train_launches[2], "max_abs_err": bwd_err[0],
          **timing["flash_bwd_dq"],
          "tp_launches": {"training_tp2_per_rank": two["train"]["launches"][2]},
          "tp_shapes": {"training_tp2": rank_train["flash_bwd_dq"]},
-         **ring["flash_bwd_dq"], "pp_launches": pp_launches}]}))
+         **ring["flash_bwd_dq"], "pp_launches": pp_launches,
+         **ckpt["flash_bwd_dq"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no module of tpusched_torch (mesh.py
-included), and not chip_smoke.py, imports JAX, optax or anything of the
-tpusched package (the machine with the card has none of them); the serving,
-speculative, tensor-parallel, fsdp×sp, expert-parallel and pipelined paths
-run with all three refused."""
+included), and not chip_smoke.py, imports JAX, optax, orbax or anything of
+the tpusched package (the machine with the card has none of them); the
+serving, speculative, tensor-parallel, fsdp×sp, expert-parallel and
+pipelined paths, the checkpoints, the token stream, the budget and the
+goodput reporter run with all of them refused."""
 from __future__ import annotations
 
 import ast
@@ -19,7 +20,7 @@ MODULES = sorted(p.stem for p in PACKAGE.glob("*.py") if p.stem != "__init__")
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top.startswith("jax") or top in ("tpusched", "optax")
+    return top.startswith("jax") or top in ("tpusched", "optax", "orbax")
 
 
 def test_every_module_imports_without_jax_or_tpusched():
@@ -28,7 +29,7 @@ def test_every_module_imports_without_jax_or_tpusched():
         f"for m in {['tpusched_torch'] + ['tpusched_torch.' + m for m in MODULES]!r}:\n"
         "    importlib.import_module(m)\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('tpusched', 'optax') or m.split('.')[0].startswith('jax')))\n")
+        "('tpusched', 'optax', 'orbax') or m.split('.')[0].startswith('jax')))\n")
     r = subprocess.run([sys.executable, "-c", prog], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
@@ -277,3 +278,78 @@ def test_ep_pp_paths_run_with_jax_unimportable(tmp_path):
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().splitlines()[-1] == ("expert-parallel and "
                                                  "pipelined")
+
+
+REFUSE_ORBAX = REFUSE.replace("('tpusched', 'optax')",
+                              "('tpusched', 'optax', 'orbax')")
+LOADED = ("sorted(m for m in sys.modules if m.split('.')[0] in ('tpusched',"
+          " 'optax', 'orbax') or m.split('.')[0].startswith('jax'))")
+
+CHECKPOINT_RANKS = REFUSE_ORBAX + (
+    "import torch\n"
+    "from tpusched_torch import checkpoint, mesh as tmesh, optim\n"
+    "from tpusched_torch import workload as wl\n"
+    "def rank(mesh, directory):\n"
+    "    torch.set_num_threads(1)\n"
+    "    cfg = wl.ModelConfig.tiny()\n"
+    "    p = wl.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+    "    specs = wl.param_specs(cfg, mesh)\n"
+    "    checkpoint.save(directory, wl.shard_params(p, cfg, mesh), 1,"
+    " mesh=mesh, specs=specs)\n"
+    "    dp = tmesh.build_named_mesh({'dp': 2}, 'gloo', 'cpu')\n"
+    "    got, step = checkpoint.restore(directory, checkpoint.abstract_state("
+    "checkpoint.param_skeleton(cfg), wl.param_specs(cfg, dp), dp), mesh=dp)\n"
+    "    same = all(torch.equal(a, b) for a, b in zip(wl.tree_leaves(got),"
+    " wl.tree_leaves(p)))\n"
+    f"    return step, same, {LOADED}\n")
+
+
+def test_checkpoint_data_budget_run_with_jax_unimportable(tmp_path):
+    """With jax, optax, orbax and tpusched refused at import: a checkpoint
+    with AdamW state saved and restored in one process, a serving snapshot
+    exported and loaded, the token stream, the budget, the goodput reporter
+    and calibrate; then two gloo ranks save on {"tp": 2} and restore onto
+    {"dp": 2} (whole leaves, equal to the saved weights). Nothing refused
+    is loaded anywhere."""
+    (tmp_path / "ckpt_ranks.py").write_text(CHECKPOINT_RANKS)
+    prog = REFUSE_ORBAX + (
+        f"sys.path.insert(0, {str(tmp_path)!r})\n"
+        "import itertools, torch\n"
+        "from tpusched_torch import budget, checkpoint, data, measure, mesh,"
+        " optim, workload as wl\n"
+        "import ckpt_ranks\n"
+        "cfg = wl.ModelConfig.tiny()\n"
+        "p = wl.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "tx = optim.adamw(1e-3)\n"
+        "st = tx.init(p)\n"
+        f"d = {str(tmp_path / 'one')!r}\n"
+        "checkpoint.save(d, p, 4, extra=st)\n"
+        "got, step, ex = checkpoint.restore(d, checkpoint.abstract_state("
+        "checkpoint.param_skeleton(cfg)), device='cpu',"
+        " abstract_extra=checkpoint.abstract_like(tx.init(p)))\n"
+        "assert step == 4 and ex.count == 0\n"
+        "checkpoint.export_for_serving(d, p, cfg, step=4)\n"
+        "assert checkpoint.load_for_serving(d, cfg, device='cpu')['embed']"
+        ".equal(p['embed'])\n"
+        "b = list(itertools.islice(data.TokenBatcher(cfg, 2, device='cpu'),"
+        " 2))\n"
+        "assert b[0].shape == (2, cfg.seq)\n"
+        "assert budget.train_hbm_breakdown(cfg, 1, accelerator='h100-80gb')"
+        ".fits\n"
+        "class C:\n"
+        "    def report_status(self, r):\n"
+        "        self.r = r\n"
+        "rep = measure.GoodputReporter(C(), 'default/x-0')\n"
+        "rep.observe_step(1, 0.5, items=10)\n"
+        "assert rep.flush()\n"
+        "assert measure.calibrate(n=32, k1=2, k2=8, device='cpu') != 0\n"
+        "out = mesh.launch(ckpt_ranks.rank, {'tp': 2},"
+        f" {str(tmp_path / 'two')!r}, backend='gloo', device='cpu',"
+        f" workdir={str(tmp_path)!r})\n"
+        "assert out == [(1, True, [])] * 2, out\n"
+        f"assert {LOADED} == [], {LOADED}\n"
+        "print('checkpointed')\n")
+    r = subprocess.run([sys.executable, "-c", prog], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().splitlines()[-1] == "checkpointed"

@@ -135,3 +135,145 @@ def test_measurement_needs_a_device(monkeypatch):
         measure.measure_decode(wl.ModelConfig.mixtral_like(), 1)
     assert measure.device_peak_tflops() is None
     assert measure.device_peak_hbm_gbps() is None
+
+
+# -- goodput reporting and calibrate --------------------------------------------
+
+
+class _Recorder:
+    def __init__(self):
+        self.batches = []
+
+    def report_status(self, reports):
+        self.batches.append(list(reports))
+
+
+def test_goodput_reporter_contract():
+    """tests/test_goodput.py's emitter contract, step by step."""
+    clock = {"now": 100.0}
+    client = _Recorder()
+    rep = measure.GoodputReporter(client, "default/train-0",
+                                  gang="default/train", unit="tokens",
+                                  min_interval_s=5.0,
+                                  clock=lambda: clock["now"])
+    assert rep.flush() is False               # an empty window says nothing
+    rep.observe_step(10, 0.5, items=1000)
+    rep.observe_step(11, 0.5, items=1000)
+    rep.observe_stall(2.0)
+    assert rep.maybe_flush() is True          # the first flush is at once
+    [r] = client.batches[0]
+    assert isinstance(r, measure.GangMemberStatus)
+    assert r.pod_key == "default/train-0" and r.gang == "default/train"
+    assert r.step == 11
+    assert r.step_time_s == pytest.approx(0.5)
+    assert r.throughput == pytest.approx(2000.0)
+    assert r.stall_s == pytest.approx(2.0)
+    assert r.timestamp == 0.0
+    rep.observe_step(12, 0.4, items=800)
+    assert rep.maybe_flush() is False         # within the interval
+    clock["now"] += 6.0
+    rep.observe_ttft(0.25)
+    assert rep.maybe_flush() is True
+    [r2] = client.batches[1]
+    assert r2.step == 12
+    assert r2.ttft_s == pytest.approx(0.25)
+    assert r2.stall_s == 0.0                  # windows do not snowball
+    assert rep.sent == 2
+
+
+def test_gang_member_status_is_the_schedulers():
+    import dataclasses as dc
+    from tpusched.api.core import GangMemberStatus
+    fields = [(f.name, f.default) for f in dc.fields(measure.GangMemberStatus)]
+    assert fields == [(f.name, f.default) for f in dc.fields(GangMemberStatus)]
+
+
+def test_goodput_reporter_feeds_the_aggregator():
+    """The port's reporter → a real APIServer → GoodputAggregator: the
+    duck-typed record is ingested (a dropped one would leave no goodput)."""
+    from tpusched.apiserver import APIServer, Clientset
+    from tpusched.obs.goodput import GoodputAggregator
+    api = APIServer()
+    agg = GoodputAggregator(publish=False)
+    agg.attach(api)
+    try:
+        rep = measure.GoodputReporter(Clientset(api), "default/e2e-0",
+                                      gang="default/e2e")
+        rep.observe_step(1, 0.1, items=100)
+        assert rep.flush() is True
+        health = agg.gang_health("default/e2e")
+        assert health["members_reporting"] == 1
+        assert health["goodput"]["tokens"] == pytest.approx(1000.0)
+        assert health["last_report_wall"] > 0
+    finally:
+        agg.detach()
+
+
+def _serving_case():
+    import jax
+    from tpusched.jaxbridge import serve as jserve
+    from tpusched_torch import interop, serve
+    jcfg, cfg = jwl.ModelConfig.tiny(), wl.ModelConfig.tiny()
+    jp = jwl.init_params(jax.random.PRNGKey(0), jcfg)
+    params = interop.params_from_numpy(jax.tree.map(np.asarray, jp), cfg,
+                                       "cpu")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, int(rng.integers(4, 20)),
+                            dtype=np.int32) for _ in range(6)]
+    gens = [int(rng.integers(3, 10)) for _ in range(6)]
+    arrivals = [0, 0, 1, 3, 4, 8]
+
+    def reqs(request):
+        return [request(rid=i, prompt=p, max_new_tokens=gens[i])
+                for i, p in enumerate(prompts)]
+    return (jserve, serve, jcfg, cfg, jp, params, reqs, arrivals,
+            dict(slots=2, max_seq=64, prompt_bucket=32))
+
+
+@pytest.mark.parametrize("harness", ["measure_serving", "measure_serving_slo"])
+def test_serving_reporter_matches_reference(harness):
+    """One report a harness: step = the engine's ticks, as jaxbridge's
+    harness reports on the same requests; throughput the harness's
+    tokens/s; the SLO harness's TTFT its ttft_s_p50."""
+    jserve, serve, jcfg, cfg, jp, params, reqs, arrivals, geo = \
+        _serving_case()
+    args = (arrivals,) if harness == "measure_serving_slo" else ()
+    got_client, ref_client = _Recorder(), _Recorder()
+    out = getattr(serve, harness)(
+        cfg, params, reqs(serve.Request), *args, device="cpu",
+        reporter=measure.GoodputReporter(got_client, "default/s-0"), **geo)
+    from tpusched.jaxbridge.measure import GoodputReporter
+    ref_out = getattr(jserve, harness)(
+        jcfg, jp, reqs(jserve.Request), *args,
+        reporter=GoodputReporter(ref_client, "default/s-0"), **geo)
+    [[got]], [[ref]] = got_client.batches, ref_client.batches
+    assert got.step == ref.step == int(out["ticks"]) == int(ref_out["ticks"])
+    assert got.throughput == pytest.approx(out["tokens_per_s"], rel=1e-6)
+    assert got.ttft_s == (out["ttft_s_p50"] if args else 0.0)
+    assert got.step_time_s == pytest.approx(out["elapsed_s"] / out["ticks"],
+                                            rel=1e-9)
+
+
+def test_measure_train_step_reports():
+    client = _Recorder()
+    rep = measure.GoodputReporter(client, "default/t-0")
+    per_step, _, _ = measure.measure_train_step(
+        wl.ModelConfig.tiny(), 2, k1=1, k2=3, repeats=1, reporter=rep,
+        device="cpu")
+    [[r]] = client.batches
+    assert r.step == 3 and r.step_time_s == per_step
+    assert r.throughput == pytest.approx(2 * wl.ModelConfig.tiny().seq
+                                         / per_step)
+
+
+def test_calibrate_on_the_cpu():
+    """A finite positive rate from the slope of a bf16 64×64 chain (k2 long
+    enough that a loaded CPU's noise cannot turn the slope negative)."""
+    tflops = measure.calibrate(n=64, k1=16, k2=1024, device="cpu")
+    assert np.isfinite(tflops) and tflops > 0
+
+
+def test_calibrate_needs_a_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        measure.calibrate()

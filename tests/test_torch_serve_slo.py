@@ -126,7 +126,17 @@ def test_tick_metrics_equal_reference(mode):
 
 @pytest.mark.parametrize("fn", [measure_serving, measure_serving_slo])
 def test_reporter_is_not_ported_yet(model, fn):
+    """The reporter is ported: each harness sends it one report, an empty
+    window's included (the harness still times its one warm tick)."""
     cfg, params = model
     args = ([], []) if fn is measure_serving_slo else ([],)
-    with pytest.raises(NotImplementedError, match="GoodputReporter"):
-        fn(cfg, params, *args, reporter=object(), device="cpu")
+    sent = []
+
+    class Client:
+        def report_status(self, reports):
+            sent.extend(reports)
+
+    from tpusched_torch.measure import GoodputReporter
+    rep = GoodputReporter(Client(), "default/serve-0")
+    fn(cfg, params, *args, reporter=rep, device="cpu")
+    assert rep.sent == 1 and len(sent) == 1 and sent[0].throughput == 0.0

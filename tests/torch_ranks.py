@@ -1,5 +1,6 @@
 """Rank programs for the port's parallel tests (tensor, data, fully-sharded,
-sequence, expert and pipeline parallelism).
+sequence, expert and pipeline parallelism, checkpoints and the token
+stream).
 
 ``tpusched_torch.mesh.launch`` runs each of these in every spawned gloo rank
 on the CPU. This module imports torch, numpy and the port only, never JAX:
@@ -8,11 +9,15 @@ parent test process. Each program returns numpy arrays and Python values.
 """
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
-from tpusched_torch import attention, interop, mesh as tmesh, optim
-from tpusched_torch import pipeline, workload as wl
-from tpusched_torch.serve import ServeEngine
+from tpusched_torch import attention, checkpoint, interop, mesh as tmesh
+from tpusched_torch import optim, pipeline, workload as wl
+from tpusched_torch.data import TokenBatcher
+from tpusched_torch.serve import Request, ServeEngine
 
 
 def _np_tree(tree):
@@ -258,3 +263,112 @@ def shift_rank(m: tmesh.Mesh) -> dict:
                                             two.axis(names))[0])
                      for names in (tmesh.DATA_AXES,
                                    tmesh.DATA_AXES_BUT_FSDP)]}
+
+
+def _checkpoint_case(a: tmesh.Mesh, b: tmesh.Mesh, directory: str, kind: str,
+                     cfg, tree, tokens) -> dict:
+    """Two steps on mesh ``a``, a save, two more (the uninterrupted run),
+    then a restore onto mesh ``b`` and two steps there: the losses, the
+    restored step, shard shapes and AdamW count, and the gathered ``out``
+    after the continuation."""
+    toks = torch.from_numpy(tokens).long()
+    params = interop.params_from_numpy(tree, cfg, "cpu")
+    if kind == "sgd":
+        step_a, specs_a, _ = wl.make_sharded_train_step(a, cfg)
+        shards = wl.shard_params(params, cfg, a)
+        for _ in range(2):
+            shards, _ = step_a(shards, toks)
+        checkpoint.save(directory, shards, 2, mesh=a, specs=specs_a)
+        base = shards
+        for _ in range(2):
+            base, base_loss = step_a(base, toks)
+        step_b, specs_b, _ = wl.make_sharded_train_step(b, cfg)
+        restored, saved = checkpoint.restore(
+            directory, checkpoint.abstract_state(
+                checkpoint.param_skeleton(cfg), specs_b, b), mesh=b)
+        count = None
+        resumed = restored
+        for _ in range(2):
+            resumed, loss = step_b(resumed, toks)
+    else:
+        tx = optim.adamw(1e-3)
+        step_a, init_opt, specs_a, _ = wl.make_optax_train_step(a, cfg, tx)
+        shards = wl.shard_params(params, cfg, a)
+        opt = init_opt(shards)
+        for _ in range(2):
+            shards, opt, _ = step_a(shards, opt, toks)
+        checkpoint.save(directory, shards, 2, extra=opt, mesh=a,
+                        specs=specs_a)
+        for _ in range(2):                      # in place
+            shards, opt, base_loss = step_a(shards, opt, toks)
+        step_b, init_b, specs_b, _ = wl.make_optax_train_step(b, cfg, tx)
+        skeleton = init_b(wl.shard_params(params, cfg, b))
+        restored, saved, r_opt = checkpoint.restore(
+            directory, checkpoint.abstract_state(
+                checkpoint.param_skeleton(cfg), specs_b, b), mesh=b,
+            abstract_extra=checkpoint.abstract_like(skeleton, specs_b, b))
+        count = r_opt.count
+        resumed = restored
+        for _ in range(2):
+            resumed, r_opt, loss = step_b(resumed, r_opt, toks)
+    layer = restored["layers"][0]
+    return {"base_loss": float(base_loss), "loss": float(loss),
+            "step": saved, "count": count,
+            "shapes": {k: tuple(layer[k].shape) for k in ("wq", "w_gate")},
+            "out": wl.gather_params(resumed, cfg, b)["out"].float().numpy()}
+
+
+def checkpoint_rank(m: tmesh.Mesh, directory: str, cases: dict) -> dict:
+    """Checkpoints saved on one mesh and restored onto another, each case
+    ``name -> (mesh a sizes, mesh b sizes, kind, cfg, numpy tree, tokens)``
+    over the same ranks, kind "sgd" (``make_sharded_train_step``) or
+    "adamw" (``make_optax_train_step``, the optimizer state saved as
+    ``extra``), into ``directory/name`` (:func:`_checkpoint_case`)."""
+    torch.set_num_threads(1)
+    meshes = {tuple(m.shape.items()): m}
+    return {name: _checkpoint_case(_mesh_of(meshes, sa), _mesh_of(meshes, sb),
+                                   os.path.join(directory, name), *case)
+            for name, (sa, sb, *case) in cases.items()}
+
+
+def serving_snapshot_rank(m: tmesh.Mesh, directory: str, cases: dict) -> dict:
+    """On a {"tp": 2} mesh, each case ``name -> (cfg, prompt, new tokens)``
+    reads the serving snapshot under ``directory/name`` twice, whole and as
+    this rank's shards (``load_for_serving(mesh=)``), and serves the prompt
+    greedily through an engine given the shards and one given the whole
+    tree. Returns the shards' shapes and dtypes and both engines'
+    tokens."""
+    torch.set_num_threads(1)
+    out = {}
+    for name, (cfg, prompt, new) in cases.items():
+        d = os.path.join(directory, name)
+        shards = checkpoint.load_for_serving(d, cfg, mesh=m, device="cpu")
+        whole = checkpoint.load_for_serving(d, cfg, device="cpu")
+        runs = {}
+        for label, tree in (("shards", shards), ("whole", whole)):
+            eng = ServeEngine(tree, cfg, slots=2, max_seq=64,
+                              prompt_bucket=16, mesh=m, device="cpu")
+            eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=new))
+            runs[label] = eng.run_until_drained()[0].tokens.tolist()
+        out[name] = {"tokens": runs,
+                     "shapes": [tuple(t.shape) for t in
+                                wl.tree_leaves(shards)],
+                     "dtypes": sorted({str(t.dtype) for t in
+                                       wl.tree_leaves(shards)})}
+    return out
+
+
+def batcher_rank(m: tmesh.Mesh, cfg, steps: int, ref_batch) -> dict:
+    """The token stream on a {"dp": 2} mesh: ``steps`` batches of
+    ``TokenBatcher(cfg, 4, mesh=m, seed=3)``, and the SGD step's loss given
+    the first of them and given the reference's batch ``ref_batch``."""
+    torch.set_num_threads(1)
+    batches = [t.numpy() for _, t in zip(range(steps),
+                                         TokenBatcher(cfg, 4, mesh=m,
+                                                      seed=3))]
+    params = wl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    step, _, _ = wl.make_sharded_train_step(m, cfg)
+    shards = wl.shard_params(params, cfg, m)
+    losses = [float(step(shards, torch.from_numpy(b))[1])
+              for b in (batches[0], np.asarray(ref_batch, np.int64))]
+    return {"batches": batches, "losses": losses}

@@ -1,16 +1,23 @@
-"""Training step time, TFLOP/s and MFU, and decode throughput and HBM
-bandwidth utilization, on the card.
+"""Training step time, TFLOP/s and MFU, decode throughput and HBM bandwidth
+utilization on the card, the in-band goodput reporter, and the timing
+path's calibration.
 
-Counterpart of the training and decode half of
-``tpusched/jaxbridge/measure.py``. The method is the reference's: run K
-dependent steps, fence the last one, and take the slope between two chain
-lengths K1 < K2, (t2 − t1) / (K2 − K1), so the fixed cost of starting and
-fencing a chain cancels. PyTorch runs eagerly, so a chain is K calls of the
+Counterpart of ``tpusched/jaxbridge/measure.py``. The method is the
+reference's: run K dependent steps, fence the last one, and take the slope
+between two chain lengths K1 < K2, (t2 − t1) / (K2 − K1), so the fixed
+cost of starting and fencing a chain cancels. PyTorch runs eagerly, so a chain is K calls of the
 step, each consuming the previous one's output; the fence is
 ``torch.cuda.synchronize()`` and then a scalar's ``.item()``. FLOPs and
 decode bytes are counted analytically (:func:`train_step_flops`,
 :func:`decode_bytes_per_token`), so remat's recompute shows as lost MFU, not
-as hidden work.
+as hidden work. :func:`calibrate` times a chain of bf16 matmuls of known
+cost the same way: a reading above the card's peak means the timing path
+is broken.
+
+:class:`GoodputReporter` folds step times, items, TTFT and stalls into one
+:class:`GangMemberStatus` report a window for the scheduler's telemetry
+plane; the record is this package's own copy of the scheduler's, with the
+same fields, since this package never imports ``tpusched``.
 
 Every entry point runs on the card unless given ``device="cpu"``; on the CPU
 there is no peak to hold a rate against, and MFU and bandwidth utilization
@@ -18,6 +25,7 @@ are None.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, Optional, Tuple
 
@@ -29,6 +37,112 @@ from .decode import generate
 from .workload import (ModelConfig, init_params, make_optax_train_step,
                        moe_capacity, resolve_device, sgd_train_step,
                        tree_leaves)
+
+
+@dataclasses.dataclass
+class GangMemberStatus:
+    """One in-band progress report of a running gang member:
+    ``tpusched.api.core.GangMemberStatus``'s fields and defaults, copied.
+    The apiserver reads reports by attribute, so this record reaches a real
+    aggregator unchanged. ``throughput`` is items of ``unit`` a second
+    across the member, ``step`` its step index or serving tick, ``ttft_s``
+    its serving time to first token over the window (0: not serving),
+    ``stall_s`` the checkpoint or restore stall in the window, and
+    ``timestamp`` 0 until the server stamps it."""
+    pod_key: str = ""
+    gang: str = ""
+    step: int = 0
+    step_time_s: float = 0.0
+    throughput: float = 0.0
+    unit: str = "tokens"
+    ttft_s: float = 0.0
+    stall_s: float = 0.0
+    timestamp: float = 0.0
+
+
+class GoodputReporter:
+    """The in-band goodput emitter, as the reference's. A training or
+    serving loop folds observations in (:meth:`observe_step` a step or
+    tick, :meth:`observe_ttft` and :meth:`observe_stall` as they happen),
+    and the reporter sends at most one :class:`GangMemberStatus` a
+    ``min_interval_s`` through ``clientset.report_status``. Sending is
+    advisory: never retried, and a lost report is superseded by the next
+    window's.
+
+    Throughput is Σitems / Σstep time over the window, the device rate;
+    stalls ride apart in ``stall_s``. Clocks are monotonic (``clock`` is
+    injectable for tests); the server stamps the wall time on ingest."""
+
+    def __init__(self, clientset, pod_key: str, gang: str = "",
+                 unit: str = "tokens", min_interval_s: float = 5.0,
+                 clock=time.monotonic):
+        self._client = clientset
+        self.pod_key = pod_key
+        self.gang = gang
+        self.unit = unit
+        self.min_interval_s = min_interval_s
+        self._clock = clock
+        self._last_flush = -1.0          # < 0: never flushed
+        self._step = 0
+        self._step_time_sum = 0.0
+        self._steps_observed = 0
+        self._items = 0.0
+        self._ttft_s = 0.0
+        self._stall_s = 0.0
+        self.sent = 0
+
+    def observe_step(self, step: int, step_time_s: float,
+                     items: float = 0.0) -> None:
+        """One completed step (training) or tick (serving): its index, its
+        seconds, and the items (tokens, examples, requests) it produced."""
+        self._step = max(self._step, int(step))
+        if step_time_s > 0:
+            self._step_time_sum += step_time_s
+            self._steps_observed += 1
+        self._items += max(0.0, items)
+
+    def observe_ttft(self, ttft_s: float) -> None:
+        """Serving time to first token over the window (the latest wins)."""
+        if ttft_s > 0:
+            self._ttft_s = ttft_s
+
+    def observe_stall(self, seconds: float) -> None:
+        """Checkpoint, restore or other unproductive seconds."""
+        self._stall_s += max(0.0, seconds)
+
+    def maybe_flush(self) -> bool:
+        """:meth:`flush` unless the last one was under ``min_interval_s``
+        ago; call it freely from the loop."""
+        now = self._clock()
+        if 0 <= self._last_flush and now - self._last_flush \
+                < self.min_interval_s:
+            return False
+        return self.flush()
+
+    def flush(self) -> bool:
+        """Send the window now; an empty window is skipped. The window is
+        reset whether or not the send succeeds, so stale numbers never
+        spill into the next one."""
+        if self._steps_observed == 0 and self._items == 0 \
+                and self._ttft_s == 0 and self._stall_s == 0:
+            return False
+        report = GangMemberStatus(
+            pod_key=self.pod_key, gang=self.gang, step=self._step,
+            step_time_s=(self._step_time_sum / self._steps_observed
+                         if self._steps_observed else 0.0),
+            throughput=(self._items / self._step_time_sum
+                        if self._step_time_sum > 0 else 0.0),
+            unit=self.unit, ttft_s=self._ttft_s, stall_s=self._stall_s)
+        self._last_flush = self._clock()
+        self._step_time_sum = 0.0
+        self._steps_observed = 0
+        self._items = 0.0
+        self._ttft_s = 0.0
+        self._stall_s = 0.0
+        self._client.report_status([report])
+        self.sent += 1
+        return True
+
 
 # dense bf16 peak TFLOP/s by device name (NVIDIA's data sheets)
 _PEAK_TFLOPS = (
@@ -143,6 +257,30 @@ def _timed(fn, *args) -> float:
     return time.perf_counter() - t0
 
 
+def calibrate(n: int = 4096, k1: int = 16, k2: int = 64,
+              device=None) -> float:
+    """Measured TFLOP/s of a chain of dependent bf16 n×n matmuls,
+    ``(x @ b) * (1/n)``, k long and summed to an f32 scalar, timed at k1 and
+    k2 and taken from the slope (:func:`time_chained`): the probe of known
+    cost that validates the timing path. A reading above
+    :func:`device_peak_tflops` means the timing is broken."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    a = torch.randn(n, n, generator=gen, device=device).to(torch.bfloat16)
+    b = torch.randn(n, n, generator=gen, device=device).to(torch.bfloat16)
+
+    def chain(k):
+        x = a
+        for _ in range(k):
+            x = (x @ b) * (1.0 / n)
+        return x.float().sum()
+
+    for k in (k1, k2):                       # warm both lengths
+        _timed(chain, k)
+    per_iter = time_chained(lambda k: _timed(chain, k), k1, k2)
+    return 2 * n**3 / per_iter / 1e12
+
+
 def train_step_flops(cfg: ModelConfig, batch: int) -> int:
     """Analytic FLOPs of one train step, counting what the code runs:
     parameter matmuls 6·N per token (2 forward, 4 backward; the embedding
@@ -206,10 +344,12 @@ def _rates(cfg: ModelConfig, batch: int, per_step: float, device):
 
 def measure_train_step(cfg: ModelConfig, batch: int, k1: int = 2,
                        k2: int = 8, repeats: int = 3, lr: float = 1e-4,
+                       reporter: Optional[GoodputReporter] = None,
                        device=None) -> Tuple[float, float, Optional[float]]:
     """Median per-step seconds, TFLOP/s and MFU (None on the CPU or an
     unknown card) of :func:`workload.sgd_train_step`, each step taking the
-    previous one's parameters."""
+    previous one's parameters. ``reporter`` gets the measured step time and
+    batch·seq tokens a step as one report."""
     device = resolve_device(device)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
                          device)
@@ -224,6 +364,9 @@ def measure_train_step(cfg: ModelConfig, batch: int, k1: int = 2,
     for k in (k1, k2):
         _timed(chain, k)
     per_step = time_chained(lambda k: _timed(chain, k), k1, k2, repeats)
+    if reporter is not None:
+        reporter.observe_step(k2, per_step, items=batch * cfg.seq)
+        reporter.flush()
     return (per_step, *_rates(cfg, batch, per_step, device))
 
 

@@ -105,6 +105,7 @@ class Mesh:
             self.axis_names, _unravel(rank, tuple(self.shape.values()))))
         self.device = torch.device(device) if device is not None else None
         self._groups = groups or {}
+        self._device_mesh = None
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank}, device={self.device})"
@@ -122,6 +123,20 @@ class Mesh:
                        [self.shape[n] for n in names])
         return Axis(",".join(names), size, index, self._groups.get(names),
                     tuple(_group_ranks(self.shape, self.coord, names)))
+
+    def device_mesh(self):
+        """torch's ``DeviceMesh`` over this mesh's ranks in its layout, with
+        its axis names, for ``DTensor`` (the checkpoints): ``"cuda"`` under
+        NCCL, ``"cpu"`` under gloo. Built on the first call, which creates
+        process groups, so every rank makes it together."""
+        if self._device_mesh is None:
+            from torch.distributed.device_mesh import DeviceMesh
+            kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+            self._device_mesh = DeviceMesh(
+                kind, torch.arange(self.size).reshape(
+                    tuple(self.shape.values())),
+                mesh_dim_names=self.axis_names)
+        return self._device_mesh
 
     @property
     def tp(self) -> Optional[Axis]:

@@ -52,8 +52,9 @@ from .decode import (KVCache, cache_update, decode_step, draft_rollout,
                      sampling_draft_rollout, score_span, upload_pos)
 from .mesh import MODEL_AXES, broadcast
 from .spec_decode import accept_span, round_uniforms
-from .workload import (ModelConfig, Params, check_mesh_axes, resolve_device,
-                       shard_params)
+from .workload import (ModelConfig, Params, check_mesh_axes, param_shapes,
+                       param_specs, resolve_device, shard_params, shard_shape,
+                       tree_leaves, tree_map)
 
 
 @dataclasses.dataclass
@@ -98,6 +99,21 @@ def _prefill_slot(params: Params, cache: KVCache, prompt: torch.Tensor,
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: ROADMAP '{item}'")
+
+
+def _own_shards(params: Params, cfg: ModelConfig, mesh) -> Params:
+    """This rank's shards: ``params`` as given (moved to the mesh's device)
+    when every leaf already has its shard's shape, as
+    ``checkpoint.load_for_serving(mesh=)`` returns them, else
+    ``shard_params`` of the full tree. A leaf over an axis of size 1 has
+    the same shape either way, and both readings give the same shards."""
+    shapes = tree_leaves(tree_map(
+        lambda x, whole, spec: tuple(x.shape) == shard_shape(whole, spec,
+                                                             mesh),
+        params, param_shapes(cfg), param_specs(cfg, mesh)))
+    if not all(shapes):
+        return shard_params(params, cfg, mesh)
+    return tree_map(lambda x: x.to(mesh.device or x.device), params)
 
 
 class ServeEngine:
@@ -228,9 +244,9 @@ class ServeEngine:
                     f"prompt's chunk-aligned writes span {worst} rows > "
                     f"max_seq {max_seq}")
         if mesh is not None:
-            params = shard_params(params, cfg, mesh)
+            params = _own_shards(params, cfg, mesh)
             if draft_params is not None:
-                draft_params = shard_params(draft_params, draft_cfg, mesh)
+                draft_params = _own_shards(draft_params, draft_cfg, mesh)
         self.params = params
         self.cfg = cfg
         self.slots = slots
@@ -690,12 +706,6 @@ class ServeEngine:
         return self.completions
 
 
-def _reporter_not_ported(reporter) -> None:
-    if reporter is not None:
-        raise _not_ported("reporter (GoodputReporter)", "checkpoint, data, "
-                          "the rest of measure, and budget")
-
-
 def _tick_sync(eng: ServeEngine) -> Callable[[], None]:
     """What ends a measured tick: ``torch.cuda.synchronize()`` on the card,
     so each tick pays for its own work (a tick in which every slot is
@@ -720,9 +730,10 @@ def measure_serving(cfg: ModelConfig, params: Params, requests: List[Request],
     warmup included. With a draft, every tick is a speculative round and
     the result adds ``spec_rounds``, ``spec_drafted``, ``spec_accepted``
     and the draft arena's ``draft_prefills``. On the card every tick ends
-    in ``torch.cuda.synchronize()``. ``reporter`` must be None until
-    ``GoodputReporter`` is ported."""
-    _reporter_not_ported(reporter)
+    in ``torch.cuda.synchronize()``. ``reporter`` (a
+    ``measure.GoodputReporter``) gets the measured window as one report at
+    per-tick scale: step ``ticks``, tick time and tokens both per tick, so
+    its throughput is the window's tokens/s."""
     eng = ServeEngine(params, cfg, slots=slots, max_seq=max_seq,
                       prompt_bucket=prompt_bucket,
                       chunk_prefill=chunk_prefill, draft_params=draft_params,
@@ -757,6 +768,12 @@ def measure_serving(cfg: ModelConfig, params: Params, requests: List[Request],
     if draft_params is not None:
         out.update({f"spec_{k}": float(v) for k, v in eng.spec_stats.items()})
         out["draft_prefills"] = float(eng.draft_prefills)
+    if reporter is not None:
+        # per-tick scale: the window's tokens against one tick's time would
+        # inflate the rate by the tick count
+        reporter.observe_step(ticks, elapsed / ticks,
+                              items=float(total_tokens) / ticks)
+        reporter.flush()
     return out
 
 
@@ -786,9 +803,8 @@ def measure_serving_slo(cfg: ModelConfig, params: Params,
     ending in ``torch.cuda.synchronize()`` on the card. ``prefix_tokens``
     registers a shared prefix (chunked engines only) that every request's
     prompt follows. Goodput counts the tokens of requests whose tick TTFT
-    is within ``ttft_slo_ticks``. ``reporter`` must be None until
-    ``GoodputReporter`` is ported."""
-    _reporter_not_ported(reporter)
+    is within ``ttft_slo_ticks``. ``reporter`` gets the window as
+    :func:`measure_serving` reports it, then ``ttft_s_p50`` as its TTFT."""
     eng = ServeEngine(params, cfg, slots=slots, max_seq=max_seq,
                       prompt_bucket=prompt_bucket,
                       chunk_prefill=chunk_prefill, device=device)
@@ -855,4 +871,10 @@ def measure_serving_slo(cfg: ModelConfig, params: Params,
         out["slo_attainment"] = len(ok) / max(len(requests), 1)
         out["goodput_tokens_per_s"] = ok_tokens / max(elapsed, 1e-9)
         out["goodput_tokens_per_tick"] = ok_tokens / max(eng.tick_count, 1)
+    if reporter is not None:
+        ticks = max(eng.tick_count, 1)
+        reporter.observe_step(eng.tick_count, elapsed / ticks,
+                              items=float(total_tokens) / ticks)
+        reporter.observe_ttft(out["ttft_s_p50"])
+        reporter.flush()
     return out

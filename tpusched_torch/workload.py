@@ -739,6 +739,12 @@ def shard_leaf(x: torch.Tensor, spec: Tuple, mesh: Mesh) -> torch.Tensor:
     return torch.empty(x.shape, dtype=x.dtype, device=dev).copy_(x)
 
 
+def shard_shape(shape, spec: Tuple, mesh: Mesh) -> Tuple[int, ...]:
+    """The shape of :func:`shard_leaf`'s slice of a leaf of ``shape``."""
+    return tuple(n if name is None else n // mesh.shape[name]
+                 for n, name in zip(shape, spec))
+
+
 def gather_leaf(x: torch.Tensor, spec: Tuple, mesh: Mesh) -> torch.Tensor:
     """The whole leaf back from every rank's :func:`shard_leaf`."""
     for dim, name in enumerate(spec):
