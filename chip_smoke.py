@@ -174,13 +174,36 @@ Phases, in order; any failure raises and the script exits non-zero:
     serving, phase 20's at tp 2 and phase 14's int8 arena, beside the peak
     each of those phases measured in this run and their ratio (printed, not
     held: the reference's model counts nu in f32 and has no ep or pp
-    factor), and the card's ``total_memory``.
+    factor), and the card's ``total_memory``;
+32. serving over fully-sharded weights at full width: ``llama_like_big``
+    on {"fsdp": 2}, two gloo ranks, the first 8 of phase 3's requests
+    (one arena's worth), each cut to its first 16 new tokens, at phase 3's
+    geometry and weights: the ranks agree, K1 12 x the engine's prefills a
+    rank (12 x (8 + 2) = 120), every matrix, embed and out half its size
+    on a rank, each stream equal to the start of phase 3's or first
+    differing at a near tie; then the same weights
+    exported and read back as fsdp shards by ``load_for_serving(mesh=)``:
+    the same launches and the in-memory engine's streams exactly; peak
+    memory a rank beside phase 3's, drain and load seconds;
+33. phase 27's GPipe step on {"pp": 2, "fsdp": 2}, four gloo ranks, two
+    steps: K1 = K2 = K3 = 24 a stage a step, every leaf over fsdp half its
+    stage's size, the first loss within 1e-6 relative of phase 27's; peak
+    memory a rank beside phase 27's a stage;
+34. the entry points (``tpusched_torch.entry``): ``entry()``'s forward
+    (4, 128, 2048) on the card within 1e-5 relative of the same weights'
+    forward on the CPU (TF32 off), then ``dryrun_multichip(8)`` and
+    ``dryrun_multichip(6)`` with every rank a gloo rank on the card: the
+    reference's seven and five lines, each OK; at 8 the dense block's
+    ring-flash K1 = K2 = K3 = L·(1 + sp index) a rank. Phases 32-34 run
+    gloo through the host too.
 
 The second-to-last line is the ``kernels`` JSON object (each kernel also
 with ``ring_launches`` from phase 24, ``ring_shape`` times,
-``pp_launches`` from phases 27 and 28 and ``ckpt_launches`` from phase 29,
-K1 ``handoff_launches`` from phase 30), the last line the ``ok`` JSON
-object. Imports neither JAX nor the JAX package.
+``pp_launches`` from phases 27 and 28, ``ckpt_launches`` from phase 29,
+``pp_fsdp_launches`` from phase 33 and ``dryrun_launches`` from phase 34,
+K1 ``handoff_launches`` from phase 30 and ``fsdp_serving_launches`` from
+phase 32), the last line the ``ok`` JSON object. Imports neither JAX nor
+the JAX package.
 
     python3 chip_smoke.py --ab DIR
 
@@ -192,6 +215,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import math
 import pathlib
 import re
 import shutil
@@ -2474,9 +2498,11 @@ def pp_tokens(cfg):
 
 
 def pp_rank(mesh, lr=PP_LR, steps=3):
-    """Phase 27 on one stage of PP_MESH: ``steps`` pipelined SGD steps (lr
-    ``lr``, PP_MICRO microbatches) of :func:`pp_cfg` on phase 6's seeded
-    weights, each step's (K1, K2, K3) launches counted."""
+    """Phase 27 on one stage of PP_MESH (phase 33: one rank of
+    PP_FSDP_MESH): ``steps`` pipelined SGD steps (lr ``lr``, PP_MICRO
+    microbatches) of :func:`pp_cfg` on phase 6's seeded weights, each
+    step's (K1, K2, K3) launches counted, and the size of each leaf over
+    fsdp against its stage's whole (:func:`fsdp_fractions`)."""
     from tpusched_torch import attention, pipeline, workload
     cfg = pp_cfg(workload)
     step, _, _ = pipeline.make_pipeline_train_step(mesh, cfg, PP_MICRO, lr)
@@ -2495,8 +2521,16 @@ def pp_rank(mesh, lr=PP_LR, steps=3):
         losses.append(loss.item())             # the fence
         step_s.append(time.perf_counter() - t0)
         launches.append(bwd_counts(attention))
-    return dict(stage=mesh.pp.index, losses=losses, step_s=step_s,
-                launches=launches,
+    shapes = workload.param_shapes(cfg)
+    whole = ({k: (cfg.n_layers, *s) for k, s in shapes["layers"][0].items()},
+             shapes["embed"], shapes["out"], shapes["ln_f"])
+    halves = fsdp_fractions(workload, list(shards), list(whole), list(
+        pipeline.pipeline_param_specs(cfg, mesh)), mesh)
+    return dict(stage=mesh.pp.index, rank=mesh.rank,
+                fsdp_index=mesh.fsdp.index if mesh.fsdp is not None else 0,
+                losses=losses, step_s=step_s, launches=launches,
+                fsdp_leaf_fractions=sorted(set(halves)),
+                fsdp_leaves=len(halves),
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
@@ -2505,7 +2539,8 @@ def phase_pp(attention, workload, tmesh, train, workdir):
     sharing the card: every stage launches K1, K2 and K3 (L/pp)·n_micro =
     24 times a step; the first loss within 2e-2 of one process's loss_fn
     on the same weights and batch, the losses falling and equal on both
-    stages. Returns the launches a stage a step."""
+    stages. Returns the launches a stage a step, the losses and the peak
+    memory a stage."""
     t0 = time.perf_counter()
     cfg = pp_cfg(workload)
     with torch.no_grad():
@@ -2539,7 +2574,8 @@ def phase_pp(attention, workload, tmesh, train, workdir):
         "phase_6_peak_mem_gib": train["peak_mem_gib"],
         "step_s_per_stage": [r["step_s"] for r in ranks],
         "step_s_note": GLOO_NOTE, "phase_27_s": time.perf_counter() - t0}))
-    return per
+    return dict(per=per, losses=losses, peak_mem_gib_per_stage=[
+        r["peak_mem_gib"] for r in ranks])
 
 
 def dryrun_moe_cfg(workload, cf):
@@ -3061,6 +3097,276 @@ def phase_budget(budget, measure, workload, mono, train, int8_peak, tp):
         "phase_31_s": time.perf_counter() - t0}))
 
 
+# -- phases 32-34: serving over fsdp, the pipeline over fsdp, the entry points
+
+FSDP_SERVE_MESH = {"fsdp": 2}           # phase 32
+FSDP_SERVE_REQUESTS = 8                 # phase 3's first 8: one arena's worth
+# each of them cut to its first 16 tokens (the least phase 3 asks): under
+# gloo every forward gathers the 1.25 GB of weights through the host, about
+# 1.2 s, so the full 127 ticks took 167 s a drain
+FSDP_SERVE_NEW_TOKENS = 16
+PP_FSDP_MESH = {"pp": 2, "fsdp": 2}     # phase 33
+PP_FSDP_STEPS = 2
+
+
+def fsdp_fractions(workload, shards, whole_shapes, specs, mesh):
+    """Each leaf that ``specs`` put over fsdp, its size over its whole
+    size on one rank without fsdp (its stage's, for a pipeline leaf over
+    pp): 0.5 each at fsdp 2 with no tp."""
+    out = []
+    workload.tree_map(lambda x, whole, spec: out.append(
+        x.numel() * (mesh.shape.get(spec[0], 1) if spec[0] == "pp" else 1)
+        / math.prod(whole)) if "fsdp" in spec else None,
+        shards, whole_shapes, specs)
+    return out
+
+
+def fsdp_serve_drain(mesh, params, cfg, reqs):
+    """One rank's drain of ``reqs`` at phase 3's geometry on ``mesh``, as a
+    user drives the engine, from ``params`` (the whole tree, or this
+    rank's shards); K1 counted from the engine's construction; the peak
+    memory from after its construction (its shards, the whole arena, the
+    drain)."""
+    from tpusched_torch import attention, serve, workload
+    attention.FLASH_FWD_LAUNCHES = 0
+    eng = serve.ServeEngine(params, cfg, mesh=mesh, **SERVE_GEOMETRY)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.warmup()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    check_completions(done, reqs, cfg.vocab, f"fsdp serving on {mesh.shape}")
+    halves = fsdp_fractions(workload, eng.params, workload.param_shapes(cfg),
+                            workload.param_specs(cfg, mesh), mesh)
+    return dict(launches=attention.FLASH_FWD_LAUNCHES, prefills=eng.prefills,
+                ticks=eng.tick_count, kv_heads=int(eng.cache[0]["k"].shape[2]),
+                tokens={c.rid: c.tokens for c in done}, drain_s=drain_s,
+                fsdp_leaf_fractions=sorted(set(halves)),
+                fsdp_leaves=len(halves),
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def fsdp_serve_requests(cfg, serve):
+    """Phase 32's traffic: the first FSDP_SERVE_REQUESTS of phase 3's
+    requests, each cut to at most FSDP_SERVE_NEW_TOKENS new tokens."""
+    return [dataclasses.replace(r, max_new_tokens=min(
+        r.max_new_tokens, FSDP_SERVE_NEW_TOKENS))
+        for r in make_requests(cfg, serve)[:FSDP_SERVE_REQUESTS]]
+
+
+def fsdp_serve_rank(mesh, directory):
+    """Phase 32 on one rank of FSDP_SERVE_MESH: :func:`fsdp_serve_requests`
+    served from phase 3's seeded weights, then from the snapshot under
+    ``directory`` read as this rank's shards (``load_for_serving(mesh=)``)."""
+    from tpusched_torch import checkpoint, serve, workload
+    cfg = workload.ModelConfig.llama_like_big()
+    reqs = fsdp_serve_requests(cfg, serve)
+    out = {"in_memory": fsdp_serve_drain(
+        mesh, seeded_params(workload, cfg), cfg, reqs)}
+    t0 = time.perf_counter()
+    shards = checkpoint.load_for_serving(directory, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    out["snapshot"] = fsdp_serve_drain(mesh, shards, cfg, reqs)
+    out["snapshot"]["load_s"] = load_s
+    return out
+
+
+def phase_fsdp_serving(attention, checkpoint, decode, serve, workload, tmesh,
+                       mono, workdir):
+    """Phase 32: full-width ``llama_like_big`` served over FSDP_SERVE_MESH,
+    two gloo ranks sharing the card, :func:`fsdp_serve_requests` (one
+    arena's worth, at phase 3's geometry): the ranks agree, K1 launches 12
+    x the engine's prefills a rank (warm-up included: 12 x (8 + 2) = 120),
+    every fsdp leaf is half its whole size, each stream equals the start
+    of phase 3's or first differs at a near tie;
+    then the same from a fresh ``export_for_serving`` of the seeded weights
+    read as shards: the same launches and the in-memory engine's streams
+    exactly. Returns K1's launches a rank."""
+    t0 = time.perf_counter()
+    cfg = workload.ModelConfig.llama_like_big()
+    reqs = fsdp_serve_requests(cfg, serve)
+    directory = work_dir("fsdp-serving-")
+    params = seeded_params(workload, cfg)
+    checkpoint.export_for_serving(str(directory), params, cfg)
+    torch.cuda.empty_cache()
+    ranks = tmesh.launch(fsdp_serve_rank, FSDP_SERVE_MESH, str(directory),
+                         backend="gloo", device="cuda", workdir=str(workdir))
+    shutil.rmtree(directory)
+    want = cfg.n_layers * (FSDP_SERVE_REQUESTS + len(SERVE_BUCKETS))
+    lines = {}
+    for which in ("in_memory", "snapshot"):
+        ranks_agree(ranks, which, f"fsdp serving ({which})")
+        runs = [r[which] for r in ranks]
+        for run in runs:
+            check(run["launches"] == cfg.n_layers * run["prefills"] == want,
+                  f"fsdp serving ({which}): {run['launches']} flash launches "
+                  f"for {run['prefills']} prefills, wanted {want}")
+            check(run["kv_heads"] == cfg.kv_heads, "fsdp arena heads")
+            check(run["fsdp_leaf_fractions"] == [0.5]
+                  and run["fsdp_leaves"] == 7 * cfg.n_layers + 2,
+                  f"fsdp serving: leaves over fsdp hold "
+                  f"{run['fsdp_leaf_fractions']} of their whole size")
+        lines[which] = runs
+    in_memory = lines["in_memory"][0]["tokens"]
+    differ = [rid for rid, toks in lines["snapshot"][0]["tokens"].items()
+              if not np.array_equal(toks, in_memory[rid])]
+    check(not differ, f"fsdp serving from the snapshot differs from the "
+          f"in-memory weights for requests {differ}")
+    ties = {}
+    for rid, toks in lines["in_memory"][0]["tokens"].items():
+        plain = mono["tokens"][rid][:len(toks)]
+        if not np.array_equal(toks, plain):
+            ties[rid] = near_tie(decode, params, cfg, reqs[rid].prompt,
+                                 plain, toks, "cuda")
+    del params
+    torch.cuda.empty_cache()
+    runs = lines["in_memory"]
+    print(json.dumps({
+        "fsdp_serving": "llama_like_big", "mesh": FSDP_SERVE_MESH,
+        "backend": "gloo", "requests": FSDP_SERVE_REQUESTS,
+        "max_new_tokens_cap": FSDP_SERVE_NEW_TOKENS,
+        "tokens": sum(len(t) for t in runs[0]["tokens"].values()),
+        "ranks_agree": True,
+        "flash_launches_per_rank": [r["launches"] for r in runs],
+        "prefills": runs[0]["prefills"], "ticks": runs[0]["ticks"],
+        "fsdp_leaves_halved": runs[0]["fsdp_leaves"],
+        "streams_equal_to_phase_3_start": len(runs[0]["tokens"]) - len(ties),
+        "near_ties": ties,
+        "snapshot_streams_equal_to_in_memory": len(runs[0]["tokens"]),
+        "snapshot_load_s_per_rank": [r["load_s"]
+                                     for r in lines["snapshot"]],
+        "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in runs],
+        "snapshot_peak_mem_gib_per_rank": [r["peak_mem_gib"]
+                                           for r in lines["snapshot"]],
+        "unsharded_peak_mem_gib": mono["peak_mem_gib"],
+        "drain_s_per_rank": [r["drain_s"] for r in runs],
+        "snapshot_drain_s_per_rank": [r["drain_s"]
+                                      for r in lines["snapshot"]],
+        "drain_s_note": GLOO_NOTE, "phase_32_s": time.perf_counter() - t0}))
+    return {"in_memory_per_rank": [r["launches"] for r in runs],
+            "snapshot_per_rank": [r["launches"] for r in lines["snapshot"]]}
+
+
+def phase_pp_fsdp(attention, workload, tmesh, pp, workdir):
+    """Phase 33: phase 27's GPipe step at full width on PP_FSDP_MESH, four
+    gloo ranks sharing the card: K1 = K2 = K3 = (L/pp)·n_micro = 24 a
+    stage a step, every leaf the specs put over fsdp half its phase 27
+    size (its stage's whole), the first loss within 1e-6 relative of phase
+    27's (the gathered weights are the whole ones; predicted bitwise
+    equal), the ranks' losses equal. Returns the launches a stage a
+    step."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ranks = tmesh.launch(pp_rank, PP_FSDP_MESH, PP_LR, PP_FSDP_STEPS,
+                         backend="gloo", device="cuda", workdir=str(workdir))
+    cfg = pp_cfg(workload)
+    per = cfg.n_layers // PP_FSDP_MESH["pp"] * PP_MICRO
+    for run in ranks:
+        check(all(c == (per, per, per) for c in run["launches"]),
+              f"pp x fsdp rank {run['rank']}: launched (K1, K2, K3) "
+              f"{run['launches']} a step, wanted {per} each")
+        check(run["losses"] == ranks[0]["losses"],
+              f"pp x fsdp: the ranks' losses differ: {run['losses']}")
+        check(run["fsdp_leaf_fractions"] == [0.5]
+              and run["fsdp_leaves"] == 9,
+              f"pp x fsdp rank {run['rank']}: leaves over fsdp hold "
+              f"{run['fsdp_leaf_fractions']} of their stage's size")
+    first = ranks[0]["losses"][0]
+    rel = abs(first - pp["losses"][0]) / abs(pp["losses"][0])
+    check(rel <= CKPT_RTOL, f"pp x fsdp first loss {first} against phase "
+          f"27's {pp['losses'][0]}: rel {rel} (tol {CKPT_RTOL})")
+    print(json.dumps({
+        "pp_fsdp_training": "llama_like_big", "seq": cfg.seq, "batch": 4,
+        "n_micro": PP_MICRO, "mesh": PP_FSDP_MESH, "backend": "gloo",
+        "optimizer": f"sgd lr {PP_LR}", "losses": ranks[0]["losses"],
+        "phase_27_losses": pp["losses"], "first_loss_rel_diff": rel,
+        "first_loss_bitwise_equal": first == pp["losses"][0],
+        "loss_rtol": CKPT_RTOL,
+        "launches_per_step_per_stage": dict(zip(
+            ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"), (per,) * 3)),
+        "fsdp_leaves_halved": ranks[0]["fsdp_leaves"],
+        "peak_mem_gib_per_rank": {
+            f"stage {r['stage']} fsdp {r['fsdp_index']}": r["peak_mem_gib"]
+            for r in ranks},
+        "phase_27_peak_mem_gib_per_stage": pp["peak_mem_gib_per_stage"],
+        "step_s_per_rank": [r["step_s"] for r in ranks],
+        "step_s_note": GLOO_NOTE, "phase_33_s": time.perf_counter() - t0}))
+    return per
+
+
+def phase_entry(attention, entry, workload, workdir):
+    """Phase 34: ``entry()``'s forward on the card, (4, 128, 2048), within
+    1e-5 relative (of its largest logit) of the same weights' forward on
+    the CPU, TF32 off; then ``dryrun_multichip(8)`` and
+    ``dryrun_multichip(6)`` with every rank a gloo rank on the card: the
+    reference's lines, each OK (raising otherwise); at 8 the dense block's
+    ring-flash launches K1 = K2 = K3 = L·(1 + sp index) a rank (the
+    reference's dense config has no remat, so one forward launch a pair,
+    where phase 25's remat doubles K1), at 6 dp 3 × tp 2 with no MoE or
+    pipeline block and, without sp, no flash launch. Returns the dense
+    block's launches by sp index."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fn, (params, tokens) = entry.entry()
+    check(tokens.device.type == "cuda" and all(
+        t.device.type == "cuda" for t in workload.tree_leaves(params)),
+        "entry() did not put its params and tokens on the card")
+    with torch.no_grad():
+        out = fn(params, tokens)
+        cpu_fn, (cpu_params, cpu_tokens) = entry.entry(device="cpu")
+        want = cpu_fn(cpu_params, cpu_tokens)
+    got = out.float().cpu()
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    check(tuple(out.shape) == (4, 128, 2048) and err <= 1e-5,
+          f"entry forward {tuple(out.shape)} against the CPU's: rel {err}")
+    print(f"entry forward: {tuple(out.shape)}")
+    entry_s = time.perf_counter() - t0
+    results, seconds = {}, {}
+    for n in (8, 6):
+        t = time.perf_counter()
+        results[n] = entry.dryrun_multichip(n, backend="gloo",
+                                            workdir=str(workdir))
+        seconds[n] = time.perf_counter() - t
+    eight, six = results[8], results[6]
+    check(list(eight) == ["dense", "moe", "pipeline", "tp-serve",
+                          "tp-speculative", "tp-int8kv", "handoff"],
+          f"dryrun_multichip(8) ran {list(eight)}")
+    check(list(six) == ["dense", "tp-serve", "tp-speculative", "tp-int8kv",
+                        "handoff"] and six["dense"]["mesh"] == {"dp": 3,
+                                                               "tp": 2},
+          f"dryrun_multichip(6) ran {list(six)} on {six['dense']['mesh']}")
+    layers = workload.ModelConfig.tiny().n_layers
+    by_sp = {}
+    for r, run in enumerate(eight["dense"]["ranks"]):
+        i = run["sp_index"]
+        want_launches = (layers * (1 + i),) * 3
+        check(tuple(run["launches"]) == want_launches,
+              f"dryrun dense rank {r}: launched {run['launches']}, wanted "
+              f"{want_launches}")
+        by_sp[i] = tuple(run["launches"])
+    check(all(tuple(run["launches"]) == (0, 0, 0)
+              for run in six["dense"]["ranks"]),
+          "dryrun_multichip(6): a flash kernel launched without sp")
+    print(json.dumps({
+        "entry": {"forward_shape": list(out.shape), "rel_err_vs_cpu": err,
+                  "tf32": False, "entry_s": entry_s},
+        "dryrun": {str(n): {name: {k: v for k, v in block.items()
+                                   if k in ("line", "loss", "ref", "mesh")}
+                            for name, block in res.items()}
+                   for n, res in results.items()},
+        "dense_launches_by_sp_index": by_sp, "backend": "gloo",
+        "dryrun_s": seconds, "phase_34_s": time.perf_counter() - t0}))
+    return by_sp
+
+
 def ab_turn(tree: str, other_root: str) -> None:
     """One turn of ``--ab``, in a process of its own: builds the kernels of
     the ``tpusched_torch`` on PYTHONPATH, then prints one JSON line of
@@ -3153,8 +3459,8 @@ def main(argv) -> int:
         print(__doc__, file=sys.stderr)
         return 2
     from tpusched_torch import (_build, attention, budget, checkpoint, data,
-                                decode, measure, optim, serve, spec_decode,
-                                workload)
+                                decode, entry, measure, optim, serve,
+                                spec_decode, workload)
     from tpusched_torch import mesh as tmesh
 
     phase_environment(_build)
@@ -3230,7 +3536,8 @@ def main(argv) -> int:
     t_ep = time.perf_counter()
     phase_ep(attention, decode, serve, workload, tmesh, moe_mono, moe_train,
              workdir)
-    pp_step = phase_pp(attention, workload, tmesh, train, workdir)
+    pp = phase_pp(attention, workload, tmesh, train, workdir)
+    pp_step = pp["per"]
     pp_tiny = phase_dryrun_ep_pp(attention, workload, tmesh, workdir)
     print(json.dumps({"phases_26_28_s": time.perf_counter() - t_ep}))
     # checkpoint and resume, the hand-off to serving, calibrate and the
@@ -3244,6 +3551,21 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     phase_budget(budget, measure, workload, mono, train, int8_peak, tp)
     print(json.dumps({"phases_29_31_s": time.perf_counter() - t_ck}))
+    # serving over fsdp, the pipeline over fsdp and the entry points, after
+    # every earlier phase so that those run as before; each phase's ranks
+    # count their own launches from zero
+    t_fsdp = time.perf_counter()
+    zero_counts(attention)
+    fsdp_serving = phase_fsdp_serving(attention, checkpoint, decode, serve,
+                                      workload, tmesh, mono, workdir)
+    zero_counts(attention)
+    pp_fsdp = phase_pp_fsdp(attention, workload, tmesh, pp, workdir)
+    zero_counts(attention)
+    dryrun = phase_entry(attention, entry, workload, workdir)
+    print(json.dumps({"phases_32_34_s": time.perf_counter() - t_fsdp}))
+    dryrun_launches = [{"dense_per_rank_by_sp_index": {
+        i: c[j] for i, c in sorted(dryrun.items())}} for j in range(3)]
+    pp_fsdp_launches = {"llama_like_big_per_stage_per_step": pp_fsdp}
     ckpt = {name: {"ckpt_launches": {"per_step": ckpt_per_step[j],
                                      "steps": 6}}
             for j, name in enumerate(("flash_fwd", "flash_bwd_dkdv",
@@ -3281,7 +3603,10 @@ def main(argv) -> int:
          "tp_shapes": {**tp_timing,
                        "training_tp2": rank_train["flash_fwd"]},
          **ring["flash_fwd"], "pp_launches": pp_launches,
-         **ckpt["flash_fwd"], "handoff_launches": handoff_launches},
+         **ckpt["flash_fwd"], "handoff_launches": handoff_launches,
+         "fsdp_serving_launches": fsdp_serving,
+         "pp_fsdp_launches": pp_fsdp_launches,
+         "dryrun_launches": dryrun_launches[0]},
         {"name": "flash_bwd_dkdv", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "218",
          "launches": train_launches[1], "max_abs_err": bwd_err[1],
@@ -3289,7 +3614,8 @@ def main(argv) -> int:
          "tp_launches": {"training_tp2_per_rank": two["train"]["launches"][1]},
          "tp_shapes": {"training_tp2": rank_train["flash_bwd_dkdv"]},
          **ring["flash_bwd_dkdv"], "pp_launches": pp_launches,
-         **ckpt["flash_bwd_dkdv"]},
+         **ckpt["flash_bwd_dkdv"], "pp_fsdp_launches": pp_fsdp_launches,
+         "dryrun_launches": dryrun_launches[1]},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "265",
          "launches": train_launches[2], "max_abs_err": bwd_err[0],
@@ -3297,7 +3623,8 @@ def main(argv) -> int:
          "tp_launches": {"training_tp2_per_rank": two["train"]["launches"][2]},
          "tp_shapes": {"training_tp2": rank_train["flash_bwd_dq"]},
          **ring["flash_bwd_dq"], "pp_launches": pp_launches,
-         **ckpt["flash_bwd_dq"]}]}))
+         **ckpt["flash_bwd_dq"], "pp_fsdp_launches": pp_fsdp_launches,
+         "dryrun_launches": dryrun_launches[2]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -273,3 +273,72 @@ def test_int8_generate_matches_reference_and_tracks_exact():
     np.testing.assert_array_equal(got.numpy(), ref)
     exact = decode.generate(p, torch.from_numpy(prompt).long(), cfg, steps=24)
     assert (got == exact).float().mean().item() >= 0.8
+
+
+# -- generate over tensor-parallel shards -------------------------------------
+
+TP_CASES = {  # name -> (config changes, prompts seed, steps, temperature)
+    "exact": ({}, 21, 6, 0.0),
+    "int8": (dict(kv_cache_dtype="int8"), 23, 6, 0.0),
+    "sampled": ({}, 25, 6, 0.9),
+}
+
+
+def _tp_case(name):
+    changes, seed, steps, temperature = TP_CASES[name]
+    jcfg = dataclasses.replace(jwl.ModelConfig.tiny(), **changes)
+    cfg = dataclasses.replace(wl.ModelConfig.tiny(), **changes)
+    jp = jwl.init_params(jax.random.PRNGKey(seed), jcfg)
+    return (jcfg, jp, cfg, jax.tree.map(np.asarray, jp),
+            _tokens(seed, (2, 12)), steps, temperature)
+
+
+@pytest.fixture(scope="module")
+def tp_generated(tmp_path_factory):
+    """Every case on two gloo ranks at tp = 2 (``torch_ranks.
+    generate_rank``), both ranks' tokens."""
+    import torch_ranks
+    from tpusched_torch import mesh as tmesh
+    cases = {}
+    for name in TP_CASES:
+        _, _, cfg, tree, prompt, steps, temperature = _tp_case(name)
+        cases[name] = (cfg, tree, prompt, steps, temperature)
+    return tmesh.launch(torch_ranks.generate_rank, {"tp": 2}, cases,
+                        backend="gloo", device="cpu",
+                        workdir=str(tmp_path_factory.mktemp("ranks")))
+
+
+@pytest.mark.parametrize("name", ["exact", "int8"])
+def test_tp_generate_matches_reference_jitted_tp_generate(tp_generated,
+                                                          name):
+    """``generate(tp=)`` over tp = 2 shards, exact and with an int8 cache,
+    emits jaxbridge's tokens from ``jax.jit(generate)`` on tp-sharded
+    params on a tp = 2 mesh of virtual CPU devices (the reference dryrun's
+    tp-int8kv block), on both ranks."""
+    import functools
+    from jax.sharding import Mesh as JMesh, NamedSharding
+    from jax.sharding import PartitionSpec as P
+    jcfg, jp, _, _, prompt, steps, _ = _tp_case(name)
+    mesh = JMesh(np.array(jax.devices()[:2]), ("tp",))
+    shardings = jax.tree_util.tree_map(
+        lambda spec: NamedSharding(mesh, spec), jwl.param_specs(jcfg, mesh),
+        is_leaf=lambda x: isinstance(x, P))
+    gen = jax.jit(functools.partial(jdec.generate, cfg=jcfg, steps=steps))
+    with mesh:
+        want = np.asarray(gen(jax.device_put(jp, shardings),
+                              jnp.asarray(prompt))).tolist()
+    for rank in tp_generated:
+        assert rank[name] == want
+
+
+def test_tp_sample_draws_rank_zero_token(tp_generated):
+    """Sampling at tp = 2 with each rank's generator seeded differently:
+    both ranks feed and return tp rank 0's draws (broadcast), which equal
+    the unsharded sampler's with rank 0's seed."""
+    _, _, cfg, tree, prompt, steps, temperature = _tp_case("sampled")
+    a, b = tp_generated[0]["sampled"], tp_generated[1]["sampled"]
+    assert a == b
+    whole = decode.sample(interop.params_from_numpy(tree, cfg, "cpu"),
+                          torch.from_numpy(prompt).long(), cfg, steps,
+                          torch.Generator().manual_seed(100), temperature)
+    assert a == whole.tolist()

@@ -7,6 +7,7 @@ goodput reporter run with all of them refused."""
 from __future__ import annotations
 
 import ast
+import os
 import pathlib
 import subprocess
 import sys
@@ -353,3 +354,27 @@ def test_checkpoint_data_budget_run_with_jax_unimportable(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().splitlines()[-1] == "checkpointed"
+
+
+def test_entry_points_run_with_jax_unimportable(tmp_path):
+    """With jax, optax, orbax and tpusched refused at import,
+    ``tpusched_torch.entry``'s command line on 2 gloo CPU ranks prints the
+    forward's shape and the dense, tp-serve, tp-speculative, tp-int8kv and
+    hand-off lines, each OK, and has loaded none of them."""
+    prog = REFUSE_ORBAX + (
+        "from tpusched_torch import entry\n"
+        "assert entry.main(['--device', 'cpu', '--backend', 'gloo', '2']) "
+        "== 0\n"
+        f"print({LOADED})\n")
+    r = subprocess.run([sys.executable, "-c", prog], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "TMPDIR": str(tmp_path),
+                            "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stderr[-2000:]
+    lines = r.stdout.strip().splitlines()
+    assert lines[0] == "entry forward: (4, 128, 2048)"
+    assert [line.split(": ")[1].split(" ")[0] for line in lines[1:-1]] == [
+        "dense", "tp-serve", "tp-speculative", "tp-int8kv",
+        "train→export→serve"]
+    assert all(line.endswith("OK") for line in lines[1:-1])
+    assert lines[-1] == "[]"

@@ -194,13 +194,13 @@ def test_nccl_with_more_ranks_than_cards_is_refused(monkeypatch):
 
 @pytest.mark.parametrize("axis", ["fsdp", "sp", "ep", "pp"])
 def test_unported_axes_are_refused(axis):
-    """shard_params, every train step and the engine refuse a pp axis,
-    naming the pipeline's step (pp trains through
+    """shard_params and every train step refuse a pp axis, naming the
+    pipeline's step (pp trains through
     ``pipeline.make_pipeline_train_step``, tests/test_torch_pipeline.py)
-    and ROADMAP. fsdp and sp train (tests/test_torch_fsdp_sp_train.py), but
-    the engine refuses either of size 2: its forward neither gathers
-    fsdp-sharded weights nor splits the sequence; of size 1 it serves. ep
-    of size 2 trains and serves (tests/test_torch_ep.py)."""
+    and ROADMAP; the engine takes a pp axis as replicas. fsdp, sp and ep of
+    size 2 train (tests/test_torch_fsdp_sp_train.py, tests/test_torch_ep.py)
+    and serve (tests/test_torch_serve_mesh.py, tests/test_torch_ep.py):
+    every call builds."""
     cfg = wl.ModelConfig.tiny()
     p = wl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 
@@ -213,21 +213,16 @@ def test_unported_axes_are_refused(axis):
                                                  optim.adamw(1e-3), 2),
                 lambda: ServeEngine(p, cfg, mesh=mesh, slots=1, max_seq=32,
                                     prompt_bucket=8)]
+    *train, serve = calls(tmesh.Mesh({axis: 2, "tp": 1}, device="cpu"))
     if axis == "pp":
-        for call in calls(tmesh.Mesh({axis: 1, "tp": 1}, device="cpu")):
+        for call in train:
             with pytest.raises(NotImplementedError, match=(
                     "'pp'.*make_pipeline_train_step.*ROADMAP")):
                 call()
-        return
-    *train, serve = calls(tmesh.Mesh({axis: 2, "tp": 1}, device="cpu"))
-    for call in train:
-        call()
-    if axis == "ep":
-        serve()
-        return
-    with pytest.raises(NotImplementedError, match=f"'{axis}'.*ROADMAP"):
-        serve()
-    calls(tmesh.Mesh({axis: 1, "tp": 1}, device="cpu"))[-1]()
+    else:
+        for call in train:
+            call()
+    serve()
 
 
 def test_layout_mesh_refuses_collectives():

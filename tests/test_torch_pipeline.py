@@ -14,8 +14,14 @@ meshes of virtual CPU devices and its single-program ``loss_fn`` and
   n_micro 2, and with ``moe_aux_weight`` 0.01, differ from ``loss_fn``);
 - flash stages launching the flash forward and backward (their plain
   versions here) (L/pp)·n_micro times a stage: no remat inside a stage;
+- fsdp, sp and slice beside pp, on {"pp": 2, "fsdp": 2, "dp": 2}, {"pp":
+  2, "sp": 2, "dp": 2}, {"pp": 2, "slice": 2, "dp": 2} and {"pp": 2,
+  "fsdp": 2, "tp": 2}: the loss, every updated leaf and every update within
+  1e-5 of jaxbridge's pipeline. Rows split over dp alone, so an fsdp
+  leaf's update must be its chunk of the one full gradient's, not a sum
+  over fsdp (which would be twice it);
 - the refusals: layers that do not split into the stages, a batch that
-  does not split into the microbatches, and axes the pipeline does not run.
+  does not split into the microbatches, and an axis the port does not know.
 
 One spawn of eight ranks runs every case (``torch_ranks.pipeline_rank``);
 the ranks import no JAX."""
@@ -33,7 +39,8 @@ from test_torch_tp_train import _assert_leaves_close
 from tpusched.jaxbridge import mesh as jmeshlib
 from tpusched.jaxbridge import pipeline as jpipe
 from tpusched.jaxbridge import workload as jwl
-from tpusched_torch import mesh as tmesh, optim, pipeline, workload as wl
+from tpusched_torch import interop, mesh as tmesh, optim, pipeline
+from tpusched_torch import workload as wl
 
 torch.set_num_threads(1)
 
@@ -64,7 +71,18 @@ CASES = {
                              2, 1e-3, 6, _tokens(4, 7)),
     "flash": ({"pp": 2, "dp": 4}, dict(attn="flash", remat=True), 4, 1e-3, 8,
               _tokens(8, 9)),
+    # the reference's tiny depth, 2 microbatches, and an lr at which the
+    # update dominates the weights' rounding
+    "fsdp_dp": ({"pp": 2, "fsdp": 2, "dp": 2}, dict(n_layers=2), 2, 1.0, 10,
+                _tokens(8, 11)),
+    "sp_dp": ({"pp": 2, "sp": 2, "dp": 2}, dict(n_layers=2), 2, 1.0, 10,
+              _tokens(8, 11)),
+    "slice_dp": ({"pp": 2, "slice": 2, "dp": 2}, dict(n_layers=2), 2, 1.0, 10,
+                 _tokens(8, 11)),
+    "fsdp_tp": ({"pp": 2, "fsdp": 2, "tp": 2}, dict(n_layers=2), 2, 1.0, 10,
+                _tokens(8, 11)),
 }
+REPLICA_AND_FSDP = ["fsdp_dp", "sp_dp", "slice_dp", "fsdp_tp"]
 
 
 def _cfgs(changes):
@@ -185,6 +203,35 @@ def test_flash_stages_launch_once_per_layer_and_microbatch(piped):
     assert sorted({r["flash"]["stage"] for r in piped}) == [0, 1]
 
 
+@pytest.mark.parametrize("name", REPLICA_AND_FSDP)
+def test_pipeline_over_fsdp_sp_slice_matches_reference(piped, name):
+    """The loss, every updated leaf and every update (new − old: the
+    learning rate times the gradient) within 1e-5 of jaxbridge's pipeline
+    on the same mesh; every rank returns the same loss, and an fsdp rank
+    holds half of each leaf the spec puts over fsdp."""
+    sizes, _, cfg, _, _, tree, _ = _case(name)
+    want, new = _reference_pipeline(name)
+    old = [jax.tree.map(np.asarray, jpipe.stack_layers(tree)),
+           tree["embed"], tree["out"], tree["ln_f"]]
+    want_update = jax.tree.map(lambda a, b: a - b, new, old)
+    for rank in piped:
+        got = rank[name]
+        assert got["loss"] == pytest.approx(want, rel=RTOL)
+        _assert_leaves_close(got["params"], new)
+        _assert_leaves_close(jax.tree.map(lambda a, b: a - b,
+                                          got["params"], old), want_update)
+    layout = tmesh.Mesh(sizes)
+    shapes, over_fsdp = [], []
+    wl.tree_map(lambda x, spec: (
+        shapes.append(wl.shard_shape(x.shape, spec, layout)),
+        over_fsdp.append("fsdp" in spec)),
+        list(interop.pipeline_params_from_numpy(tree, cfg, "cpu")),
+        list(pipeline.pipeline_param_specs(cfg, layout)))
+    assert piped[0][name]["shapes"] == shapes
+    # every matrix of a layer (7), embed and out are halved over fsdp
+    assert sum(over_fsdp) == (9 if "fsdp" in sizes else 0)
+
+
 def test_pipeline_rejects_indivisible_layers():
     cfg = wl.ModelConfig(**{**TINY, "n_layers": 3})
     with pytest.raises(ValueError, match="stages"):
@@ -201,9 +248,7 @@ def test_pipeline_rejects_a_batch_that_does_not_split():
         step(shards, torch.zeros((6, cfg.seq), dtype=torch.long))
 
 
-@pytest.mark.parametrize("axis,error", [
-    ("fsdp", NotImplementedError), ("sp", NotImplementedError),
-    ("slice", NotImplementedError), ("xp", ValueError)])
+@pytest.mark.parametrize("axis,error", [("xp", ValueError)])
 def test_pipeline_refuses_other_axes(axis, error):
     cfg = wl.ModelConfig(**TINY)
     with pytest.raises(error, match=repr(axis)):

@@ -17,7 +17,6 @@ import torch
 from tpusched.jaxbridge import decode as jdec, serve as jserve
 from tpusched.jaxbridge import workload as jwl
 from tpusched_torch import decode, interop, serve, workload as wl
-from tpusched_torch import mesh as tmesh
 from tpusched_torch.serve import Request, ServeEngine, measure_serving
 
 torch.set_num_threads(1)
@@ -190,21 +189,18 @@ def test_sampled_engine_is_seeded(model):
 
 
 @pytest.mark.parametrize("option,error,match", [
-    (dict(mesh=tmesh.Mesh({"fsdp": 2, "tp": 1}, device="cpu")),
-     NotImplementedError, "ROADMAP"),
     (dict(draft_params=None, draft_cfg=wl.ModelConfig.tiny()), ValueError,
      "draft_cfg without draft_params"),
     (dict(draft_cfg=None), ValueError, "draft_params requires draft_cfg"),
     (dict(request_keyed=True, temperature=0.0), ValueError,
-     "needs temperature > 0")], ids=["option0", "option1", "option2",
-                                     "option3"])
+     "needs temperature > 0")], ids=["option1", "option2", "option3"])
 def test_options_not_ported_yet_raise(model, option, error, match):
-    """Serving over an fsdp (or sp) axis of size > 1, or an ep or pp axis,
-    is not ported yet; tp meshes
-    are (tests/test_torch_tp_serve.py), as are speculation and
-    request-keyed sampling (tests/test_torch_serve_spec.py), which refuse
-    what the reference refuses: a draft config without its weights, weights
-    without their config, keyed sampling at temperature 0."""
+    """Every option is ported: meshes over tp (tests/test_torch_tp_serve.py),
+    ep (tests/test_torch_ep.py) and fsdp, sp and pp
+    (tests/test_torch_serve_mesh.py), speculation and request-keyed
+    sampling (tests/test_torch_serve_spec.py). What is refused is what the
+    reference refuses: a draft config without its weights, weights without
+    their config, keyed sampling at temperature 0."""
     cfg, params = model
     option = {"draft_params": params, **option}
     with pytest.raises(error, match=match):

@@ -14,7 +14,8 @@ import os
 import numpy as np
 import torch
 
-from tpusched_torch import attention, checkpoint, interop, mesh as tmesh
+from tpusched_torch import attention, checkpoint, decode, interop
+from tpusched_torch import mesh as tmesh
 from tpusched_torch import optim, pipeline, workload as wl
 from tpusched_torch.data import TokenBatcher
 from tpusched_torch.serve import Request, ServeEngine
@@ -372,3 +373,51 @@ def batcher_rank(m: tmesh.Mesh, cfg, steps: int, ref_batch) -> dict:
     losses = [float(step(shards, torch.from_numpy(b))[1])
               for b in (batches[0], np.asarray(ref_batch, np.int64))]
     return {"batches": batches, "losses": losses}
+
+
+def serve_mesh_rank(m: tmesh.Mesh, directory, cases: dict) -> dict:
+    """The engine on meshes over this launch's ranks. Each case ``name ->
+    (axis sizes, cfg, numpy tree, engine kwargs, requests)``: the
+    completions, ticks, this rank's leaf shapes and arena heads, and, for a
+    sampled case, the unsharded engine's completions too (the port's own
+    draws). With ``directory``, a case named ``snapshot`` loads its weights
+    as this rank's shards by ``load_for_serving(directory, mesh=)``."""
+    torch.set_num_threads(1)
+    meshes = {tuple(m.shape.items()): m}
+    out = {}
+    for name, (sizes, cfg, tree, kw, reqs) in cases.items():
+        mesh = _mesh_of(meshes, sizes)
+        params = (checkpoint.load_for_serving(directory, cfg, mesh=mesh)
+                  if name == "snapshot"
+                  else interop.params_from_numpy(tree, cfg, "cpu"))
+        kw = dict(kw)
+        if kw.pop("self_draft", False):
+            kw.update(draft_params=params, draft_cfg=cfg)
+        eng = ServeEngine(params, cfg, slots=2, max_seq=64, prompt_bucket=16,
+                          mesh=mesh, device="cpu", **kw)
+        run = _completions(eng, reqs)
+        run["shapes"] = [tuple(t.shape) for t in wl.tree_leaves(eng.params)]
+        run["kv_heads"] = int(eng.cache[0]["k"].shape[2])
+        if kw.get("temperature", 0.0) > 0.0:
+            solo = ServeEngine(params, cfg, slots=2, max_seq=64,
+                               prompt_bucket=16, device="cpu", **kw)
+            run["solo"] = _completions(solo, reqs)
+        out[name] = run
+    return out
+
+
+def generate_rank(m: tmesh.Mesh, cases: dict) -> dict:
+    """``decode.generate``/``sample`` over this rank's tp shards. Each case
+    ``name -> (cfg, numpy tree, prompts (b, s), steps, temperature)``; a
+    sampled case draws with a generator seeded 100 + the rank, so only the
+    broadcast of tp rank 0's draws can make the ranks agree."""
+    torch.set_num_threads(1)
+    out = {}
+    for name, (cfg, tree, prompt, steps, temperature) in cases.items():
+        shards = wl.shard_params(interop.params_from_numpy(tree, cfg, "cpu"),
+                                 cfg, m)
+        gen = torch.Generator().manual_seed(100 + m.rank)
+        out[name] = decode.sample(shards, torch.from_numpy(prompt).long(),
+                                  cfg, steps, gen, temperature,
+                                  tp=m.tp).tolist()
+    return out

@@ -12,7 +12,12 @@ function here takes this rank's shards of the weights and a cache of its
 kv_heads/tp heads; attention and cache writes stay local, and the logits
 come back whole on every rank. Under expert parallelism (``ep=``) each
 rank holds E/ep of an MoE layer's experts and the same whole cache; the
-experts' outputs are gathered over ep before the dropless combine.
+experts' outputs are gathered over ep before the dropless combine. Under
+full sharding (``fsdp=``) each rank holds its fsdp chunk of every matrix
+and the whole cache; a layer's weights, and ``embed`` and ``out``, are
+gathered where they are used (``workload._gather_fsdp``). The gather is
+an exact sum of zero-padded buffers, so the gathered weight is the whole
+weight bit for bit and the rank computes one card's logits.
 
 Speculative decoding's draft phase (``draft_rollout``,
 ``sampling_draft_rollout``) and request-keyed sampling
@@ -32,11 +37,11 @@ import numpy as np
 import torch
 
 from . import attention
-from .mesh import Axis
+from .mesh import Axis, broadcast
 from .workload import (ExpertAxes, ModelConfig, Params, _as_pos_vec,
-                       _finish_block, _qkv, _resolve_attn_fn, _rmsnorm,
-                       cast_params_for_compute, embed, resolve_device,
-                       unembed)
+                       _finish_block, _gather_fsdp, _qkv, _resolve_attn_fn,
+                       _rmsnorm, cast_params_for_compute, embed,
+                       resolve_device, unembed)
 
 KVCache = List[Dict[str, torch.Tensor]]
 
@@ -149,7 +154,9 @@ def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
 
 def _layer_decode(x: torch.Tensor, layer: Dict[str, torch.Tensor], c, pos,
                   cfg: ModelConfig, tp: Optional[Axis] = None,
-                  ep: Optional[Axis] = None) -> torch.Tensor:
+                  ep: Optional[Axis] = None,
+                  fsdp: Optional[Axis] = None) -> torch.Tensor:
+    layer = _gather_fsdp(layer, cfg, fsdp)
     h = _rmsnorm(x, layer["ln_attn"])
     q, k, v = _qkv(h, layer, cfg, pos_offset=pos, tp=tp)
     cache_update(c, k, v, pos)
@@ -164,11 +171,13 @@ def _layer_decode(x: torch.Tensor, layer: Dict[str, torch.Tensor], c, pos,
 def _layer_prefill(x: torch.Tensor, layer: Dict[str, torch.Tensor], c,
                    cfg: ModelConfig, attn_fn,
                    tp: Optional[Axis] = None,
-                   ep: Optional[Axis] = None) -> torch.Tensor:
+                   ep: Optional[Axis] = None,
+                   fsdp: Optional[Axis] = None) -> torch.Tensor:
     """Prefill layer: attention over the prompt through the configured
     implementation (the flash kernel when cfg.attn == 'flash'), K/V
     recorded into the cache from position 0. Attention takes the FRESH
     K/V, so an int8 cache's error enters only at later cached reads."""
+    layer = _gather_fsdp(layer, cfg, fsdp)
     h = _rmsnorm(x, layer["ln_attn"])
     q, k, v = _qkv(h, layer, cfg, tp=tp)
     cache_update(c, k, v, 0)
@@ -178,40 +187,46 @@ def _layer_prefill(x: torch.Tensor, layer: Dict[str, torch.Tensor], c,
 
 def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
             cfg: ModelConfig, tp: Optional[Axis] = None,
-            ep: Optional[Axis] = None) -> Tuple[torch.Tensor, KVCache]:
+            ep: Optional[Axis] = None,
+            fsdp: Optional[Axis] = None) -> Tuple[torch.Tensor, KVCache]:
     """Run the prompt (b, s), filling the cache from position 0. Returns
     (logits (b, s, vocab), cache). ``tp``: the tensor-parallel axis of
     sharded ``params`` and a cache from ``init_kv_cache(..., tp=tp)``; the
     logits are whole on every rank. ``ep``: the expert-parallel axis of
-    sharded MoE ``params``."""
+    sharded MoE ``params``. ``fsdp``: the fully-sharded axis of ``params``
+    (the cache is whole over it)."""
     params = cast_params_for_compute(params, cfg)
-    x = embed(params, tokens, tp)
+    x = embed(params, tokens, tp, cfg, fsdp)
     attn_fn = _resolve_attn_fn(cfg)
     for layer, c in zip(params["layers"], cache):
-        x = _layer_prefill(x, layer, c, cfg, attn_fn, tp, ep)
-    return unembed(params, _rmsnorm(x, params["ln_f"]), cfg, tp), cache
+        x = _layer_prefill(x, layer, c, cfg, attn_fn, tp, ep, fsdp)
+    return (unembed(params, _rmsnorm(x, params["ln_f"]), cfg, tp, fsdp),
+            cache)
 
 
 def score_span(params: Params, cache: KVCache, tokens: torch.Tensor, pos,
                cfg: ModelConfig, tp: Optional[Axis] = None,
-               ep: Optional[Axis] = None) -> Tuple[torch.Tensor, KVCache]:
+               ep: Optional[Axis] = None,
+               fsdp: Optional[Axis] = None) -> Tuple[torch.Tensor, KVCache]:
     """Teacher-force ``tokens`` (b, n) at positions pos..pos+n-1 (``pos``
-    scalar or (b,)): returns (logits (b, n, vocab), cache). ``tp`` and
-    ``ep`` as in :func:`prefill`."""
+    scalar or (b,)): returns (logits (b, n, vocab), cache). ``tp``, ``ep``
+    and ``fsdp`` as in :func:`prefill`."""
     params = cast_params_for_compute(params, cfg)
-    x = embed(params, tokens, tp)
+    x = embed(params, tokens, tp, cfg, fsdp)
     for layer, c in zip(params["layers"], cache):
-        x = _layer_decode(x, layer, c, pos, cfg, tp, ep)
-    return unembed(params, _rmsnorm(x, params["ln_f"]), cfg, tp), cache
+        x = _layer_decode(x, layer, c, pos, cfg, tp, ep, fsdp)
+    return (unembed(params, _rmsnorm(x, params["ln_f"]), cfg, tp, fsdp),
+            cache)
 
 
 def decode_step(params: Params, cache: KVCache, tokens_t: torch.Tensor, pos,
                 cfg: ModelConfig, tp: Optional[Axis] = None,
-                ep: Optional[Axis] = None) -> Tuple[torch.Tensor, KVCache]:
+                ep: Optional[Axis] = None,
+                fsdp: Optional[Axis] = None) -> Tuple[torch.Tensor, KVCache]:
     """One token per sequence, tokens_t (b,), at ``pos`` (scalar or (b,)).
     Returns (logits (b, vocab), cache)."""
     logits, cache = score_span(params, cache, tokens_t[:, None], pos, cfg, tp,
-                               ep)
+                               ep, fsdp)
     return logits[:, 0], cache
 
 
@@ -256,27 +271,36 @@ def sample_token(logits: torch.Tensor,
 def sample(params: Params, prompt: torch.Tensor, cfg: ModelConfig,
            steps: int, generator: Optional[torch.Generator] = None,
            temperature: float = 1.0, top_k: int = 0,
-           top_p: float = 1.0) -> torch.Tensor:
+           top_p: float = 1.0, tp: Optional[Axis] = None) -> torch.Tensor:
     """Prefill the prompt (b, s0), then ``steps`` sampled decode steps.
-    Returns (b, steps + 1) tokens; temperature 0 is greedy ``generate``."""
+    Returns (b, steps + 1) tokens; temperature 0 is greedy ``generate``.
+    ``tp``: the tensor-parallel axis of sharded ``params`` (every rank of
+    it calls together); a sampled token is tp rank 0's draw, broadcast, so
+    the ranks feed the same token even where their generators would
+    not draw alike."""
     params = cast_params_for_compute(params, cfg)
     b, s0 = prompt.shape
-    cache = init_kv_cache(cfg, b, s0 + steps, device=prompt.device)
-    logits, cache = prefill(params, cache, prompt, cfg)
-    tok = sample_token(logits[:, s0 - 1], generator, temperature, top_k,
-                       top_p)
+    cache = init_kv_cache(cfg, b, s0 + steps, device=prompt.device, tp=tp)
+
+    def draw(logits):
+        tok = sample_token(logits, generator, temperature, top_k, top_p)
+        # argmax of logits that are whole on every rank needs no broadcast
+        return tok if temperature == 0.0 else broadcast(tok, tp)
+
+    logits, cache = prefill(params, cache, prompt, cfg, tp)
+    tok = draw(logits[:, s0 - 1])
     toks = [tok]
     for t in range(steps):
-        logits, cache = decode_step(params, cache, tok, s0 + t, cfg)
-        tok = sample_token(logits, generator, temperature, top_k, top_p)
+        logits, cache = decode_step(params, cache, tok, s0 + t, cfg, tp)
+        tok = draw(logits)
         toks.append(tok)
     return torch.stack(toks, dim=1)
 
 
 def generate(params: Params, prompt: torch.Tensor, cfg: ModelConfig,
-             steps: int) -> torch.Tensor:
-    """Greedy generation: ``sample`` at temperature 0."""
-    return sample(params, prompt, cfg, steps, temperature=0.0)
+             steps: int, tp: Optional[Axis] = None) -> torch.Tensor:
+    """Greedy generation: ``sample`` at temperature 0 (``tp`` as there)."""
+    return sample(params, prompt, cfg, steps, temperature=0.0, tp=tp)
 
 
 # -- keyed randomness: the speculative-sampling key convention -----------------
@@ -411,7 +435,8 @@ def upload_pos(pos: Pos, device) -> Union[int, torch.Tensor]:
 
 def draft_rollout(params: Params, cache: KVCache, feed: torch.Tensor,
                   pos: Pos, cfg: ModelConfig, k: int,
-                  tp: Optional[Axis] = None, ep: Optional[Axis] = None
+                  tp: Optional[Axis] = None, ep: Optional[Axis] = None,
+                  fsdp: Optional[Axis] = None
                   ) -> Tuple[torch.Tensor, KVCache]:
     """Greedy draft rollout: ingest ``feed`` (b, p) at rows pos..pos+p-1,
     take the argmax of its last row, then propose k - 1 more tokens one
@@ -419,13 +444,13 @@ def draft_rollout(params: Params, cache: KVCache, feed: torch.Tensor,
     host read per step). ``pos`` is an int or a (b,) vector (host or
     device). Returns (proposals (b, k) on the device, cache)."""
     pos = upload_pos(pos, feed.device)
-    logits, cache = score_span(params, cache, feed, pos, cfg, tp, ep)
+    logits, cache = score_span(params, cache, feed, pos, cfg, tp, ep, fsdp)
     tok = torch.argmax(logits[:, -1], dim=-1)
     toks = [tok]
     p = pos + feed.shape[1]
     for _ in range(k - 1):
         logits, cache = score_span(params, cache, tok[:, None], p, cfg, tp,
-                                   ep)
+                                   ep, fsdp)
         tok = torch.argmax(logits[:, 0], dim=-1)
         toks.append(tok)
         p = p + 1
@@ -438,7 +463,8 @@ def sampling_draft_rollout(params: Params, cache: KVCache,
                            key: Union[int, Sequence[int]],
                            temperature: float = 1.0, top_k: int = 0,
                            top_p: float = 1.0, tp: Optional[Axis] = None,
-                           ep: Optional[Axis] = None
+                           ep: Optional[Axis] = None,
+                           fsdp: Optional[Axis] = None
                            ) -> Tuple[np.ndarray, np.ndarray, KVCache]:
     """``draft_rollout``'s sampling sibling: ingest ``feed`` (b, p) at rows
     pos..pos+p-1, then propose k tokens, the one occupying row ``q`` drawn
@@ -453,7 +479,7 @@ def sampling_draft_rollout(params: Params, cache: KVCache,
     rows = np.broadcast_to(np.asarray(pos, dtype=np.int64), (b,)) + \
         feed.shape[1]                       # the row the first proposal takes
     p = upload_pos(pos, feed.device)
-    logits, cache = score_span(params, cache, feed, p, cfg, tp, ep)
+    logits, cache = score_span(params, cache, feed, p, cfg, tp, ep, fsdp)
     row_logits = logits[:, -1]
     p = p + feed.shape[1]
     toks, probs = [], []
@@ -468,7 +494,7 @@ def sampling_draft_rollout(params: Params, cache: KVCache,
         if i < k - 1:
             logits, cache = score_span(
                 params, cache, torch.from_numpy(tok).to(feed.device)[:, None],
-                p, cfg, tp, ep)
+                p, cfg, tp, ep, fsdp)
             row_logits = logits[:, 0]
             p = p + 1
     return np.stack(toks, axis=1), np.stack(probs, axis=1), cache

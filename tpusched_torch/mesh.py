@@ -547,13 +547,17 @@ def gather_last(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
     return _Gather.apply(x, axis, -1, False) if _live(axis) else x
 
 
-def gather(x: torch.Tensor, axis: Optional[Axis], dim: int) -> torch.Tensor:
+def gather(x: torch.Tensor, axis: Optional[Axis], dim: int,
+           reduce: bool = True) -> torch.Tensor:
     """The ranks' chunks of ``dim`` joined forward; backward, the sum of the
     ranks' gradients of the whole over ``axis``, this rank's chunk of it
     (a reduce-scatter). Where the ranks hold different data, as fsdp's
     weight gathers and the sequence gathers of sp do, each rank's gradient
-    of the whole is a partial one."""
-    return _Gather.apply(x, axis, dim, True) if _live(axis) else x
+    of the whole is a partial one. With ``reduce=False`` the backward takes
+    this rank's chunk of its own gradient, no sum: for ranks that compute
+    on the same data (the pipeline's fsdp ranks), whose gradients of the
+    whole are each the full one."""
+    return _Gather.apply(x, axis, dim, reduce) if _live(axis) else x
 
 
 def ring_shift(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:

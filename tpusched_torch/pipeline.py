@@ -3,9 +3,11 @@
 Counterpart of ``tpusched/jaxbridge/pipeline.py``. The layers are stacked
 (one (L, …) leaf per layer parameter, :func:`stack_layers`) and the stacked
 leaves' leading axis is split over pp: stage s holds layers
-[s·L/pp, (s+1)·L/pp). ``embed``, ``out`` and ``ln_f`` are whole on every
-stage. Other axes of a pipeline mesh shard as in the flat steps: dp the
-batch, ep the experts and tp the model inside a stage.
+[s·L/pp, (s+1)·L/pp). ``embed``, ``out`` and ``ln_f`` are whole over pp.
+Other axes of a pipeline mesh: dp splits the batch (the only axis that
+does, as in the reference), ep the experts and tp the model inside a
+stage, fsdp every matrix's non-tp dim as in the flat steps; slice and sp
+are replicas, their ranks running the same rows as their peers.
 
 The step is GPipe with explicit hand-offs: stage s runs its layers forward
 on each microbatch and sends the activation to stage s + 1 (:func:`mesh.
@@ -32,6 +34,15 @@ The reference's semantics are kept, each pinned by a test:
 - the gradients of ``embed``, ``out`` and ``ln_f`` are summed over pp, so
   every stage applies the same update; every gradient is averaged over dp;
 - the returned loss is the last stage's on every rank.
+
+Under fsdp a stage gathers each of its layers' leaves, and ``embed`` and
+``out``, once a step, before the first microbatch: a microbatch's backward
+holds the weights its forward used, so a gather a use would hold n_micro
+copies. The fsdp ranks run the same rows, so each one's gradient of a
+gathered weight is already the full gradient: the gather's backward takes
+this rank's chunk of it with no sum over fsdp (``mesh.gather(...,
+reduce=False)``), where the flat steps' reduce-scatter sums the partial
+gradients of rows that fsdp splits.
 """
 from __future__ import annotations
 
@@ -41,17 +52,17 @@ import torch
 
 from .mesh import Mesh, broadcast, gather_last, local_chunk, recv, send
 from .mesh import all_reduce
-from .workload import (ExpertAxes, ModelConfig, Params, _block, _nll,
-                       _resolve_attn_fn, _rmsnorm, cast_params_for_compute,
-                       embed, gather_leaf, init_params, moe_act_spec,
-                       param_specs, shard_leaf, tree_leaves, tree_map,
-                       unembed)
+from .workload import (ExpertAxes, ModelConfig, Params, _block, _gather_fsdp,
+                       _nll, _resolve_attn_fn, _rmsnorm,
+                       cast_params_for_compute, embed, gather_leaf,
+                       init_params, moe_act_spec, param_specs, shard_leaf,
+                       tree_leaves, tree_map, unembed)
 
 # (stacked layers, embed, out, ln_f)
 PipelineParams = Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor,
                        torch.Tensor]
 
-PIPELINE_AXES = ("pp", "dp", "ep", "tp")
+PIPELINE_AXES = ("pp", "slice", "dp", "fsdp", "sp", "ep", "tp")
 
 
 def stack_layers(params: Params) -> Dict[str, torch.Tensor]:
@@ -82,7 +93,8 @@ def pipeline_param_specs(cfg: ModelConfig, mesh: Mesh) -> Tuple:
 def shard_pipeline_params(params: PipelineParams, cfg: ModelConfig,
                           mesh: Mesh) -> PipelineParams:
     """This rank's slice of (stacked layers, embed, out, ln_f): its stage's
-    layers and its ep and tp shards, as ``workload.shard_params`` cuts."""
+    layers and its fsdp, ep and tp shards, as ``workload.shard_params``
+    cuts."""
     check_pipeline_mesh(mesh, cfg)
     return tuple(tree_map(lambda x, spec: shard_leaf(x, spec, mesh), params,
                           pipeline_param_specs(cfg, mesh)))
@@ -97,18 +109,12 @@ def gather_pipeline_params(shards: PipelineParams, cfg: ModelConfig,
 
 
 def check_pipeline_mesh(mesh: Mesh, cfg: ModelConfig) -> None:
-    """Raise unless ``mesh`` has a pp axis whose stages split the layers
-    evenly, its other axes are among dp, ep and tp (NotImplementedError for
-    fsdp, sp and slice, which ROADMAP lists; ValueError for an unknown
-    axis), and ep divides the experts."""
+    """Raise (ValueError) unless ``mesh`` has a pp axis whose stages split
+    the layers evenly, its other axes are among :data:`PIPELINE_AXES`, and
+    ep divides the experts."""
     if mesh is None or "pp" not in mesh.shape:
         raise ValueError("a pipeline mesh needs a 'pp' axis")
     for a in mesh.axis_names:
-        if a in ("slice", "fsdp", "sp"):
-            raise NotImplementedError(
-                f"the {a!r} axis on a pipeline mesh is not ported yet: "
-                f"ROADMAP 'Parallelism' (pipeline meshes take pp with dp, "
-                f"ep and tp)")
         if a not in PIPELINE_AXES:
             raise ValueError(f"unknown mesh axis {a!r}")
     pp = mesh.shape["pp"]
@@ -124,13 +130,13 @@ def check_pipeline_mesh(mesh: Mesh, cfg: ModelConfig) -> None:
 def make_pipeline_train_step(mesh: Mesh, cfg: ModelConfig, n_micro: int,
                              lr: float = 1e-3):
     """SGD through the GPipe schedule (module docstring) on ``mesh`` (pp,
-    with any of dp, ep and tp). Returns ``(step, param_specs,
-    token_spec)`` where ``step((stacked, embed, out, ln_f), tokens) ->
-    (new_params, loss)`` takes this rank's shards
+    with any of slice, dp, fsdp, sp, ep and tp). Returns ``(step,
+    param_specs, token_spec)`` where ``step((stacked, embed, out, ln_f),
+    tokens) -> (new_params, loss)`` takes this rank's shards
     (:func:`shard_pipeline_params`) and the GLOBAL batch (B, S), which
     must split into ``n_micro`` microbatches."""
     check_pipeline_mesh(mesh, cfg)
-    pp, dp, tp = mesh.pp, mesh.axis("dp"), mesh.tp
+    pp, dp, tp, fsdp = mesh.pp, mesh.axis("dp"), mesh.tp, mesh.fsdp
     stage, last = pp.index, pp.size - 1
     attn_fn = _resolve_attn_fn(cfg)
     specs = pipeline_param_specs(cfg, mesh)
@@ -149,8 +155,14 @@ def make_pipeline_train_step(mesh: Mesh, cfg: ModelConfig, n_micro: int,
         it = iter(masters)
         stacked, emb, out_w, ln_f = cast_params_for_compute(
             tree_map(lambda _: next(it), params), cfg)
-        layers = [{k: v[j] for k, v in stacked.items()}
+        # whole weights once a step, their gradients this rank's chunk of
+        # the full one (module docstring)
+        layers = [_gather_fsdp({k: v[j] for k, v in stacked.items()}, cfg,
+                               fsdp, reduce=False)
                   for j in range(next(iter(stacked.values())).shape[0])]
+        whole = _gather_fsdp({"embed": emb, "out": out_w}, cfg, fsdp,
+                             reduce=False)
+        emb, out_w = whole["embed"], whole["out"]
         device = emb.device
         act = (micro.shape[1], s, cfg.d_model)
         sends = []

@@ -22,14 +22,20 @@ request's key and absolute row (``decode.keyed_sample``), so a sampled
 request's tokens do not depend on its neighbours; sampled speculation
 needs it.
 
-With ``mesh`` the engine serves tensor- and expert-parallel, SPMD: every
-rank of the mesh builds the same engine from the full weights, keeps its
-shard of them (``workload.shard_params``: E/ep of an MoE layer's experts)
-and its kv_heads/tp of the arena (replicated over ep), and runs the same
-``submit``/``tick`` sequence; each host decision (a sampled token, a
-speculative round's proposals and outcome) is rank 0's of the model group
-(ep × tp), broadcast. An fsdp or sp axis of size > 1 is refused: the
-engine's forward neither gathers sharded weights nor splits the sequence.
+With ``mesh`` the engine serves SPMD: every rank of the mesh builds the
+same engine from the full weights (or its shards, as
+``checkpoint.load_for_serving(mesh=)`` reads them), keeps its shard of
+them by ``workload.param_specs`` and runs the same ``submit``/``tick``
+sequence. tp splits the model and the arena (kv_heads/tp a rank), ep an
+MoE layer's experts (E/ep a rank), fsdp every matrix's non-tp dim: the
+engine gathers a layer's weights where it uses them (``decode``'s
+``fsdp=``), an exact gather, so the ranks compute one card's logits, and
+the arena is whole over fsdp. Every other axis (slice, dp, sp, pp) is a
+replica: its ranks run the same program on the same inputs. Each host
+decision (a sampled token, a speculative round's proposals and outcome)
+is rank 0's of the model group (ep × tp), broadcast; fsdp and the
+replica axes compute identical logits with identically seeded
+generators, so their ranks decide alike with no broadcast.
 
 Pad keys land at positions >= the prompt's true length, which the causal
 cursor masks until the decode step overwrites them. Idle slots decode
@@ -53,7 +59,7 @@ from .decode import (KVCache, cache_update, decode_step, draft_rollout,
 from .mesh import MODEL_AXES, broadcast
 from .spec_decode import accept_span, round_uniforms
 from .workload import (ModelConfig, Params, check_mesh_axes, param_shapes,
-                       param_specs, resolve_device, shard_params, shard_shape,
+                       param_specs, resolve_device, shard_leaf, shard_shape,
                        tree_leaves, tree_map)
 
 
@@ -88,31 +94,31 @@ def _slot_view(cache: KVCache, slot: int) -> KVCache:
 
 def _prefill_slot(params: Params, cache: KVCache, prompt: torch.Tensor,
                   slot: int, true_len: int, cfg: ModelConfig,
-                  tp=None, ep=None) -> torch.Tensor:
+                  tp=None, ep=None, fsdp=None) -> torch.Tensor:
     """Prefill one padded prompt (bucket,) into ``slot``'s rows with the
     configured attention; returns the next-token logits (vocab,) of the
     last real prompt position."""
     logits, _ = prefill(params, _slot_view(cache, slot), prompt[None], cfg,
-                        tp, ep)
+                        tp, ep, fsdp)
     return logits[0, true_len - 1]
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP '{item}'")
 
 
 def _own_shards(params: Params, cfg: ModelConfig, mesh) -> Params:
     """This rank's shards: ``params`` as given (moved to the mesh's device)
     when every leaf already has its shard's shape, as
-    ``checkpoint.load_for_serving(mesh=)`` returns them, else
-    ``shard_params`` of the full tree. A leaf over an axis of size 1 has
-    the same shape either way, and both readings give the same shards."""
+    ``checkpoint.load_for_serving(mesh=)`` returns them, else each leaf of
+    the full tree cut by ``param_specs`` (``workload.shard_leaf``, as
+    ``shard_params`` cuts; a pp axis, which no spec names, leaves it
+    whole). A leaf over an axis of size 1 has the same shape either way,
+    and both readings give the same shards."""
+    specs = param_specs(cfg, mesh)
     shapes = tree_leaves(tree_map(
         lambda x, whole, spec: tuple(x.shape) == shard_shape(whole, spec,
                                                              mesh),
-        params, param_shapes(cfg), param_specs(cfg, mesh)))
+        params, param_shapes(cfg), specs))
     if not all(shapes):
-        return shard_params(params, cfg, mesh)
+        return tree_map(lambda x, spec: shard_leaf(x, spec, mesh), params,
+                        specs)
     return tree_map(lambda x: x.to(mesh.device or x.device), params)
 
 
@@ -126,9 +132,8 @@ class ServeEngine:
     ``draft_params``/``draft_cfg`` every tick is a speculative round of
     ``spec_k`` proposals. Runs on the CUDA card unless ``device="cpu"``;
     ``params`` and ``draft_params`` must already be there. With ``mesh``
-    (axes in slice, dp, ep, tp, and fsdp or sp of size 1; see the module
-    docstring) it runs on
-    ``mesh.device`` and takes the full weights from anywhere."""
+    (axes in slice, dp, fsdp, sp, pp, ep and tp; see the module docstring)
+    it runs on ``mesh.device`` and takes the full weights from anywhere."""
 
     def __init__(self, params: Params, cfg: ModelConfig, *,
                  slots: int = 8, max_seq: int = 1024,
@@ -141,13 +146,7 @@ class ServeEngine:
                  draft_cfg: Optional[ModelConfig] = None,
                  spec_k: int = 4, device=None):
         if mesh is not None:
-            check_mesh_axes(mesh, cfg)
-            for a in ("fsdp", "sp"):
-                if mesh.shape.get(a, 1) > 1:
-                    # the engine's forward neither gathers fsdp-sharded
-                    # weights nor splits the sequence over sp
-                    raise _not_ported(f"serving over the {a!r} mesh axis",
-                                      "Parallelism")
+            check_mesh_axes(mesh, cfg, serving=True)
             if (device is not None and mesh.device is not None
                     and resolve_device(device) != mesh.device):
                 raise ValueError(f"the mesh runs on {mesh.device}, not "
@@ -182,6 +181,7 @@ class ServeEngine:
                              "(greedy consumes no randomness)")
         self._tp = mesh.tp if mesh is not None else None
         self._ep = mesh.ep if mesh is not None else None
+        self._fsdp = mesh.fsdp if mesh is not None else None
         self._model = mesh.axis(MODEL_AXES) if mesh is not None else None
         tp = self._tp.size if self._tp is not None else 1
         if mesh is not None:
@@ -318,7 +318,8 @@ class ServeEngine:
         # slot's leading rows. Exact: the engine refuses int8 with chunking
         kv = prefill(self.params,
                      init_kv_cache(self.cfg, 1, p, self.device, self._tp),
-                     tokens[None], self.cfg, self._tp, self._ep)[1]
+                     tokens[None], self.cfg, self._tp, self._ep,
+                     self._fsdp)[1]
         self._prefixes[prefix_id] = {"len": p, "kv": kv}
 
     def submit(self, req: Request) -> None:
@@ -434,7 +435,7 @@ class ServeEngine:
             padded = torch.from_numpy(padded).to(self.device)
             first_logits = _prefill_slot(self.params, self.cache, padded,
                                          slot, true_len, self.cfg, self._tp,
-                                         self._ep)
+                                         self._ep, self._fsdp)
             self.prefills += 1
             tok = self._first_token(req.rid, first_logits, true_len, slot)
             self.slot_prefix[slot] = 0
@@ -449,7 +450,7 @@ class ServeEngine:
                 # speculative round
                 _prefill_slot(self.draft_params, self.draft_cache, padded,
                               slot, true_len, self.draft_cfg, self._tp,
-                              self._ep)
+                              self._ep, self._fsdp)
                 self.draft_prefills += 1
 
     def _advance_prefills(self) -> None:
@@ -474,7 +475,7 @@ class ServeEngine:
             logits, _ = score_span(
                 self.params, _slot_view(self.cache, slot),
                 torch.from_numpy(chunk).to(self.device)[None], off, self.cfg,
-                self._tp, self._ep)
+                self._tp, self._ep, self._fsdp)
             next_logits = logits[0, n - 1]     # the last real row
             off += n
             if off < true_len:
@@ -585,12 +586,12 @@ class ServeEngine:
             np.stack([self.prev_tok, self.next_tok], axis=1)).to(self.device)
         proposals_dev, _ = draft_rollout(self.draft_params, self.draft_cache,
                                          feed2, pos_dev - 1, self.draft_cfg,
-                                         k, self._tp, self._ep)
+                                         k, self._tp, self._ep, self._fsdp)
         proposals_dev = self._agree(proposals_dev)
         proposals = proposals_dev.cpu().numpy()              # (slots, k)
         scored = torch.cat([feed2[:, 1:], proposals_dev], dim=1)
         logits, _ = score_span(self.params, self.cache, scored, pos_dev,
-                               self.cfg, self._tp, self._ep)
+                               self.cfg, self._tp, self._ep, self._fsdp)
         t_arg = self._agree(torch.argmax(logits, dim=-1)).cpu().numpy()
         self._count_round()
         for s in active:
@@ -616,13 +617,13 @@ class ServeEngine:
         proposals, p_mat, _ = sampling_draft_rollout(
             self.draft_params, self.draft_cache, feed2, pos - 1,
             self.draft_cfg, k, self.slot_key, self.temperature, self.top_k,
-            self.top_p, self._tp, self._ep)
+            self.top_p, self._tp, self._ep, self._fsdp)
         proposals = self._agree(proposals)
         scored = torch.cat([feed2[:, 1:],
                             torch.from_numpy(proposals).to(self.device)],
                            dim=1)
         logits, _ = score_span(self.params, self.cache, scored, pos_dev,
-                               self.cfg, self._tp, self._ep)
+                               self.cfg, self._tp, self._ep, self._fsdp)
         adj = host_adjusted_logits(logits, self.temperature, self.top_k,
                                    self.top_p)               # (slots, k+1, V)
         self._count_round()
@@ -671,7 +672,7 @@ class ServeEngine:
             self.params, self.cache,
             torch.from_numpy(self.next_tok).to(self.device),
             torch.from_numpy(self.pos).to(self.device), self.cfg, self._tp,
-            self._ep)
+            self._ep, self._fsdp)
         if self.request_keyed:
             # the token drawn now occupies row pos + 1 of its slot, the row
             # the solo position-keyed sampler keys

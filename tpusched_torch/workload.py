@@ -465,16 +465,18 @@ def _fsdp_dims(cfg: ModelConfig) -> Dict[str, Optional[int]]:
 
 
 def _gather_fsdp(p: Dict[str, torch.Tensor], cfg: ModelConfig,
-                 fsdp: Optional[Axis]) -> Dict[str, torch.Tensor]:
+                 fsdp: Optional[Axis],
+                 reduce: bool = True) -> Dict[str, torch.Tensor]:
     """The leaves of ``p`` (a layer, or the top-level leaves) whole: each
     leaf sharded over fsdp gathered along its dim, its gradient
-    reduce-scattered back (:func:`mesh.gather`). Called where the weights
-    are used, inside a checkpointed block too, so remat gathers again, as
-    ZeRO-3 does."""
+    reduce-scattered back (:func:`mesh.gather`; with ``reduce=False``
+    this rank's chunk of its own gradient, where the fsdp ranks compute on
+    the same rows). Called where the weights are used, inside a
+    checkpointed block too, so remat gathers again, as ZeRO-3 does."""
     if fsdp is None or fsdp.size == 1:
         return p
     dims = _fsdp_dims(cfg)
-    return {k: w if dims[k] is None else gather(w, fsdp, dims[k])
+    return {k: w if dims[k] is None else gather(w, fsdp, dims[k], reduce)
             for k, w in p.items()}
 
 
@@ -664,23 +666,27 @@ def sgd_train_step(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 # slice, dp and fsdp shard the batch, fsdp also every matrix's non-tp dim
 # (ZeRO-3), sp the sequence, ep the MoE experts, tp the model. A pp axis
 # trains through pipeline.make_pipeline_train_step, which stacks the
-# layers; the flat steps, shard_params and the engine refuse it.
+# layers; the flat steps and shard_params refuse it, and the serving engine
+# runs its ranks as replicas.
 
 PORTED_AXES = ("slice", "dp", "fsdp", "sp", "ep", "tp")
 
 
-def check_mesh_axes(mesh: Optional[Mesh],
-                    cfg: Optional[ModelConfig] = None) -> None:
+def check_mesh_axes(mesh: Optional[Mesh], cfg: Optional[ModelConfig] = None,
+                    serving: bool = False) -> None:
     """Raise for a pp axis (NotImplementedError, naming the pipeline and
-    ROADMAP), an axis the port does not know, or an ep that does not divide
-    ``cfg``'s experts (ValueError)."""
+    ROADMAP) unless ``serving`` (the engine serves over pp as replicas), an
+    axis the port does not know, or an ep that does not divide ``cfg``'s
+    experts (ValueError)."""
     for a in () if mesh is None else mesh.axis_names:
+        if a == "pp" and serving:
+            continue
         if a == "pp":
             raise NotImplementedError(
                 "the 'pp' mesh axis trains through "
                 "pipeline.make_pipeline_train_step (stacked layers); the "
-                "flat train steps, shard_params and the engine do not run "
-                "it: ROADMAP 'Parallelism'")
+                "flat train steps and shard_params do not run it: ROADMAP "
+                "'Parallelism'")
         if a not in PORTED_AXES:
             raise ValueError(f"unknown mesh axis {a!r}")
     ep = mesh.shape.get("ep", 1) if mesh is not None else 1
