@@ -195,14 +195,32 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``dryrun_multichip(6)`` with every rank a gloo rank on the card: the
     reference's seven and five lines, each OK; at 8 the dense block's
     ring-flash K1 = K2 = K3 = L·(1 + sp index) a rank. Phases 32-34 run
-    gloo through the host too.
+    gloo through the host too;
+35. the compiled programs (``tpusched_torch.program``): an engine with no
+    mesh replays its decode tick, slot prefills and greedy round as CUDA
+    graphs, and greedy ``generate`` one captured step a token, so phases 3,
+    4, 8, 9, 11-15, 17-19 and 30 run through them. Here each program's
+    replay is held against its body called directly on the same arena
+    (bitwise, or the max |err| printed and the argmax equal): the decode
+    tick and both prefill buckets of ``llama_like_big``, of its int8 arena
+    and of ``mixtral_like``, with the pool memory the programs hold; 32
+    decode-tick replays under ``torch.cuda.set_sync_debug_mode("error")``;
+    phase 3's 16 requests drained by a graphed engine and by one whose
+    programs call their bodies (a private hook, ``_graphs``), both giving
+    phase 3's streams, K1 12 a slot prefill, tick 10 of each traced; phase
+    18's ``llama_like``-draft engine graphed and eager, the draft tick and
+    verify span replay == body, equal streams and stats, round 10 of each
+    traced; one ``mixtral_like(seq=512)`` batch-8 decode step as
+    ``generate``'s step program and as its body, traced and timed with
+    CUDA events; then phase 11's ``measure_decode`` step beside its bound.
 
 The second-to-last line is the ``kernels`` JSON object (each kernel also
 with ``ring_launches`` from phase 24, ``ring_shape`` times,
 ``pp_launches`` from phases 27 and 28, ``ckpt_launches`` from phase 29,
 ``pp_fsdp_launches`` from phase 33 and ``dryrun_launches`` from phase 34,
-K1 ``handoff_launches`` from phase 30 and ``fsdp_serving_launches`` from
-phase 32), the last line the ``ok`` JSON object. Imports neither JAX nor
+K1 ``handoff_launches`` from phase 30, ``fsdp_serving_launches`` from
+phase 32 and ``graphed_launches`` from phase 35), the last line the ``ok``
+JSON object. Imports neither JAX nor
 the JAX package.
 
     python3 chip_smoke.py --ab DIR
@@ -1043,6 +1061,7 @@ def trace_summary(prof, label: str, wall_s: float,
     out = {"trace": label, **extra,
            "kernels": sum(e["cat"] == "kernel" for e in device),
            "kernel_launch_calls": sum("LaunchKernel" in n for n in host),
+           "graph_launches": sum("GraphLaunch" in n for n in host),
            "htod_copies": sum(e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]
                               for e in device),
            "syncs": sum(n in ("cudaStreamSynchronize", "cudaDeviceSynchronize")
@@ -3367,6 +3386,281 @@ def phase_entry(attention, entry, workload, workdir):
     return by_sp
 
 
+# -- the compiled programs (phase 35) -----------------------------------------
+
+PROGRAM_TICKS = 3            # ticks before the replay-vs-body comparisons
+SYNC_FREE_REPLAYS = 32
+# why a replay and its body may differ, printed beside any difference: the
+# body runs eagerly on the default stream, the graph was captured on a side
+# stream, and a library GEMM may choose another kernel for either
+REPLAY_NOTE = ("replay and body differ: the GEMM library may choose another "
+               "kernel under capture; argmax held equal")
+
+
+def arena_copy(cache):
+    return [{n: t.clone() for n, t in c.items()} for c in cache]
+
+
+def arena_restore(cache, state) -> None:
+    for c, s in zip(cache, state):
+        for n, t in c.items():
+            t.copy_(s[n])
+
+
+def arena_equal(cache, state) -> bool:
+    return all(torch.equal(t, s[n]) for c, s in zip(cache, state)
+               for n, t in c.items())
+
+
+def replay_vs_body(attention, prog, cache, values, label) -> dict:
+    """``prog`` run with ``values`` as a replay, then its body called
+    directly on the arena as it was: the output and the arena compared
+    bitwise; where they differ, the max |err| is printed and the argmax
+    must agree. The arena is left as it was and the launch counters as
+    they were."""
+    counts = (attention.FLASH_FWD_LAUNCHES, attention.FLASH_BWD_DKDV_LAUNCHES,
+              attention.FLASH_BWD_DQ_LAUNCHES)
+    before = arena_copy(cache)
+    out_graph = prog(**values).clone()
+    after = arena_copy(cache)
+    arena_restore(cache, before)
+    out_body = prog.body().clone()
+    torch.cuda.synchronize()
+    rec = {"program": label, "graphed": prog.graph is not None,
+           "output_bitwise": torch.equal(out_graph, out_body),
+           "arena_bitwise": arena_equal(cache, after)}
+    check(rec["graphed"], f"{label}: the program was not captured")
+    if not (rec["output_bitwise"] and rec["arena_bitwise"]):
+        rec["max_abs_err"] = float((out_graph.float() - out_body.float())
+                                   .abs().max())
+        rec["arena_max_abs_err"] = max(
+            float((t.float() - a[n].float()).abs().max())
+            for c, a in zip(cache, after) for n, t in c.items())
+        rec["note"] = REPLAY_NOTE
+        if out_graph.is_floating_point():
+            check(torch.equal(out_graph.argmax(-1), out_body.argmax(-1)),
+                  f"{label}: replay and body disagree on the argmax: {rec}")
+        else:
+            check(rec["output_bitwise"], f"{label}: replay and body "
+                  f"disagree on the tokens: {rec}")
+    arena_restore(cache, before)
+    (attention.FLASH_FWD_LAUNCHES, attention.FLASH_BWD_DKDV_LAUNCHES,
+     attention.FLASH_BWD_DQ_LAUNCHES) = counts
+    return rec
+
+
+def started_engine(serve, params, cfg, reqs, graphs=True, **kw):
+    """A warmed engine at phase 3's geometry with ``reqs`` submitted and
+    :data:`PROGRAM_TICKS` ticks run. ``graphs=False`` is the private hook
+    that makes a card engine call its programs' bodies."""
+    eng = serve.ServeEngine(params, cfg, device="cuda", **SERVE_GEOMETRY,
+                            **kw)
+    eng._graphs = graphs
+    eng.warmup()
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(PROGRAM_TICKS):
+        eng.tick()
+    return eng
+
+
+def prefill_values(cfg, bucket):
+    rng = np.random.default_rng(bucket)
+    prompt = rng.integers(0, cfg.vocab, bucket, dtype=np.int64)
+    prompt[bucket - 5:] = 0                  # padding past the true length
+    return {"prompt": prompt, "slot": 3, "true_len": bucket - 5}
+
+
+def programs_full_width(attention, serve, workload) -> dict:
+    """Phase 35a-b: replay == body for the decode tick and both prefill
+    buckets of llama_like_big, its int8 arena and mixtral_like; the pool
+    memory the programs hold; 32 decode-tick replays with no
+    synchronization."""
+    out = {}
+    for name, kv in (("llama_like_big", None), ("llama_like_big", "int8"),
+                     ("mixtral_like", None)):
+        cfg = dataclasses.replace(getattr(workload.ModelConfig, name)(),
+                                  kv_cache_dtype=kv)
+        params = seeded_params(workload, cfg)
+        reqs = make_requests(cfg, serve)[:SERVE_GEOMETRY["slots"]]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        eng = started_engine(serve, params, cfg, reqs)
+        arena = sum(t.numel() * t.element_size()
+                    for c in eng.cache for t in c.values())
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_reserved() - reserved
+        tick = eng._program(("decode",))
+        recs = [replay_vs_body(attention, tick, eng.cache,
+                               {"tokens": eng.next_tok, "pos": eng.pos},
+                               "decode_tick")]
+        for bucket in SERVE_BUCKETS:
+            recs.append(replay_vs_body(
+                attention, eng._program(("prefill", bucket, False)),
+                eng.cache, prefill_values(cfg, bucket), f"prefill_{bucket}"))
+        label = f"{name}{' int8' if kv else ''}"
+        out[label] = {"comparisons": recs, "arena_gib": arena / 2**30,
+                      "reserved_by_engine_gib": held / 2**30,
+                      "programs_gib": (held - arena) / 2**30}
+        if label == "llama_like_big":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(SYNC_FREE_REPLAYS):
+                    tick(tokens=eng.next_tok, pos=eng.pos)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            out[label]["sync_free_replays"] = SYNC_FREE_REPLAYS
+        print(json.dumps({"programs": label, **out[label]}))
+        del eng, tick, params
+    return out
+
+
+def programs_streams(attention, serve, workload, mono) -> dict:
+    """Phase 35c-d: phase 3's 16 requests drained by a graphed engine and
+    by one whose programs call their bodies, tick 10 of each traced: both
+    give phase 3's streams exactly, K1 12 a slot prefill either way (the
+    graphed drain's counted through replays)."""
+    cfg = workload.ModelConfig.llama_like_big()
+    params = seeded_params(workload, cfg)
+    reqs = make_requests(cfg, serve)
+    out = {}
+    for graphs in (True, False):
+        attention.FLASH_FWD_LAUNCHES = 0
+        eng = serve.ServeEngine(params, cfg, device="cuda", **SERVE_GEOMETRY)
+        eng._graphs = graphs
+        eng.warmup()
+        for r in reqs:
+            eng.submit(r)
+        kind = "graphed" if graphs else "eager bodies"
+        trace, drain_s = drain_traced(
+            eng, f"llama_like_big {kind} serving tick", "cuda")
+        torch.cuda.synchronize()
+        launches = attention.FLASH_FWD_LAUNCHES
+        check(launches == cfg.n_layers * eng.prefills,
+              f"{kind} drain: {launches} flash launches for {eng.prefills} "
+              f"prefills")
+        differ = [c.rid for c in eng.completions
+                  if not np.array_equal(c.tokens, mono["tokens"][c.rid])]
+        check_completions(eng.completions, reqs, cfg.vocab, kind)
+        check(not differ, f"{kind} drain: streams {differ} differ from "
+              f"phase 3's")
+        out[kind] = {"flash_launches": launches, "prefills": eng.prefills,
+                     "ticks": eng.tick_count, "drain_s": drain_s,
+                     "tick_ms": 1e3 * drain_s / (eng.tick_count - 1),
+                     "trace": trace}
+        del eng
+    return out
+
+
+def programs_speculative(attention, serve, workload) -> dict:
+    """Phase 35e: phase 18's llama_like-draft engine, graphed and through
+    its bodies: the draft tick and verify span replay == body after three
+    rounds, the streams of both drains equal, round 10 of each traced."""
+    cfg = workload.ModelConfig.llama_like_big()
+    dcfg = workload.ModelConfig.llama_like()
+    params = seeded_params(workload, cfg)
+    dparams = seeded_params(workload, dcfg, seed=1)
+    reqs = make_requests(cfg, serve)
+    out, tokens = {}, {}
+    for graphs in (True, False):
+        attention.FLASH_FWD_LAUNCHES = 0
+        eng = started_engine(serve, params, cfg, reqs, graphs,
+                             draft_params=dparams, draft_cfg=dcfg,
+                             spec_k=SPEC_K)
+        kind = "graphed" if graphs else "eager bodies"
+        recs = []
+        if graphs:
+            pos = eng._round_positions()
+            feed2 = np.stack([eng.prev_tok, eng.next_tok], axis=1)
+            draft = eng._program(("draft",))
+            recs.append(replay_vs_body(attention, draft, eng.draft_cache,
+                                       {"feed2": feed2, "pos": pos},
+                                       "draft_tick"))
+            scored = np.concatenate([eng.next_tok[:, None],
+                                     draft.outputs.cpu().numpy()], axis=1)
+            recs.append(replay_vs_body(attention, eng._program(("verify",)),
+                                       eng.cache, {"scored": scored,
+                                                   "pos": pos},
+                                       "verify_span"))
+        trace, drain_s = drain_traced(
+            eng, f"llama_like_big {kind} speculative round, llama_like", "cuda")
+        torch.cuda.synchronize()
+        check_completions(eng.completions, reqs, cfg.vocab, kind)
+        check(attention.FLASH_FWD_LAUNCHES == cfg.n_layers * eng.prefills,
+              f"{kind} speculative drain: flash launches")
+        tokens[kind] = {c.rid: c.tokens for c in eng.completions}
+        rounds = eng.tick_count
+        out[kind] = {"comparisons": recs, "spec_stats": dict(eng.spec_stats),
+                     "flash_launches": attention.FLASH_FWD_LAUNCHES,
+                     "round_ms": 1e3 * drain_s / (rounds - PROGRAM_TICKS - 1),
+                     "trace": trace}
+        del eng
+    differ = [rid for rid, t in tokens["graphed"].items()
+              if not np.array_equal(t, tokens["eager bodies"][rid])]
+    check(not differ, f"speculative streams {differ} differ between the "
+          f"graphed and the eager engine")
+    check(out["graphed"]["spec_stats"] == out["eager bodies"]["spec_stats"],
+          "speculative stats differ between graphed and eager")
+    return out
+
+
+def programs_decode_step(decode, workload) -> dict:
+    """Phase 35f: one greedy decode step of mixtral_like(seq=512) at batch
+    8 after a 128-token prefill (phase 16's), as generate's captured step
+    program and as its body: traced, and timed with CUDA events."""
+    cfg = workload.ModelConfig.mixtral_like(seq=512)
+    params = seeded_params(workload, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (8, 128), generator=gen,
+                           device="cuda")
+    steps = 96
+    cache = decode.init_kv_cache(cfg, 8, 128 + steps, "cuda")
+    out = {}
+    logits, _ = decode.prefill(params, cache, prompt, cfg)
+    first = logits[:, -1].argmax(-1)
+    toks = torch.empty((8, steps + 1), dtype=torch.long, device="cuda")
+    pos = torch.full((), 128, dtype=torch.long, device="cuda")
+    step = decode._greedy_step(params, cache, first.clone(), pos, toks,
+                               128, cfg)
+    step.capture()
+    for name, fn in (("graphed", step), ("eager body", step.body)):
+        step(tok=first, pos=128)           # rewind: each run from row 128
+        out[name] = {"trace": traced(
+            fn, f"mixtral_like decode step batch 8 {name}"),
+            "events_ms": cuda_ms(fn, iters=16)}
+    return out
+
+
+def phase_programs(attention, decode, serve, workload, mono,
+                   exact_decode) -> dict:
+    """Phase 35, the compiled programs on the card: replay == body at full
+    width, no synchronization over 32 replays, phase 3's streams from a
+    graphed and an eager-bodies engine, greedy speculation graphed and
+    eager, the decode step graphed and eager; then phase 11's graphed
+    measure_decode beside its bound."""
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full = programs_full_width(attention, serve, workload)
+        streams = programs_streams(attention, serve, workload, mono)
+        spec = programs_speculative(attention, serve, workload)
+        step = programs_decode_step(decode, workload)
+    summary = {
+        "programs_summary": True,
+        "phase3_peak_mem_gib": mono["peak_mem_gib"],
+        "serving_tick_ms": {k: v["tick_ms"] for k, v in streams.items()},
+        "speculative_round_ms": {k: v["round_ms"] for k, v in spec.items()},
+        "decode_step_events_ms": {k: v["events_ms"] for k, v in step.items()},
+        "measure_decode_step_ms": 1e3 * exact_decode["step_s"],
+        "measure_decode_bound_ms": 1e3 * exact_decode["bound_step_s"],
+        "phase_s": time.perf_counter() - t0}
+    print(json.dumps(summary))
+    return {"full_width": full, "streams": streams, "speculative": spec,
+            "decode_step": step, **summary}
+
+
 def ab_turn(tree: str, other_root: str) -> None:
     """One turn of ``--ab``, in a process of its own: builds the kernels of
     the ``tpusched_torch`` on PYTHONPATH, then prints one JSON line of
@@ -3563,6 +3857,18 @@ def main(argv) -> int:
     zero_counts(attention)
     dryrun = phase_entry(attention, entry, workload, workdir)
     print(json.dumps({"phases_32_34_s": time.perf_counter() - t_fsdp}))
+    # the compiled programs, after every earlier phase so that those run as
+    # before
+    zero_counts(attention)
+    programs = phase_programs(attention, decode, serve, workload, mono,
+                              exact_decode)
+    streams = programs["streams"]
+    graphed_launches = {
+        "serving_replays": streams["graphed"]["flash_launches"],
+        "serving_eager_bodies": streams["eager bodies"]["flash_launches"],
+        "prefills": streams["graphed"]["prefills"],
+        "speculative_replays": programs["speculative"]["graphed"][
+            "flash_launches"]}
     dryrun_launches = [{"dense_per_rank_by_sp_index": {
         i: c[j] for i, c in sorted(dryrun.items())}} for j in range(3)]
     pp_fsdp_launches = {"llama_like_big_per_stage_per_step": pp_fsdp}
@@ -3606,7 +3912,8 @@ def main(argv) -> int:
          **ckpt["flash_fwd"], "handoff_launches": handoff_launches,
          "fsdp_serving_launches": fsdp_serving,
          "pp_fsdp_launches": pp_fsdp_launches,
-         "dryrun_launches": dryrun_launches[0]},
+         "dryrun_launches": dryrun_launches[0],
+         "graphed_launches": graphed_launches},
         {"name": "flash_bwd_dkdv", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "218",
          "launches": train_launches[1], "max_abs_err": bwd_err[1],

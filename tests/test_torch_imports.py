@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no module of tpusched_torch (mesh.py
 included), and not chip_smoke.py, imports JAX, optax, orbax or anything of
 the tpusched package (the machine with the card has none of them); the
-serving, speculative, tensor-parallel, fsdp×sp, expert-parallel and
+programs (``program``), the serving, speculative, tensor-parallel, fsdp×sp, expert-parallel and
 pipelined paths, the checkpoints, the token stream, the budget and the
 goodput reporter run with all of them refused."""
 from __future__ import annotations
@@ -75,6 +75,39 @@ def test_serving_paths_run_with_jax_unimportable():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().splitlines()[-1] == "served"
+
+
+def test_programs_run_with_jax_unimportable():
+    """With jax, optax and tpusched refused at import, greedy ``generate``
+    replays its step program and an engine warms and runs its programs on
+    the CPU."""
+    prog = (
+        "import importlib.abc, sys\n"
+        "class Refuse(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        top = name.split('.')[0]\n"
+        "        if top.startswith('jax') or top in ('tpusched', 'optax'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Refuse())\n"
+        "import numpy as np, torch\n"
+        "from tpusched_torch import decode, program, serve, workload as wl\n"
+        "cfg = wl.ModelConfig.tiny()\n"
+        "p = wl.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "out = decode.generate(p, torch.arange(4)[None], cfg, steps=3)\n"
+        "assert out.shape == (1, 4)\n"
+        "eng = serve.ServeEngine(p, cfg, slots=2, max_seq=32, prompt_bucket=8,"
+        " device='cpu')\n"
+        "eng.warmup()\n"
+        "assert all(isinstance(x, program.Program)"
+        " for x in eng._programs.values())\n"
+        "eng.submit(serve.Request(rid=0, prompt=np.arange(5, dtype=np.int32),"
+        " max_new_tokens=3))\n"
+        "assert len(eng.run_until_drained()) == 1\n"
+        "print('programs')\n")
+    r = subprocess.run([sys.executable, "-c", prog], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().splitlines()[-1] == "programs"
 
 
 def test_speculative_paths_run_with_jax_unimportable():

@@ -17,6 +17,7 @@ import torch
 from tpusched.jaxbridge import decode as jdec, serve as jserve
 from tpusched.jaxbridge import workload as jwl
 from tpusched_torch import decode, interop, serve, workload as wl
+from tpusched_torch.program import Program
 from tpusched_torch.serve import Request, ServeEngine, measure_serving
 
 torch.set_num_threads(1)
@@ -130,13 +131,14 @@ def test_submit_validates_bounds(model):
 def test_prompt_goes_to_smallest_fitting_bucket(model, monkeypatch):
     cfg, params = model
     padded = []
-    real = serve._prefill_slot
+    real = Program.__call__
 
-    def spy(params_, cache, prompt, slot, true_len, cfg_, *axes):
-        padded.append((len(prompt), true_len))
-        return real(params_, cache, prompt, slot, true_len, cfg_, *axes)
+    def spy(self, **values):
+        if "true_len" in values:             # a slot prefill program
+            padded.append((len(values["prompt"]), int(values["true_len"])))
+        return real(self, **values)
 
-    monkeypatch.setattr(serve, "_prefill_slot", spy)
+    monkeypatch.setattr(Program, "__call__", spy)
     eng = ServeEngine(params, cfg, slots=2, max_seq=64,
                       prompt_bucket=(16, 8, 32), device="cpu")
     assert eng.prompt_buckets == (8, 16, 32)

@@ -38,6 +38,7 @@ import torch
 
 from . import attention
 from .mesh import Axis, broadcast
+from .program import Program
 from .workload import (ExpertAxes, ModelConfig, Params, _as_pos_vec,
                        _finish_block, _gather_fsdp, _qkv, _resolve_attn_fn,
                        _rmsnorm, cast_params_for_compute, embed,
@@ -84,38 +85,48 @@ def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), scale
 
 
-def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
+def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos,
+                 slot: Optional[torch.Tensor] = None) -> None:
     """Write ``new`` (b, n, ...) into ``cache`` IN PLACE at sequence offset
-    ``pos``: a scalar (the whole batch aligned) or a (b,) vector (each row
-    at its own offset). Any rank past (batch, seq), so the int8 scale
-    planes (b, s, kv) take the path of the values. Rows must fit: unlike
-    the reference's dynamic_update_slice, which clamps an out-of-range
-    start, plain indexing raises; the serving engine's guards keep every
-    write in range."""
+    ``pos``: an int (the whole batch aligned, a slice write), or a tensor on
+    the cache's device, 0-d or (b,) (each row at its own offset), written
+    through index writes that a CUDA graph records, with no read to the
+    host. With ``slot`` (a device index, 0-d or (1,)) ``new`` holds one row
+    (1, n, ...), written into that batch row of the cache at the int
+    ``pos``. Any rank past (batch, seq), so the int8 scale planes (b, s,
+    kv) take the path of the values. Rows must fit: unlike the reference's
+    dynamic_update_slice, which clamps an out-of-range start, a row past
+    the end raises (on the card, a device-side assert) and a negative one
+    counts from the end; the serving engine's guards keep every write in
+    range."""
     n = new.shape[1]
-    off = torch.as_tensor(pos)
-    if off.ndim == 0:
-        p = int(off)
+    if slot is not None:
+        cache[:, pos:pos + n].index_copy_(0, slot.reshape(1), new)
+        return
+    if not isinstance(pos, torch.Tensor):
+        p = int(pos)
         cache[:, p:p + n] = new
         return
-    off = off.to(cache.device)
-    rows = off[:, None] + torch.arange(n, device=cache.device)[None, :]
+    rows = _as_pos_vec(pos, cache.device)[:, None] + torch.arange(
+        n, device=cache.device)
     batch = torch.arange(cache.shape[0], device=cache.device)[:, None]
     cache[batch, rows] = new
 
 
 def cache_update(c: Dict[str, torch.Tensor], k: torch.Tensor,
-                 v: torch.Tensor, pos) -> Dict[str, torch.Tensor]:
-    """Write fresh K/V rows into the cache entry at ``pos``, in place,
-    quantized when the entry is int8; the one write path of decode, prefill
-    and span scoring."""
+                 v: torch.Tensor, pos,
+                 slot: Optional[torch.Tensor] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """Write fresh K/V rows into the cache entry at ``pos`` (and ``slot``,
+    as :func:`_cache_write` takes them), in place, quantized when the entry
+    is int8; the one write path of decode, prefill and span scoring."""
     if "ks" in c:
         k, ks = _quantize_kv(k)
         v, vs = _quantize_kv(v)
-        _cache_write(c["ks"], ks, pos)
-        _cache_write(c["vs"], vs, pos)
-    _cache_write(c["k"], k, pos)
-    _cache_write(c["v"], v, pos)
+        _cache_write(c["ks"], ks, pos, slot)
+        _cache_write(c["vs"], vs, pos, slot)
+    _cache_write(c["k"], k, pos, slot)
+    _cache_write(c["v"], v, pos, slot)
     return c
 
 
@@ -172,15 +183,17 @@ def _layer_prefill(x: torch.Tensor, layer: Dict[str, torch.Tensor], c,
                    cfg: ModelConfig, attn_fn,
                    tp: Optional[Axis] = None,
                    ep: Optional[Axis] = None,
-                   fsdp: Optional[Axis] = None) -> torch.Tensor:
+                   fsdp: Optional[Axis] = None,
+                   slot: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Prefill layer: attention over the prompt through the configured
     implementation (the flash kernel when cfg.attn == 'flash'), K/V
-    recorded into the cache from position 0. Attention takes the FRESH
-    K/V, so an int8 cache's error enters only at later cached reads."""
+    recorded into the cache from position 0 (into batch row ``slot`` when
+    given). Attention takes the FRESH K/V, so an int8 cache's error enters
+    only at later cached reads."""
     layer = _gather_fsdp(layer, cfg, fsdp)
     h = _rmsnorm(x, layer["ln_attn"])
     q, k, v = _qkv(h, layer, cfg, tp=tp)
-    cache_update(c, k, v, 0)
+    cache_update(c, k, v, 0, slot)
     return _finish_block(x, layer, attn_fn(q, k, v), cfg, dropless=True,
                          tp=tp, moe=ExpertAxes(ep))[0]
 
@@ -188,18 +201,22 @@ def _layer_prefill(x: torch.Tensor, layer: Dict[str, torch.Tensor], c,
 def prefill(params: Params, cache: KVCache, tokens: torch.Tensor,
             cfg: ModelConfig, tp: Optional[Axis] = None,
             ep: Optional[Axis] = None,
-            fsdp: Optional[Axis] = None) -> Tuple[torch.Tensor, KVCache]:
+            fsdp: Optional[Axis] = None,
+            slot: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, KVCache]:
     """Run the prompt (b, s), filling the cache from position 0. Returns
     (logits (b, s, vocab), cache). ``tp``: the tensor-parallel axis of
     sharded ``params`` and a cache from ``init_kv_cache(..., tp=tp)``; the
     logits are whole on every rank. ``ep``: the expert-parallel axis of
     sharded MoE ``params``. ``fsdp``: the fully-sharded axis of ``params``
-    (the cache is whole over it)."""
+    (the cache is whole over it). ``slot``: for a one-row prompt (1, s), the
+    cache's batch row to fill, a device index (the serving engine's arena
+    and its slot prefill program)."""
     params = cast_params_for_compute(params, cfg)
     x = embed(params, tokens, tp, cfg, fsdp)
     attn_fn = _resolve_attn_fn(cfg)
     for layer, c in zip(params["layers"], cache):
-        x = _layer_prefill(x, layer, c, cfg, attn_fn, tp, ep, fsdp)
+        x = _layer_prefill(x, layer, c, cfg, attn_fn, tp, ep, fsdp, slot)
     return (unembed(params, _rmsnorm(x, params["ln_f"]), cfg, tp, fsdp),
             cache)
 
@@ -267,6 +284,27 @@ def sample_token(logits: torch.Tensor,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+def _greedy_step(params: Params, cache: KVCache, tok: torch.Tensor,
+                 pos: torch.Tensor, out: torch.Tensor, s0: int,
+                 cfg: ModelConfig, tp: Optional[Axis] = None) -> Program:
+    """One greedy decode step as a :class:`Program` over device state: feed
+    ``tok`` (b,) at row ``pos`` (0-d), write the argmax into ``tok`` and
+    into column ``pos - s0 + 1`` of ``out`` (b, steps + 1), then advance
+    ``pos``, all on the device: replayed once a token, the counterpart of
+    the reference's ``lax.scan`` body. ``tok`` and ``pos`` are its inputs.
+    Captured on the card, called as it is on the CPU or under ``tp`` (whose
+    collectives a graph cannot hold under gloo)."""
+    def body():
+        logits, _ = decode_step(params, cache, tok, pos, cfg, tp)
+        nxt = torch.argmax(logits, dim=-1)
+        tok.copy_(nxt)
+        out.index_copy_(1, (pos - (s0 - 1)).reshape(1), nxt[:, None])
+        pos.add_(1)
+
+    return Program(body, {"tok": tok, "pos": pos},
+                   graphed=tok.device.type == "cuda" and tp is None)
+
+
 @torch.no_grad()
 def sample(params: Params, prompt: torch.Tensor, cfg: ModelConfig,
            steps: int, generator: Optional[torch.Generator] = None,
@@ -277,7 +315,12 @@ def sample(params: Params, prompt: torch.Tensor, cfg: ModelConfig,
     ``tp``: the tensor-parallel axis of sharded ``params`` (every rank of
     it calls together); a sampled token is tp rank 0's draw, broadcast, so
     the ranks feed the same token even where their generators would
-    not draw alike."""
+    not draw alike.
+
+    Greedy decoding replays one captured step (:func:`_greedy_step`) per
+    token, with the token, the position and the output kept on the card.
+    Sampling (temperature > 0, a ``torch.Generator``) runs its steps
+    eagerly: each step's draw is a call of its own."""
     params = cast_params_for_compute(params, cfg)
     b, s0 = prompt.shape
     cache = init_kv_cache(cfg, b, s0 + steps, device=prompt.device, tp=tp)
@@ -289,6 +332,19 @@ def sample(params: Params, prompt: torch.Tensor, cfg: ModelConfig,
 
     logits, cache = prefill(params, cache, prompt, cfg, tp)
     tok = draw(logits[:, s0 - 1])
+    if temperature == 0.0:
+        out = torch.empty((b, steps + 1), dtype=torch.long,
+                          device=prompt.device)
+        out[:, 0] = tok
+        pos = torch.full((), s0, dtype=torch.long, device=prompt.device)
+        step = _greedy_step(params, cache, tok.clone(), pos, out, s0, cfg,
+                            tp)
+        if steps:
+            step.capture()
+        for t in range(steps):
+            # the capture's warm-up took one step: the first call rewinds
+            step(**({"tok": tok, "pos": s0} if t == 0 else {}))
+        return out
     toks = [tok]
     for t in range(steps):
         logits, cache = decode_step(params, cache, tok, s0 + t, cfg, tp)

@@ -422,7 +422,9 @@ def measure_decode(cfg: ModelConfig, batch: int, prompt_len: int = 128,
                    device=None) -> Tuple[float, int]:
     """Decode throughput (tokens/s across the batch) of greedy
     ``decode.generate``, slope-timed between runs of k1 and k2 decode steps
-    so the prefill and the fence cancel. Returns (tokens_per_s, mean_ctx),
+    so the prefill, the step program's capture and the fence cancel (on the
+    card each step is one replay of a CUDA graph, as the reference times
+    its one jitted program). Returns (tokens_per_s, mean_ctx),
     mean_ctx the mean live context over the slope window, from the same
     prompt_len, k1 and k2."""
     device = resolve_device(device)

@@ -37,6 +37,17 @@ is rank 0's of the model group (ep × tp), broadcast; fsdp and the
 replica axes compute identical logits with identically seeded
 generators, so their ranks decide alike with no broadcast.
 
+Each step of the engine is a program, the counterpart of the reference's
+jitted builders (``_build_decode_tick``, ``_build_prefill_slot`` a
+prompt bucket, ``_build_draft_tick`` and ``_build_verify_span``): a body
+over static buffers with the arena written in place (:mod:`.program`).
+On the card an engine with no mesh captures each as a CUDA graph, at
+``warmup()`` or at first use, and replays it on every tick, admission and
+greedy round; the cursors it takes stay on the card through the step. On
+the CPU, and on an engine over a mesh, whose collectives stage through the
+host under gloo, the bodies run as they are. The chunk program, prefix
+registration and insertion and the sampled speculative round run eagerly.
+
 Pad keys land at positions >= the prompt's true length, which the causal
 cursor masks until the decode step overwrites them. Idle slots decode
 garbage at their stale cursor; the host discards it.
@@ -45,6 +56,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -57,10 +69,12 @@ from .decode import (KVCache, cache_update, decode_step, draft_rollout,
                      probs_from_adjusted, sample_token,
                      sampling_draft_rollout, score_span, upload_pos)
 from .mesh import MODEL_AXES, broadcast
+from .program import Program
 from .spec_decode import accept_span, round_uniforms
-from .workload import (ModelConfig, Params, check_mesh_axes, param_shapes,
-                       param_specs, resolve_device, shard_leaf, shard_shape,
-                       tree_leaves, tree_map)
+from .workload import (ModelConfig, Params, cast_params_for_compute,
+                       check_mesh_axes, param_shapes, param_specs,
+                       resolve_device, shard_leaf, shard_shape, tree_leaves,
+                       tree_map)
 
 
 @dataclasses.dataclass
@@ -92,15 +106,76 @@ def _slot_view(cache: KVCache, slot: int) -> KVCache:
     return [{n: t[slot:slot + 1] for n, t in c.items()} for c in cache]
 
 
-def _prefill_slot(params: Params, cache: KVCache, prompt: torch.Tensor,
-                  slot: int, true_len: int, cfg: ModelConfig,
-                  tp=None, ep=None, fsdp=None) -> torch.Tensor:
-    """Prefill one padded prompt (bucket,) into ``slot``'s rows with the
-    configured attention; returns the next-token logits (vocab,) of the
-    last real prompt position."""
-    logits, _ = prefill(params, _slot_view(cache, slot), prompt[None], cfg,
-                        tp, ep, fsdp)
-    return logits[0, true_len - 1]
+def _build_prefill_slot(params: Params, cache: KVCache, cfg: ModelConfig,
+                        bucket: int, axes, program) -> Program:
+    """The slot prefill of one prompt bucket: the padded prompt (bucket,),
+    ``slot`` and ``true_len`` (device scalars) in; the next-token logits
+    (vocab,) of the last real prompt position out, picked on the device.
+    The prompt's K/V go into the slot's arena rows through a device index
+    (int8 scale planes included); attention is the configured one, so the
+    flash kernel runs inside the program."""
+    device = cache[0]["k"].device
+    prompt = torch.zeros(bucket, dtype=torch.long, device=device)
+    slot = torch.zeros((), dtype=torch.long, device=device)
+    true_len = torch.ones((), dtype=torch.long, device=device)
+
+    def body():
+        logits, _ = prefill(params, cache, prompt[None], cfg, *axes,
+                            slot=slot)
+        return logits[0].index_select(0, (true_len - 1).reshape(1))[0]
+
+    return program(body, {"prompt": prompt, "slot": slot,
+                          "true_len": true_len})
+
+
+def _build_decode_tick(params: Params, cache: KVCache, cfg: ModelConfig,
+                       slots: int, axes, program) -> Program:
+    """One lock-step decode over the arena, ``decode.decode_step`` itself:
+    ``tokens`` (slots,) and ``pos`` (slots,) in, logits (slots, vocab) out.
+    Idle slots decode garbage at their stale cursor, as in the
+    reference."""
+    device = cache[0]["k"].device
+    tokens = torch.zeros(slots, dtype=torch.long, device=device)
+    pos = torch.zeros(slots, dtype=torch.long, device=device)
+
+    def body():
+        return decode_step(params, cache, tokens, pos, cfg, *axes)[0]
+
+    return program(body, {"tokens": tokens, "pos": pos})
+
+
+def _build_draft_tick(params: Params, cache: KVCache, cfg: ModelConfig,
+                      slots: int, k: int, axes, program) -> Program:
+    """A greedy round's draft phase, ``decode.draft_rollout`` over the
+    draft arena: ``feed2`` (slots, 2), each slot's tokens at rows pos - 1
+    and pos, and ``pos`` (slots,) in; proposals (slots, k) out. All k
+    draft steps are one program. ``pos`` starts at 1, the least cursor a
+    round sends."""
+    device = cache[0]["k"].device
+    feed2 = torch.zeros((slots, 2), dtype=torch.long, device=device)
+    pos = torch.ones(slots, dtype=torch.long, device=device)
+
+    def body():
+        return draft_rollout(params, cache, feed2, pos - 1, cfg, k, *axes)[0]
+
+    return program(body, {"feed2": feed2, "pos": pos})
+
+
+def _build_verify_span(params: Params, cache: KVCache, cfg: ModelConfig,
+                       slots: int, k: int, axes, program) -> Program:
+    """A greedy round's verification, ``decode.score_span`` over the
+    target arena: ``scored`` (slots, k + 1), each slot's next token and
+    proposals, and ``pos`` (slots,) in; the target's argmax (slots, k + 1)
+    out."""
+    device = cache[0]["k"].device
+    scored = torch.zeros((slots, k + 1), dtype=torch.long, device=device)
+    pos = torch.ones(slots, dtype=torch.long, device=device)
+
+    def body():
+        logits, _ = score_span(params, cache, scored, pos, cfg, *axes)
+        return torch.argmax(logits, dim=-1)
+
+    return program(body, {"scored": scored, "pos": pos})
 
 
 def _own_shards(params: Params, cfg: ModelConfig, mesh) -> Params:
@@ -133,7 +208,12 @@ class ServeEngine:
     ``spec_k`` proposals. Runs on the CUDA card unless ``device="cpu"``;
     ``params`` and ``draft_params`` must already be there. With ``mesh``
     (axes in slice, dp, fsdp, sp, pp, ep and tp; see the module docstring)
-    it runs on ``mesh.device`` and takes the full weights from anywhere."""
+    it runs on ``mesh.device`` and takes the full weights from anywhere.
+
+    The decode tick, the slot prefills and the greedy round are programs
+    (see the module docstring): captured as CUDA graphs on the card unless
+    the engine has a mesh, whose collectives stage through the host, and
+    then run as they are, as on the CPU."""
 
     def __init__(self, params: Params, cfg: ModelConfig, *,
                  slots: int = 8, max_seq: int = 1024,
@@ -249,6 +329,17 @@ class ServeEngine:
                 draft_params = _own_shards(draft_params, draft_cfg, mesh)
         self.params = params
         self.cfg = cfg
+        # the programs take weights in the compute dtype, cast once here: a
+        # cast inside a captured step would copy every weight each replay
+        self._weights = cast_params_for_compute(params, cfg)
+        self._draft_weights = (cast_params_for_compute(draft_params,
+                                                       draft_cfg)
+                               if draft_params is not None else None)
+        # graphs on the card, bodies elsewhere and over a mesh; chip_smoke.py
+        # sets it False on a card engine to drain through the bodies
+        self._graphs = self.device.type == "cuda" and mesh is None
+        self._programs: Dict[tuple, Program] = {}
+        self._pool = None
         self.slots = slots
         self.max_seq = max_seq
         self.prompt_buckets = buckets
@@ -381,12 +472,14 @@ class ServeEngine:
         # id again later leaves a queued request as it was validated
         self.queue.append((req, entry))
 
+    @torch.no_grad()
     def warmup(self) -> None:
-        """Requests through the real path, then reset the metric counters:
-        monolithic, one full-length request per bucket (the first generates
-        2 tokens so the decode tick runs too); chunked, one full-bucket
-        request that generates 2. ``prefills`` is not reset: it counts every
-        prefill the engine ran."""
+        """Requests through the real path, then every program the engine
+        runs captured (the counterpart of the reference's compile), then
+        the metric counters reset: monolithic, one full-length request per
+        bucket (the first generates 2 tokens so the decode tick runs too);
+        chunked, one full-bucket request that generates 2. ``prefills`` is
+        not reset: it counts every prefill the engine ran."""
         if self.chunk_prefill is not None:
             # one chunk program serves every bucket and chunk offset
             warm = [(self.prompt_bucket, 2)]
@@ -399,10 +492,60 @@ class ServeEngine:
                                 max_new_tokens=min(new_tokens,
                                                    self.max_seq - bucket)))
             self.run_until_drained()
+        # the reference compiles every program here: capture the ones the
+        # requests left out (a bucket's draft prefill, the round's programs
+        # of a draft engine); the arena is idle, so their warm-up writes are
+        # never read
+        for key in self._program_keys():
+            self._program(key).capture()
         self.completions.clear()
         self.tick_count = 0
         self.decode_tokens = 0
         self.spec_stats = {"rounds": 0, "drafted": 0, "accepted": 0}
+
+    # -- programs -------------------------------------------------------------
+
+    def _program_keys(self) -> List[tuple]:
+        """Every program this engine's configuration runs."""
+        keys: List[tuple] = []
+        if self.chunk_prefill is None:
+            keys += [("prefill", b, False) for b in self.prompt_buckets]
+        if self.draft_params is None:
+            return keys + [("decode",)]
+        keys += [("prefill", b, True) for b in self.prompt_buckets]
+        if self.temperature == 0.0:
+            keys += [("draft",), ("verify",)]
+        return keys
+
+    def _program(self, key: tuple) -> Program:
+        """The program ``key`` (``_program_keys``), built at first use; on
+        the card all of them share one graph memory pool."""
+        prog = self._programs.get(key)
+        if prog is not None:
+            return prog
+        if self._graphs and self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        program = functools.partial(Program, graphed=self._graphs,
+                                    pool=self._pool)
+        axes = (self._tp, self._ep, self._fsdp)
+        if key[0] == "prefill":
+            _, bucket, draft = key
+            prog = _build_prefill_slot(
+                self._draft_weights if draft else self._weights,
+                self.draft_cache if draft else self.cache,
+                self.draft_cfg if draft else self.cfg, bucket, axes, program)
+        elif key[0] == "decode":
+            prog = _build_decode_tick(self._weights, self.cache, self.cfg,
+                                      self.slots, axes, program)
+        elif key[0] == "draft":
+            prog = _build_draft_tick(self._draft_weights, self.draft_cache,
+                                     self.draft_cfg, self.slots, self.spec_k,
+                                     axes, program)
+        else:
+            prog = _build_verify_span(self._weights, self.cache, self.cfg,
+                                      self.slots, self.spec_k, axes, program)
+        self._programs[key] = prog
+        return prog
 
     # -- engine loop ----------------------------------------------------------
 
@@ -432,10 +575,8 @@ class ServeEngine:
             bucket = next(b for b in self.prompt_buckets if b >= true_len)
             padded = np.zeros(bucket, dtype=np.int64)
             padded[:true_len] = req.prompt
-            padded = torch.from_numpy(padded).to(self.device)
-            first_logits = _prefill_slot(self.params, self.cache, padded,
-                                         slot, true_len, self.cfg, self._tp,
-                                         self._ep, self._fsdp)
+            first_logits = self._program(("prefill", bucket, False))(
+                prompt=padded, slot=slot, true_len=true_len)
             self.prefills += 1
             tok = self._first_token(req.rid, first_logits, true_len, slot)
             self.slot_prefix[slot] = 0
@@ -448,9 +589,8 @@ class ServeEngine:
                 # the draft arena mirrors the admission only after the
                 # finish check: a request done at admission never reaches a
                 # speculative round
-                _prefill_slot(self.draft_params, self.draft_cache, padded,
-                              slot, true_len, self.draft_cfg, self._tp,
-                              self._ep, self._fsdp)
+                self._program(("prefill", bucket, True))(
+                    prompt=padded, slot=slot, true_len=true_len)
                 self.draft_prefills += 1
 
     def _advance_prefills(self) -> None:
@@ -530,20 +670,20 @@ class ServeEngine:
         self.req[slot] = None
         self.generated[slot] = []
 
-    def _round_positions(self) -> Tuple[np.ndarray, torch.Tensor]:
-        """The cursors a speculative round sends to the device, on the host
-        and uploaded once. A never-used slot sits at pos 0, and its draft
-        feed would land on row -1, which advanced indexing takes as the
-        arena's LAST row (the reference clamps); so the device sees
-        max(pos, 1), and ``self.pos`` is unchanged. Every row a round writes
-        (pos - 1 .. pos + spec_k) is checked on the host to lie in the
-        arena before anything is uploaded."""
+    def _round_positions(self) -> np.ndarray:
+        """The cursors a speculative round sends to the device, on the
+        host. A never-used slot sits at pos 0, and its draft feed would land
+        on row -1, which advanced indexing takes as the arena's LAST row
+        (the reference clamps); so the device sees max(pos, 1), and
+        ``self.pos`` is unchanged. Every row a round writes (pos - 1 ..
+        pos + spec_k) is checked on the host to lie in the arena before
+        anything is copied to the device."""
         pos = np.maximum(self.pos, 1)
         if (pos + self.spec_k + 1 > self.max_seq).any():
             raise RuntimeError(f"speculative round would write past the "
                                f"arena: cursors {pos.tolist()}, spec_k "
                                f"{self.spec_k}, max_seq {self.max_seq}")
-        return pos, upload_pos(pos, self.device)
+        return pos
 
     def _count_round(self) -> None:
         # before the slots are booked, so a completion's finished_tick is
@@ -579,20 +719,17 @@ class ServeEngine:
         proposes spec_k tokens; the target scores next_tok and the
         proposals, spec_k + 1 rows, in one span; each slot keeps its
         proposals while they equal the target's argmax. Two reads to the
-        host: the proposals and the target's argmax."""
+        host: the proposals and the target's argmax. The draft's k steps are
+        one program and the span another (``_build_draft_tick``,
+        ``_build_verify_span``)."""
         k = self.spec_k
-        pos, pos_dev = self._round_positions()
-        feed2 = torch.from_numpy(
-            np.stack([self.prev_tok, self.next_tok], axis=1)).to(self.device)
-        proposals_dev, _ = draft_rollout(self.draft_params, self.draft_cache,
-                                         feed2, pos_dev - 1, self.draft_cfg,
-                                         k, self._tp, self._ep, self._fsdp)
-        proposals_dev = self._agree(proposals_dev)
-        proposals = proposals_dev.cpu().numpy()              # (slots, k)
-        scored = torch.cat([feed2[:, 1:], proposals_dev], dim=1)
-        logits, _ = score_span(self.params, self.cache, scored, pos_dev,
-                               self.cfg, self._tp, self._ep, self._fsdp)
-        t_arg = self._agree(torch.argmax(logits, dim=-1)).cpu().numpy()
+        pos = self._round_positions()
+        proposals = self._agree(self._program(("draft",))(
+            feed2=np.stack([self.prev_tok, self.next_tok], axis=1),
+            pos=pos)).cpu().numpy()                          # (slots, k)
+        scored = np.concatenate([self.next_tok[:, None], proposals], axis=1)
+        t_arg = self._agree(self._program(("verify",))(
+            scored=scored, pos=pos)).cpu().numpy()
         self._count_round()
         for s in active:
             span = proposals[s]
@@ -611,7 +748,8 @@ class ServeEngine:
         drawn from the slot's key. Each request's tokens equal solo
         ``spec_decode.speculative_sample`` with its key."""
         k = self.spec_k
-        pos, pos_dev = self._round_positions()
+        pos = self._round_positions()
+        pos_dev = upload_pos(pos, self.device)
         feed2 = torch.from_numpy(
             np.stack([self.prev_tok, self.next_tok], axis=1)).to(self.device)
         proposals, p_mat, _ = sampling_draft_rollout(
@@ -668,11 +806,8 @@ class ServeEngine:
                 self._tick_speculative(active)
             return len(active)
         # one lock-step decode over the whole arena, idle slots included
-        logits, _ = decode_step(
-            self.params, self.cache,
-            torch.from_numpy(self.next_tok).to(self.device),
-            torch.from_numpy(self.pos).to(self.device), self.cfg, self._tp,
-            self._ep, self._fsdp)
+        logits = self._program(("decode",))(tokens=self.next_tok,
+                                            pos=self.pos)
         if self.request_keyed:
             # the token drawn now occupies row pos + 1 of its slot, the row
             # the solo position-keyed sampler keys

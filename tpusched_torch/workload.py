@@ -33,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import numbers
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -238,14 +239,23 @@ def _rmsnorm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _as_pos_vec(pos, device) -> torch.Tensor:
     """A scalar position (training, uniform decode) or a (b,) vector
-    (continuous batching) as a rank-1 tensor that broadcasts over batch."""
-    off = torch.as_tensor(pos, device=device)
+    (continuous batching) as a rank-1 tensor that broadcasts over batch. A
+    tensor is taken as it is, on its own device (a decode program's cursor
+    stays there: nothing is uploaded or read back); an int is filled in on
+    ``device``, which a CUDA graph can record where an upload it cannot."""
+    if isinstance(pos, torch.Tensor):
+        off = pos
+    elif isinstance(pos, numbers.Integral):
+        off = torch.full((), int(pos), dtype=torch.long, device=device)
+    else:
+        off = torch.as_tensor(pos, device=device)
     return off[None] if off.ndim == 0 else off
 
 
 def _rotary(x: torch.Tensor, pos_offset=0) -> torch.Tensor:
     """Half-split rotary embedding over the head dim; ``pos_offset`` is a
-    scalar or a (b,) vector of absolute start positions."""
+    scalar (an int, or a 0-d tensor) or a (b,) tensor of absolute start
+    positions."""
     b, s, h, hd = x.shape
     half = hd // 2
     off = _as_pos_vec(pos_offset, x.device)
