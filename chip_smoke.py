@@ -212,14 +212,36 @@ Phases, in order; any failure raises and the script exits non-zero:
     verify span replay == body, equal streams and stats, round 10 of each
     traced; one ``mixtral_like(seq=512)`` batch-8 decode step as
     ``generate``'s step program and as its body, traced and timed with
-    CUDA events; then phase 11's ``measure_decode`` step beside its bound.
+    CUDA events; then phase 11's ``measure_decode`` step beside its bound;
+36. the chunk, prefix and sampled-round programs and solo speculation's
+    rounds, which phases 12, 13, 17-19 now also run captured: on a
+    chunked engine serving 6 of phase 3's requests, the chunk program's
+    replay == its body at offsets 0, 256 and 768 of slots 1 and 6, phase
+    13's 300-token prefix registered (K1 12 through the K/V program's
+    replay) with its K/V program and, at a tenant's admission, its insert
+    program replay == body, then 32 chunk and 32 insert replays under
+    ``set_sync_debug_mode("error")``; phase 12's drain and phase 13's
+    three SLO runs through the engines' bodies, every stream equal to the
+    graphed run's (K1 0 and 408 / 0 / 12), the chunked tick traced as
+    phase 12 traced it; the request-keyed sampled speculative engine
+    (phase 18's sampling, k 4, phase 3's first 8 requests) with
+    ``llama_like`` and with a self-draft, graphed and through its bodies:
+    the draft ingest, step and verify span replay == body, identical
+    streams and stats, round 10 of each traced; solo speculation
+    (``llama_like`` draft, phase 17's prompt, 63 steps): each round
+    program replay == body, and ``speculative_generate`` and
+    ``speculative_sample`` graphed == through their bodies (the private
+    ``spec_decode._program_factory`` swapped for one that builds
+    programs with ``graphed=False``); chunked tokens/s (phase 12) printed
+    beside plain (phase 3).
 
 The second-to-last line is the ``kernels`` JSON object (each kernel also
 with ``ring_launches`` from phase 24, ``ring_shape`` times,
 ``pp_launches`` from phases 27 and 28, ``ckpt_launches`` from phase 29,
 ``pp_fsdp_launches`` from phase 33 and ``dryrun_launches`` from phase 34,
 K1 ``handoff_launches`` from phase 30, ``fsdp_serving_launches`` from
-phase 32 and ``graphed_launches`` from phase 35), the last line the ``ok``
+phase 32 and ``graphed_launches`` from phases 13, 35 and 36), the last
+line the ``ok``
 JSON object. Imports neither JAX nor
 the JAX package.
 
@@ -230,7 +252,9 @@ DIR) and of this one in turns on the card (:func:`ab`) and runs no phase.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -1101,6 +1125,32 @@ def traced(fn, label: str) -> dict:
     return trace_summary(prof, label, wall, unprofiled)
 
 
+def drain_chunked(eng, label):
+    """Drain a chunked engine tick by tick, each tick timed (fenced) with
+    the chunk programs it runs, except the first tick from the tenth on
+    with slots both prefilling and decoding, which is traced
+    (:func:`trace_summary`). Returns the trace and the (chunk programs,
+    wall s) of every other tick."""
+    tick_s, trace = [], None
+    while eng.queue or any(r is not None for r in eng.req):
+        # a tick runs one chunk for each slot prefilling after admission
+        chunks = (sum(o is not None for o in eng.prefill_off)
+                  + min(len(eng.queue), sum(r is None for r in eng.req)))
+        decoding = sum(r is not None and o is None
+                       for r, o in zip(eng.req, eng.prefill_off))
+        if trace is None and eng.tick_count >= 10 and chunks and decoding:
+            tick = eng.tick_count
+            with profiler() as prof:
+                wall = fenced_s(eng.tick)
+            trace = trace_summary(prof, label, wall, tick=tick,
+                                  prefilling=chunks, decoding=decoding)
+        else:
+            tick_s.append((chunks, fenced_s(eng.tick)))
+        check(eng.tick_count < 100_000, "chunked serving did not drain")
+    check(trace is not None, f"{label}: no tick mid-drain was traced")
+    return trace, tick_s
+
+
 def phase_chunked_serving(attention, serve, workload, mono):
     """Phase 3's traffic and geometry with chunk_prefill=256, driven as a
     user does and then through measure_serving: every request completes
@@ -1110,7 +1160,8 @@ def phase_chunked_serving(attention, serve, workload, mono):
     chunk programs it runs, to test the reference's claim that chunking
     bounds a tick near one chunk and the decode step; one tick mid-drain,
     with slots both prefilling and decoding, is traced (and left out of
-    those times). Prints beside phase 3's monolithic ``mono``."""
+    those times). Prints beside phase 3's monolithic ``mono``. Returns the
+    user's streams, the trace and measure_serving's numbers."""
     cfg = workload.ModelConfig.llama_like_big()
     params = seeded_params(workload, cfg)
     reqs = make_requests(cfg, serve)
@@ -1122,31 +1173,15 @@ def phase_chunked_serving(attention, serve, workload, mono):
     eng.warmup()
     for r in reqs:
         eng.submit(r)
-    tick_s, trace = [], None          # (chunk programs, wall s) per tick
-    while eng.queue or any(r is not None for r in eng.req):
-        # a tick runs one chunk for each slot prefilling after admission
-        chunks = (sum(o is not None for o in eng.prefill_off)
-                  + min(len(eng.queue), sum(r is None for r in eng.req)))
-        decoding = sum(r is not None and o is None
-                       for r, o in zip(eng.req, eng.prefill_off))
-        if trace is None and eng.tick_count >= 10 and chunks and decoding:
-            tick = eng.tick_count
-            with profiler() as prof:
-                wall = fenced_s(eng.tick)
-            trace = trace_summary(
-                prof, "llama_like_big chunked serving tick", wall, tick=tick,
-                prefilling=chunks, decoding=decoding)
-        else:
-            tick_s.append((chunks, fenced_s(eng.tick)))
-        check(eng.tick_count < 100_000, "chunked serving did not drain")
+    trace, tick_s = drain_chunked(eng, "llama_like_big chunked serving tick")
     done = eng.completions
     torch.cuda.synchronize()
     launches = attention.FLASH_FWD_LAUNCHES
     check(launches == 0, f"chunked serving launched the flash kernel "
           f"{launches} times; chunks attend through the cached attention")
     check(eng.prefills == 0, "chunked serving ran a monolithic prefill")
-    check(trace is not None, "no tick mid-drain was traced")
     check_completions(done, reqs, cfg.vocab, "chunked llama_like_big")
+    tokens = {c.rid: c.tokens for c in done}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     del eng
     attention.FLASH_FWD_LAUNCHES = 0
@@ -1170,6 +1205,7 @@ def phase_chunked_serving(attention, serve, workload, mono):
         "tick_s_by_chunk_programs": by_chunks,
         "monolithic": {**{k: mono["stats"][k] for k in keys},
                        "peak_mem_gib": mono["peak_mem_gib"]}}))
+    return dict(tokens=tokens, trace=trace, stats=stats)
 
 
 def slo_traffic(vocab: int):
@@ -1189,7 +1225,28 @@ def slo_traffic(vocab: int):
 SLO_TICKS = 16
 
 
-def phase_slo(attention, serve, workload):
+@contextlib.contextmanager
+def engines_built(serve, graphs=True):
+    """While open, ``serve.ServeEngine`` (which the harnesses build their
+    engines from) records every engine it builds in the list it yields;
+    ``graphs=False`` sets the private hook that makes a card engine call
+    its programs' bodies."""
+    built, base = [], serve.ServeEngine
+
+    class Recorded(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self._graphs = self._graphs and graphs
+            built.append(self)
+
+    serve.ServeEngine = Recorded
+    try:
+        yield built
+    finally:
+        serve.ServeEngine = base
+
+
+def phase_slo(attention, serve, workload, graphs=True):
     """measure_serving_slo on full-width llama_like_big with phase 13's
     traffic, three ways: (a) monolithic on the full prompts (prefix +
     suffix <= 940 < 1024), (b) chunk_prefill=256 on the full prompts, (c)
@@ -1197,8 +1254,9 @@ def phase_slo(attention, serve, workload):
     three serve the same count of tokens; (c) drains in fewer ticks than
     (b), with a TTFT p50 in ticks no higher; the flash kernel launches once a layer
     per monolithic prefill in (a) (32 admissions and warmup's 2 buckets),
-    never in (b), and only for the prefix's registration in (c). Returns
-    (c)'s launches."""
+    never in (b), and only for the prefix's registration in (c).
+    ``graphs=False`` runs the engines' program bodies (phase 36). Returns
+    the launches and each run's streams."""
     cfg = workload.ModelConfig.llama_like_big()
     params = seeded_params(workload, cfg)
     prefix, suffixes, gens, arrivals = slo_traffic(cfg.vocab)
@@ -1211,13 +1269,16 @@ def phase_slo(attention, serve, workload):
             "chunked": (full, dict(chunk_prefill=CHUNK), 0),
             "prefix": (suffixes, dict(chunk_prefill=CHUNK,
                                       prefix_tokens=prefix), cfg.n_layers)}
-    out, launches = {}, {}
+    out, launches, streams = {}, {}, {}
     for name, (prompts, kw, want) in runs.items():
         attention.FLASH_FWD_LAUNCHES = 0
-        out[name] = serve.measure_serving_slo(
-            cfg, params, requests(prompts), arrivals,
-            ttft_slo_ticks=SLO_TICKS, device="cuda", **SERVE_GEOMETRY, **kw)
+        with engines_built(serve, graphs) as built:
+            out[name] = serve.measure_serving_slo(
+                cfg, params, requests(prompts), arrivals,
+                ttft_slo_ticks=SLO_TICKS, device="cuda", **SERVE_GEOMETRY,
+                **kw)
         launches[name] = attention.FLASH_FWD_LAUNCHES
+        streams[name] = {c.rid: c.tokens for c in built[0].completions}
         check(launches[name] == want, f"SLO {name}: {launches[name]} flash "
               f"launches, wanted {want}")
     counts = {name: r["tokens"] for name, r in out.items()}
@@ -1228,10 +1289,10 @@ def phase_slo(attention, serve, workload):
           <= out["chunked"]["ttft_ticks_p50"],
           "the registered prefix did not help against chunked full prompts")
     print(json.dumps({
-        "slo": "llama_like_big", "requests": len(full),
+        "slo": "llama_like_big", "graphed": graphs, "requests": len(full),
         "prefix_tokens": len(prefix), "ttft_slo_ticks": SLO_TICKS,
         "chunk_prefill": CHUNK, "flash_launches": launches, **out}))
-    return launches["prefix"]
+    return launches, streams
 
 
 def phase_int8_serving(attention, serve, workload, exact, exact_decode,
@@ -3414,29 +3475,35 @@ def arena_equal(cache, state) -> bool:
 
 def replay_vs_body(attention, prog, cache, values, label) -> dict:
     """``prog`` run with ``values`` as a replay, then its body called
-    directly on the arena as it was: the output and the arena compared
-    bitwise; where they differ, the max |err| is printed and the argmax
-    must agree. The arena is left as it was and the launch counters as
-    they were."""
+    directly on the arena as it was: the output (where the program returns
+    one) and the arena compared bitwise; where they differ, the max |err|
+    is printed and the argmax must agree. The arena is left as it was and
+    the launch counters as they were."""
     counts = (attention.FLASH_FWD_LAUNCHES, attention.FLASH_BWD_DKDV_LAUNCHES,
               attention.FLASH_BWD_DQ_LAUNCHES)
     before = arena_copy(cache)
-    out_graph = prog(**values).clone()
+    out_graph = prog(**values)
+    none = torch.zeros(0)
+    out_graph = none if out_graph is None else out_graph.clone()
     after = arena_copy(cache)
     arena_restore(cache, before)
-    out_body = prog.body().clone()
+    out_body = prog.body()
+    out_body = none if out_body is None else out_body.clone()
     torch.cuda.synchronize()
     rec = {"program": label, "graphed": prog.graph is not None,
            "output_bitwise": torch.equal(out_graph, out_body),
            "arena_bitwise": arena_equal(cache, after)}
     check(rec["graphed"], f"{label}: the program was not captured")
     if not (rec["output_bitwise"] and rec["arena_bitwise"]):
-        rec["max_abs_err"] = float((out_graph.float() - out_body.float())
-                                   .abs().max())
         rec["arena_max_abs_err"] = max(
             float((t.float() - a[n].float()).abs().max())
             for c, a in zip(cache, after) for n, t in c.items())
         rec["note"] = REPLAY_NOTE
+        if not out_graph.numel():        # a copy: only its rows to compare
+            check(rec["arena_bitwise"], f"{label}: replay and body wrote "
+                  f"different rows: {rec}")
+        rec["max_abs_err"] = float((out_graph.float() - out_body.float())
+                                   .abs().max())
         if out_graph.is_floating_point():
             check(torch.equal(out_graph.argmax(-1), out_body.argmax(-1)),
                   f"{label}: replay and body disagree on the argmax: {rec}")
@@ -3661,6 +3728,299 @@ def phase_programs(attention, decode, serve, workload, mono,
             "decode_step": step, **summary}
 
 
+# -- the chunk, prefix and sampled-round programs (phase 36) ------------------
+
+SAMPLED = dict(temperature=0.8, top_p=0.95, seed=7, request_keyed=True)
+PHASE36_REQUESTS = 8         # phase 3's first 8: one arena's worth
+SOLO_STEPS = 63              # phase 17's prompt, half its steps
+
+
+def chunk_values(cfg, slot, off):
+    """A chunk program's inputs: seeded tokens at ``off`` of ``slot``, the
+    logits of chunk row 100 out."""
+    rng = np.random.default_rng(1000 * slot + off)
+    return {"chunk": rng.integers(0, cfg.vocab, CHUNK), "slot": slot,
+            "off": off, "last_row": 100}
+
+
+def programs_chunk_prefix(attention, serve, workload) -> dict:
+    """Phase 36a: on a chunked engine serving 6 of phase 3's requests, the
+    chunk program's replay == its body at offsets 0, 256 and 768 of slots
+    1 and 6; phase 13's 300-token prefix registered (K1 12, counted
+    through the K/V program's replay) and its K/V program's replay ==
+    body; a tenant of it admitted into a free slot, whose insert program
+    (captured there) replays == its body; then 32 replays each of the
+    chunk and the insert program under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    cfg = workload.ModelConfig.llama_like_big()
+    params = seeded_params(workload, cfg)
+    prefix, suffixes, gens, _ = slo_traffic(cfg.vocab)
+    eng = started_engine(serve, params, cfg, make_requests(cfg, serve)[:6],
+                         chunk_prefill=CHUNK)
+    chunk = eng._program(("chunk",))
+    recs = [replay_vs_body(attention, chunk, eng.cache,
+                           chunk_values(cfg, slot, off),
+                           f"chunk slot {slot} off {off}")
+            for slot in (1, 6) for off in (0, 256, 768)]
+    torch.cuda.synchronize()
+    attention.FLASH_FWD_LAUNCHES = 0
+    eng.register_prefix("phase36", prefix)
+    torch.cuda.synchronize()
+    registration = attention.FLASH_FWD_LAUNCHES
+    check(registration == cfg.n_layers, f"prefix registration: "
+          f"{registration} flash launches, wanted {cfg.n_layers}")
+    kv = eng._program(("prefix", len(prefix)))
+    recs.append(replay_vs_body(attention, kv, eng.cache,
+                               {"tokens": prefix}, "prefix_kv"))
+    eng.submit(serve.Request(rid=100, prompt=suffixes[0],
+                             max_new_tokens=gens[0], prefix_id="phase36"))
+    eng.tick()
+    slot = next(s for s, r in enumerate(eng.req)
+                if r is not None and r.rid == 100)
+    insert = eng._prefixes["phase36"]["insert"]
+    recs.append(replay_vs_body(attention, insert, eng.cache, {"slot": slot},
+                               "prefix_insert"))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(SYNC_FREE_REPLAYS):
+            chunk(**chunk_values(cfg, 1, CHUNK * (i % 4)))
+            insert(slot=slot)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out = {"comparisons": recs, "prefix_registration_launches": registration,
+           "sync_free_replays": {"chunk": SYNC_FREE_REPLAYS,
+                                 "prefix_insert": SYNC_FREE_REPLAYS}}
+    print(json.dumps({"programs": "llama_like_big chunked", **out}))
+    return out
+
+
+def programs_chunked_streams(attention, serve, workload, chunked,
+                             slo_streams) -> dict:
+    """Phase 36b: phase 12's traffic drained by a chunked engine whose
+    programs call their bodies, its tick traced as phase 12 traced the
+    graphed one, and phase 13's three SLO runs through the bodies: every
+    stream equal to the graphed run's, K1 0 chunked and 408 / 0 / 12 in
+    the SLO runs (``phase_slo`` holds those)."""
+    cfg = workload.ModelConfig.llama_like_big()
+    params = seeded_params(workload, cfg)
+    reqs = make_requests(cfg, serve)
+    attention.FLASH_FWD_LAUNCHES = 0
+    eng = serve.ServeEngine(params, cfg, chunk_prefill=CHUNK, device="cuda",
+                            **SERVE_GEOMETRY)
+    eng._graphs = False
+    eng.warmup()
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    trace, tick_s = drain_chunked(
+        eng, "llama_like_big chunked serving tick, eager bodies")
+    drain_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    check(attention.FLASH_FWD_LAUNCHES == 0,
+          "chunked bodies drain launched the flash kernel")
+    differ = [c.rid for c in eng.completions
+              if not np.array_equal(c.tokens, chunked["tokens"][c.rid])]
+    check_completions(eng.completions, reqs, cfg.vocab, "chunked bodies")
+    check(not differ, f"chunked streams {differ} differ between the graphed "
+          f"and the eager-bodies engine")
+    ticks = eng.tick_count
+    del eng
+    launches, streams = phase_slo(attention, serve, workload, graphs=False)
+    differ = {name: [rid for rid, t in run.items()
+                     if not np.array_equal(t, slo_streams[name][rid])]
+              for name, run in streams.items()}
+    check(not any(differ.values()), f"SLO streams differ between the "
+          f"graphed and the eager-bodies engines: {differ}")
+    return {"chunked_bodies": {
+        "trace": trace, "ticks": ticks,
+        "tokens_per_s": sum(r.max_new_tokens for r in reqs) / drain_s,
+        "median_tick_s": float(np.median([t for _, t in tick_s]))},
+        "slo_bodies_flash_launches": launches}
+
+
+def programs_sampled(attention, serve, workload) -> dict:
+    """Phase 36c: the request-keyed sampled speculative engine (phase 18's
+    sampling, spec_k 4) with ``llama_like`` as the draft and with a
+    self-draft, on phase 3's first 8 requests, graphed and through its
+    bodies: the draft ingest, the one-token step and the verify span
+    replay == body after three rounds (``llama_like`` draft), both drains
+    of each draft give identical streams and stats, K1 12 a target prefill
+    plus the draft's, round 10 of each drain traced."""
+    cfg = workload.ModelConfig.llama_like_big()
+    dcfg = workload.ModelConfig.llama_like()
+    params = seeded_params(workload, cfg)
+    drafts = {"llama_like": (seeded_params(workload, dcfg, seed=1), dcfg),
+              "self_draft": (params, cfg)}
+    reqs = make_requests(cfg, serve)[:PHASE36_REQUESTS]
+    out = {}
+    for name, (dp, dc) in drafts.items():
+        tokens = {}
+        for graphs in (True, False):
+            attention.FLASH_FWD_LAUNCHES = 0
+            eng = started_engine(serve, params, cfg, reqs, graphs,
+                                 draft_params=dp, draft_cfg=dc,
+                                 spec_k=SPEC_K, **SAMPLED)
+            kind = "graphed" if graphs else "eager bodies"
+            recs = []
+            if graphs and name == "llama_like":
+                rng = np.random.default_rng(36)
+                pos = eng._round_positions()
+                proposals = rng.integers(0, cfg.vocab, (len(pos), SPEC_K))
+                for key, cache, values in (
+                        ("draft_ingest", eng.draft_cache, {
+                            "tokens": np.stack([eng.prev_tok, eng.next_tok],
+                                               axis=1), "pos": pos - 1}),
+                        ("draft_step", eng.draft_cache, {
+                            "tokens": proposals[:, :1], "pos": pos + 1}),
+                        ("verify_sampled", eng.cache, {
+                            "tokens": np.concatenate(
+                                [eng.next_tok[:, None], proposals], axis=1),
+                            "pos": pos})):
+                    recs.append(replay_vs_body(attention, eng._program((key,)),
+                                               cache, values, key))
+            trace, drain_s = drain_traced(
+                eng, f"llama_like_big sampled speculative round, {name}, "
+                f"{kind}", "cuda")
+            torch.cuda.synchronize()
+            check_completions(eng.completions, reqs, cfg.vocab,
+                              f"sampled {name} {kind}")
+            check(attention.FLASH_FWD_LAUNCHES == cfg.n_layers * eng.prefills
+                  + flash_layers(dc) * eng.draft_prefills,
+                  f"sampled {name} {kind}: flash launches")
+            tokens[kind] = {c.rid: c.tokens for c in eng.completions}
+            out[f"{name} {kind}"] = {
+                "comparisons": recs, "spec_stats": dict(eng.spec_stats),
+                "rounds": eng.tick_count,
+                "round_ms": 1e3 * drain_s / (eng.tick_count - PROGRAM_TICKS
+                                             - 1),
+                "trace": trace}
+            del eng
+        differ = [rid for rid, t in tokens["graphed"].items()
+                  if not np.array_equal(t, tokens["eager bodies"][rid])]
+        check(not differ, f"sampled {name} streams {differ} differ between "
+              f"the graphed and the eager engine")
+        check(out[f"{name} graphed"]["spec_stats"]
+              == out[f"{name} eager bodies"]["spec_stats"],
+              f"sampled {name}: stats differ between graphed and eager")
+    return out
+
+
+def programs_solo(attention, decode, spec_decode, workload) -> dict:
+    """Phase 36d: solo speculation, ``llama_like_big`` with ``llama_like``
+    as the draft, phase 17's 64-token prompt: each round program (the
+    greedy draft of a 1- and a 2-row feed, the greedy span, the sampled
+    ingest of 1 and 2 rows, step and span) replay == body after the
+    prefills; then ``speculative_generate`` and ``speculative_sample``
+    (2024, temperature 0.8, top_p 0.95) for 63 steps, graphed and through
+    their bodies (``spec_decode._program_factory`` replaced by one that
+    builds programs with ``graphed=False``): equal tokens and stats, K1
+    12 + 0 a call, seconds each."""
+    from tpusched_torch.program import Program
+    cfg = workload.ModelConfig.llama_like_big()
+    dcfg = workload.ModelConfig.llama_like()
+    params = seeded_params(workload, cfg)
+    dparams = seeded_params(workload, dcfg, seed=1)
+    prompt_np = np.random.default_rng(17).integers(0, cfg.vocab, 64)
+    prompt = torch.as_tensor(prompt_np, device="cuda")[None].long()
+    caches = {}
+    for name, (p, c) in (("target", (params, cfg)), ("draft", (dparams,
+                                                              dcfg))):
+        caches[name] = decode.init_kv_cache(c, 1, 64 + SOLO_STEPS + 8,
+                                            "cuda")
+        decode.prefill(p, caches[name], prompt, c)
+    program = functools.partial(Program, graphed=True,
+                                pool=torch.cuda.graph_pool_handle())
+    sampling = (0.8, 0, 0.95)
+    rng = np.random.default_rng(37)
+    feed = rng.integers(0, cfg.vocab, (1, 2))
+    span = rng.integers(0, cfg.vocab, (1, SPEC_K + 1))
+    progs = [("greedy_draft_1", spec_decode._greedy_draft_program(
+                 dparams, caches["draft"], dcfg, 1, SPEC_K, program),
+              "draft", {"feed": feed[:, :1], "pos": 64}),
+             ("greedy_draft_2", spec_decode._greedy_draft_program(
+                 dparams, caches["draft"], dcfg, 2, SPEC_K, program),
+              "draft", {"feed": feed, "pos": 63}),
+             ("greedy_span", spec_decode._greedy_span_program(
+                 params, caches["target"], cfg, SPEC_K, program),
+              "target", {"scored": span, "pos": 64})]
+    for width in (1, 2):
+        progs.append((f"sampled_ingest_{width}", decode._adjusted_span_program(
+            dparams, caches["draft"], dcfg, (1, width), sampling, program),
+            "draft", {"tokens": feed[:, :width], "pos": [65 - width]}))
+    progs.append(("sampled_step", decode._adjusted_span_program(
+        dparams, caches["draft"], dcfg, (1, 1), sampling, program), "draft",
+        {"tokens": feed[:, :1], "pos": [65]}))
+    progs.append(("sampled_span", decode._adjusted_span_program(
+        params, caches["target"], cfg, (1, SPEC_K + 1), sampling, program,
+        last=False), "target", {"tokens": span, "pos": [64]}))
+    recs = [replay_vs_body(attention, prog, caches[which], values, label)
+            for label, prog, which, values in progs]
+    del progs, caches
+    runs, factory = {}, spec_decode._program_factory
+    for graphs in (True, False):
+        if not graphs:
+            spec_decode._program_factory = lambda device: functools.partial(
+                Program, graphed=False)
+        try:
+            for fn, args in (("generate", ()), ("sample", (2024,))):
+                call = getattr(spec_decode, f"speculative_{fn}")
+                kw = ({"temperature": 0.8, "top_p": 0.95} if fn == "sample"
+                      else {})
+                attention.FLASH_FWD_LAUNCHES = 0
+                (toks, stats), elapsed = timed(lambda: call(
+                    params, cfg, dparams, dcfg, prompt, SOLO_STEPS, *args,
+                    k=SPEC_K, **kw), "cuda")
+                check(attention.FLASH_FWD_LAUNCHES == flash_layers(cfg)
+                      + flash_layers(dcfg), f"speculative_{fn}: flash "
+                      f"launches")
+                runs[(fn, graphs)] = (toks, stats, elapsed)
+        finally:
+            spec_decode._program_factory = factory
+    out = {"comparisons": recs}
+    for fn in ("generate", "sample"):
+        (a, sa, ta), (b, sb, tb) = runs[(fn, True)], runs[(fn, False)]
+        check(np.array_equal(a, b) and sa == sb, f"speculative_{fn}: the "
+              f"graphed and the eager-bodies call differ")
+        out[f"speculative_{fn}"] = {"stats": sa, "graphed_s": ta,
+                                    "eager_bodies_s": tb}
+    print(json.dumps({"programs": "solo speculation", **out}))
+    return out
+
+
+def phase_chunk_prefix_sampled(attention, decode, serve, spec_decode,
+                               workload, mono, chunked, slo_streams) -> dict:
+    """Phase 36: the chunk program, the prefix programs, the sampled
+    speculative round and solo speculation's rounds as captured programs
+    on the card, each replay == its body at full width, no
+    synchronization over 32 chunk and insert replays, and every graphed
+    drain of phases 12, 13 and the sampled engines equal to its eager
+    bodies'; chunked tokens/s (phase 12) beside plain (phase 3)."""
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full = programs_chunk_prefix(attention, serve, workload)
+        streams = programs_chunked_streams(attention, serve, workload,
+                                           chunked, slo_streams)
+        sampled = programs_sampled(attention, serve, workload)
+        solo = programs_solo(attention, decode, spec_decode, workload)
+    summary = {
+        "chunk_prefix_sampled_summary": True,
+        "chunked_tokens_per_s": chunked["stats"]["tokens_per_s"],
+        "plain_tokens_per_s": mono["stats"]["tokens_per_s"],
+        "chunked_bodies_drain_tokens_per_s":
+            streams["chunked_bodies"]["tokens_per_s"],
+        "chunked_tick": {"graphed": chunked["trace"],
+                         "eager bodies": streams["chunked_bodies"]["trace"]},
+        "sampled_round_ms": {k: v["round_ms"] for k, v in sampled.items()},
+        "solo_s": {k: [v["graphed_s"], v["eager_bodies_s"]]
+                   for k, v in solo.items() if k != "comparisons"},
+        "phase_s": time.perf_counter() - t0}
+    print(json.dumps(summary))
+    return {"full_width": full, "streams": streams, "sampled": sampled,
+            "solo": solo, **summary}
+
+
 def ab_turn(tree: str, other_root: str) -> None:
     """One turn of ``--ab``, in a process of its own: builds the kernels of
     the ``tpusched_torch`` on PYTHONPATH, then prints one JSON line of
@@ -3778,8 +4138,9 @@ def main(argv) -> int:
     # the profiler traces, after every earlier phase so that those run as
     # before
     t_new = time.perf_counter()
-    phase_chunked_serving(attention, serve, workload, mono)
-    prefix_launches = phase_slo(attention, serve, workload)
+    chunked = phase_chunked_serving(attention, serve, workload, mono)
+    slo_launches, slo_streams = phase_slo(attention, serve, workload)
+    prefix_launches = slo_launches["prefix"]
     int8_launches, int8_peak = phase_int8_serving(
         attention, serve, workload, mono, exact_decode, measure)
     phase_parity(attention, decode, serve, workload, "flash",
@@ -3863,7 +4224,17 @@ def main(argv) -> int:
     programs = phase_programs(attention, decode, serve, workload, mono,
                               exact_decode)
     streams = programs["streams"]
+    # the chunk, prefix and sampled-round programs, after every earlier
+    # phase so that those run as before
+    zero_counts(attention)
+    later = phase_chunk_prefix_sampled(attention, decode, serve, spec_decode,
+                                       workload, mono, chunked, slo_streams)
     graphed_launches = {
+        "prefix_registration_replay": later["full_width"][
+            "prefix_registration_launches"],
+        "chunked_replays": 0,
+        "slo_replays": slo_launches,
+        "slo_eager_bodies": later["streams"]["slo_bodies_flash_launches"],
         "serving_replays": streams["graphed"]["flash_launches"],
         "serving_eager_bodies": streams["eager bodies"]["flash_launches"],
         "prefills": streams["graphed"]["prefills"],

@@ -20,7 +20,8 @@ import pytest
 import torch
 
 from tpusched.jaxbridge import decode as jdec, workload as jwl
-from tpusched_torch import decode, interop, serve, workload as wl
+from tpusched_torch import decode, interop, serve, spec_decode
+from tpusched_torch import workload as wl
 from tpusched_torch.program import Program
 from tpusched_torch.serve import Request, ServeEngine
 
@@ -121,12 +122,41 @@ def test_device_cursors_equal_int_cursor_and_reference(fn, kind):
 
 def _meta_program(name, kind):
     """The program ``name`` over tiny weights, an arena and buffers all on
-    the meta device (the slot prefill through its plain attention)."""
+    the meta device (the slot prefill and the prefix's K/V through their
+    plain attention; solo speculation's programs over a batch-1 cache)."""
     cfg = dataclasses.replace(_pair(kind)[2], attn="naive")
     params = wl.tree_map(lambda t: t.to("meta"), _pair(kind)[3])
     cache = decode.init_kv_cache(cfg, B, MAX_SEQ, "meta")
     program = functools.partial(Program, graphed=False)
     axes = (None, None, None)
+    sampling = (0.8, 24, 0.9)
+    if name == "prefill_chunk":
+        return serve._build_prefill_chunk(params, cache, cfg, 4, axes,
+                                          program), (cfg.vocab,)
+    if name == "prefix_kv":
+        return serve._build_prefix_kv(params, cfg, S0, "meta", axes,
+                                      program), (
+            cfg.n_layers, 2, 1, S0, cfg.kv_heads, cfg.head_dim)
+    if name == "prefix_insert":
+        kv = decode.init_kv_cache(dataclasses.replace(
+            cfg, kv_cache_dtype=None), 1, S0, "meta")
+        return serve._build_prefix_insert(cache, kv, program), None
+    if name in ("draft_ingest", "draft_step"):
+        width = 2 if name == "draft_ingest" else 1
+        return decode._adjusted_span_program(
+            params, cache, cfg, (B, width), sampling, program,
+            axes), (B, cfg.vocab)
+    if name == "verify_sampled":
+        return decode._adjusted_span_program(
+            params, cache, cfg, (B, K + 1), sampling, program, axes,
+            last=False), (B, K + 1, cfg.vocab)
+    solo = decode.init_kv_cache(cfg, 1, MAX_SEQ, "meta")
+    if name == "solo_draft":
+        return spec_decode._greedy_draft_program(params, solo, cfg, 2, K,
+                                                 program), (1, K)
+    if name == "solo_span":
+        return spec_decode._greedy_span_program(params, solo, cfg, K,
+                                                program), (1, K + 1)
     if name == "decode_tick":
         return serve._build_decode_tick(params, cache, cfg, B, axes,
                                         program), (B, cfg.vocab)
@@ -155,7 +185,11 @@ def _refused(fn):
 @pytest.mark.parametrize("kind", list(KINDS))
 @pytest.mark.parametrize("name", ["decode_tick", "prefill_slot",
                                   "draft_tick", "verify_span",
-                                  "greedy_step"])
+                                  "greedy_step", "prefill_chunk",
+                                  "prefix_kv", "prefix_insert",
+                                  "draft_ingest", "draft_step",
+                                  "verify_sampled", "solo_draft",
+                                  "solo_span"])
 def test_program_bodies_read_nothing_back_to_the_host(name, kind,
                                                       monkeypatch):
     """Every body runs start to finish with weights, arena and inputs on
@@ -171,7 +205,7 @@ def test_program_bodies_read_nothing_back_to_the_host(name, kind,
         for fn in ("tensor", "as_tensor", "from_numpy"):
             m.setattr(torch, fn, _refused(fn))
         out = prog.body()
-    if shape is None:                    # the greedy step writes in place
+    if shape is None:        # the greedy step and the insert write in place
         assert out is None
     else:
         assert out.device.type == "meta" and tuple(out.shape) == shape
@@ -198,22 +232,37 @@ def _ptrs(eng):
     return held, outs, arena
 
 
-@pytest.mark.parametrize("draft", [False, True], ids=["plain", "draft"])
-def test_programs_keep_buffers_and_arena_in_place(draft):
-    """Across 10 ticks (admissions, decode ticks or greedy rounds) every
-    program keeps its input and output buffers and the arena keeps its
-    tensors: inputs are copied in, never rebound."""
+ENGINES = {"plain": {}, "draft": {"spec_k": K},
+           "chunked": {"chunk_prefill": 5},
+           "sampled": {"spec_k": K, "temperature": 0.8, "top_k": 24,
+                       "request_keyed": True}}
+
+
+@pytest.mark.parametrize("kind", list(ENGINES))
+def test_programs_keep_buffers_and_arena_in_place(kind):
+    """Across 10 ticks (admissions, chunks, decode ticks, greedy or
+    sampled rounds) every program keeps its input and output buffers and
+    the arena keeps its tensors: inputs are copied in, never rebound.
+    ``warmup()`` builds every program of the configuration; the chunked
+    engine also registers a prefix, whose K/V program joins them, and
+    serves tenants of it."""
     _, _, cfg, p = _pair("dense")
-    kw = dict(draft_params=p, draft_cfg=cfg, spec_k=K) if draft else {}
+    kw = dict(ENGINES[kind])
+    if "spec_k" in kw:
+        kw.update(draft_params=p, draft_cfg=cfg)
     eng = ServeEngine(p, cfg, slots=2, max_seq=48, prompt_bucket=(8, 16),
                       device="cpu", **kw)
     eng.warmup()
     assert sorted(eng._programs) == sorted(eng._program_keys())
     rng = np.random.default_rng(5)
+    prefix = None
+    if kind == "chunked":
+        eng.register_prefix("sys", rng.integers(0, cfg.vocab, 6))
+        prefix = "sys"
     for i in range(4):
         eng.submit(Request(rid=i, prompt=rng.integers(
             0, cfg.vocab, int(rng.integers(3, 15)), dtype=np.int32),
-            max_new_tokens=6))
+            max_new_tokens=6, prefix_id=prefix if i % 2 else None))
     held, outs, arena = _ptrs(eng)
     for _ in range(10):
         eng.tick()

@@ -7,6 +7,7 @@ monolithic, chunked, prefix-cached and int8 admission alike."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -196,7 +197,7 @@ def test_sampled_engine_is_seeded(model):
     (dict(draft_cfg=None), ValueError, "draft_params requires draft_cfg"),
     (dict(request_keyed=True, temperature=0.0), ValueError,
      "needs temperature > 0")], ids=["option1", "option2", "option3"])
-def test_options_not_ported_yet_raise(model, option, error, match):
+def test_options_the_reference_refuses_raise(model, option, error, match):
     """Every option is ported: meshes over tp (tests/test_torch_tp_serve.py),
     ep (tests/test_torch_ep.py) and fsdp, sp and pp
     (tests/test_torch_serve_mesh.py), speculation and request-keyed
@@ -423,6 +424,174 @@ def test_register_prefix_rejects_unusable_length(model):
     assert eng._prefixes["ok"]["len"] == 24
     assert eng._prefixes["ok"]["kv"][0]["k"].shape == (1, 24, cfg.kv_heads,
                                                        cfg.head_dim)
+
+
+def test_reregistering_a_prefix_at_its_length_keeps_queued_inserts(pair):
+    """The prefix K/V program is one a prefix length, so registering an id
+    again at the same length replays it over its output: the entry a
+    queued request holds keeps its own K/V and its own insert program, and
+    a request submitted after the new registration gets the new prefix."""
+    jcfg, jp, cfg, p = pair
+    rng = np.random.default_rng(41)
+    old, new = (rng.integers(0, 256, 8, dtype=np.int32) for _ in range(2))
+    reqs = [Request(rid=i, prompt=_prompt(rng, 4, 8, 256), max_new_tokens=4,
+                    prefix_id="sys") for i in range(2)]
+    eng = ServeEngine(p, cfg, slots=1, max_seq=64, prompt_bucket=16,
+                      chunk_prefill=4, device="cpu")
+    eng.register_prefix("sys", old)
+    eng.submit(reqs[0])
+    held = eng.queue[0][1]
+    eng.register_prefix("sys", new)
+    eng.submit(reqs[1])
+    assert eng._prefixes["sys"] is not held
+    assert [k for k in eng._programs if k[0] == "prefix"] == [("prefix", 8)]
+    done = {c.rid: c for c in eng.run_until_drained()}
+    assert held["insert"] is not eng._prefixes["sys"]["insert"]
+    for r, prefix in zip(reqs, (old, new)):
+        full = np.concatenate([prefix, r.prompt])
+        assert done[r.rid].prompt_len == len(full)
+        np.testing.assert_array_equal(done[r.rid].tokens,
+                                      _solo_full(p, cfg, full, 4))
+
+
+def _random_arenas(jcfg, cfg, slots, max_seq, seed):
+    """The same random arena contents for the reference and the port: rows
+    that no write of the test touches must be masked or left alone."""
+    rng = np.random.default_rng(seed)
+    shape = (slots, max_seq, cfg.kv_heads, cfg.head_dim)
+    arrays = [{n: rng.standard_normal(shape).astype(np.float32)
+               for n in ("k", "v")} for _ in range(cfg.n_layers)]
+    return ([{n: jnp.asarray(a) for n, a in c.items()} for c in arrays],
+            [{n: torch.from_numpy(a.copy()) for n, a in c.items()}
+             for c in arrays])
+
+
+def _close(got, ref, rel=1e-5):
+    ref = np.asarray(ref, np.float32)
+    np.testing.assert_allclose(np.asarray(got, np.float32), ref, rtol=0,
+                               atol=rel * max(np.abs(ref).max(), 1e-6))
+
+
+def _close_arenas(cache, ref_cache):
+    for c, want in zip(cache, ref_cache):
+        for name in want:
+            _close(c[name].numpy(), want[name])
+
+
+BODIES = functools.partial(Program, graphed=False)
+AXES = (None, None, None)
+
+
+@pytest.mark.parametrize("attn", ["naive", "flash"])
+def test_prefix_programs_equal_reference_builders(attn):
+    """The prefix's K/V program against jaxbridge's ``_build_prefix_kv``
+    (the configured attention, flash through its plain version here and
+    Pallas in interpret mode there), and the insert program into slot 1
+    of a random arena against ``_build_prefix_insert``: within 1e-5."""
+    jcfg, jp, cfg, p = _pair(seed=4, attn=attn)
+    tokens = np.random.default_rng(8).integers(0, 256, 12, dtype=np.int32)
+    ref_kv = jserve._build_prefix_kv(jcfg)(jp, jnp.asarray(tokens))
+    kv = serve._build_prefix_kv(p, cfg, 12, "cpu", AXES, BODIES)(
+        tokens=tokens)
+    assert kv.shape == (cfg.n_layers, 2, 1, 12, cfg.kv_heads, cfg.head_dim)
+    for layer, want in zip(kv, ref_kv):
+        _close(layer[0].numpy(), want["k"])
+        _close(layer[1].numpy(), want["v"])
+    jarena, arena = _random_arenas(jcfg, cfg, 3, 24, seed=9)
+    ref_arena = jserve._build_prefix_insert(jcfg)(jarena, ref_kv,
+                                                  jnp.int32(1))
+    insert = serve._build_prefix_insert(
+        arena, [{"k": x[0], "v": x[1]} for x in kv], BODIES)
+    assert insert(slot=1) is None
+    _close_arenas(arena, ref_arena)
+
+
+def test_chunk_program_equals_reference_builder(pair):
+    """The chunk program against jaxbridge's ``_build_prefill_chunk`` on a
+    random 3-slot arena, in slot 2 after a 5-row prefix inserted there:
+    a first, a middle and a partial last chunk of a 10-token suffix (C =
+    4, so the last chunk holds 2 real rows), each chunk's logits row and
+    the whole arena within 1e-5 relative (f32)."""
+    jcfg, jp, cfg, p = pair
+    C, slot, plen = 4, 2, 5
+    rng = np.random.default_rng(13)
+    prefix = rng.integers(0, 256, plen, dtype=np.int32)
+    suffix = rng.integers(0, 256, 10, dtype=np.int32)
+    true_len = plen + len(suffix)
+    jarena, arena = _random_arenas(jcfg, cfg, 3, 24, seed=10)
+    ref_kv = jserve._build_prefix_kv(jcfg)(jp, jnp.asarray(prefix))
+    jarena = jserve._build_prefix_insert(jcfg)(jarena, ref_kv,
+                                               jnp.int32(slot))
+    kv = serve._build_prefix_kv(p, cfg, plen, "cpu", AXES, BODIES)(
+        tokens=prefix)
+    serve._build_prefix_insert(arena, [{"k": x[0], "v": x[1]} for x in kv],
+                               BODIES)(slot=slot)
+    ref_chunk = jserve._build_prefill_chunk(jcfg, C)
+    chunk = serve._build_prefill_chunk(p, arena, cfg, C, AXES, BODIES)
+    for off in (plen, plen + C, plen + 2 * C):       # first, middle, last
+        n = min(C, true_len - off)
+        tokens = np.zeros(C, np.int32)
+        tokens[:n] = suffix[off - plen:off - plen + n]
+        jarena, ref_row = ref_chunk(jp, jarena, jnp.asarray(tokens),
+                                    jnp.int32(slot), jnp.int32(off),
+                                    jnp.int32(true_len - 1 - off))
+        row = chunk(chunk=tokens, slot=slot, off=off,
+                    last_row=true_len - 1 - off)
+        assert row.shape == (cfg.vocab,)
+        _close(row.numpy(), ref_row)
+        _close_arenas(arena, jarena)
+    assert n == 2
+
+
+def test_f32_masters_are_cast_once_for_every_program():
+    """With f32 master weights and bf16 compute, no program body casts a
+    weight: the chunk, prefix and sampled-round programs take the engine's
+    cast-once weights. The streams equal an engine given the cast weights
+    with bf16 masters (chunked with a prefix, and sampled speculation)."""
+    cfg = dataclasses.replace(wl.ModelConfig.tiny(), dtype=torch.bfloat16,
+                              param_dtype=torch.float32)
+    params = wl.init_params(cfg, torch.Generator().manual_seed(6), "cpu")
+    assert params["layers"][0]["wq"].dtype == torch.float32
+    cast = wl.cast_params_for_compute(params, cfg)
+    bf16 = dataclasses.replace(cfg, param_dtype=None)
+    rng = np.random.default_rng(17)
+    prefix = rng.integers(0, 256, 7, dtype=np.int32)
+    reqs = [Request(rid=i, prompt=_prompt(rng, 3, 12, 256),
+                    max_new_tokens=int(rng.integers(2, 7)),
+                    prefix_id="sys" if i % 2 else None) for i in range(5)]
+    modes = {"chunked": dict(chunk_prefill=4),
+             "sampled": dict(temperature=0.8, top_k=24, seed=3,
+                             request_keyed=True, spec_k=3)}
+    copies = []
+    real = decode.cast_params_for_compute
+
+    def spy(tree, c):
+        out = real(tree, c)
+        copies.append(sum(a is not b for a, b in zip(wl.tree_leaves(out),
+                                                     wl.tree_leaves(tree))))
+        return out
+
+    for mode, kw in modes.items():
+        streams = []
+        for weights, c in ((params, cfg), (cast, bf16)):
+            if mode == "sampled":
+                kw = {**kw, "draft_params": weights, "draft_cfg": c}
+            eng = ServeEngine(weights, c, slots=2, max_seq=48,
+                              prompt_bucket=16, device="cpu", **kw)
+            copies.clear()
+            decode.cast_params_for_compute = spy
+            try:
+                if mode == "chunked":
+                    eng.register_prefix("sys", prefix)
+                for r in reqs:
+                    eng.submit(r if mode == "chunked" else
+                               dataclasses.replace(r, prefix_id=None))
+                streams.append({x.rid: x.tokens.tolist()
+                                for x in eng.run_until_drained()})
+            finally:
+                decode.cast_params_for_compute = real
+            assert copies and not any(copies), f"{mode}: a body cast weights"
+        assert streams[0] == streams[1], mode
 
 
 @pytest.fixture(scope="module")

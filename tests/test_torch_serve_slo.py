@@ -125,7 +125,7 @@ def test_tick_metrics_equal_reference(mode):
 
 
 @pytest.mark.parametrize("fn", [measure_serving, measure_serving_slo])
-def test_reporter_is_not_ported_yet(model, fn):
+def test_reporter_gets_one_report_a_window(model, fn):
     """The reporter is ported: each harness sends it one report, an empty
     window's included (the harness still times its one warm tick)."""
     cfg, params = model

@@ -11,16 +11,20 @@ samplers run with ``fold_in(seed, rid)``."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from jax.sharding import Mesh as JMesh
 
-from tpusched.jaxbridge import serve as jserve, workload as jwl
+from tpusched.jaxbridge import decode as jdec, serve as jserve
+from tpusched.jaxbridge import workload as jwl
 from tpusched_torch import decode, interop, serve, spec_decode as sd
 from tpusched_torch import mesh as tmesh, workload as wl
+from tpusched_torch.program import Program
 from tpusched_torch.serve import Request, ServeEngine
 
 torch.set_num_threads(1)
@@ -435,3 +439,74 @@ def test_keyed_warmup_and_repeat(tiny):
         assert eng.spec_stats == {"rounds": 0, "drafted": 0, "accepted": 0}
         return _drain(eng, reqs)
     assert run() == run()
+
+
+def _close_adjusted(got, ref, rel=1e-5):
+    """Adjusted logits: the same entries masked (NEG_INF), the rest within
+    ``rel`` of the largest kept magnitude."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    kept = ref > -1e30
+    np.testing.assert_array_equal(got > -1e30, kept)
+    np.testing.assert_allclose(got[kept], ref[kept], rtol=0,
+                               atol=rel * np.abs(ref[kept]).max())
+
+
+@pytest.mark.parametrize("draft", ["self", "truncated"])
+def test_sampled_round_programs_equal_reference_builders(tiny, draft):
+    """The sampled round's programs against jaxbridge's builders on arenas
+    prefilled alike, slots at cursors (9, 6, 8): the draft ingest's and
+    each one-token step's distributions equal ``_build_sampling_draft_tick``'s
+    proposal probabilities within 1e-5 (each step fed the reference's own
+    draws, which the port's keys would not reproduce), the draft arena
+    after the round too; the verify span's adjusted logits equal
+    ``_build_verify_sampled``'s ``adj`` within 1e-5 (its device-drawn
+    bonus is not compared: the keys differ by convention), the target
+    arena too."""
+    k, slots, max_seq = 3, 3, 24
+    sampling = (0.8, 24, 0.9)
+    d = _draft(draft, tiny, 0)
+    rng = np.random.default_rng(19)
+    prompts = rng.integers(0, 256, (slots, 10), dtype=np.int32)
+    pos = np.asarray([9, 6, 8])
+    feed2 = rng.integers(0, 256, (slots, 2), dtype=np.int32)
+    keys = jnp.stack([jax.random.PRNGKey(i) for i in range(slots)])
+    program = functools.partial(Program, graphed=False)
+    arenas = {}
+    for name, (jcfg, jp, cfg, p) in (("target", tiny), ("draft", (d[0], d[1],
+                                                                d[2], d[3]))):
+        _, jc = jdec.prefill(jp, jdec.init_kv_cache(jcfg, slots, max_seq),
+                             jnp.asarray(prompts), jcfg)
+        cache = decode.init_kv_cache(cfg, slots, max_seq, "cpu")
+        decode.prefill(p, cache, torch.from_numpy(prompts).long(), cfg)
+        arenas[name] = (jc, cache)
+    ref_toks, ref_probs, ref_dcache = jserve._build_sampling_draft_tick(
+        d[0], k, *sampling)(d[1], arenas["draft"][0], jnp.asarray(feed2),
+                            jnp.asarray(pos), keys)
+    ref_toks, ref_probs = np.array(ref_toks), np.asarray(ref_probs)
+    dcache = arenas["draft"][1]
+    adj = decode._adjusted_span_program(d[3], dcache, d[2], (slots, 2),
+                                        sampling, program)(
+        tokens=feed2, pos=pos - 1)
+    step = decode._adjusted_span_program(d[3], dcache, d[2], (slots, 1),
+                                         sampling, program)
+    for i in range(k):
+        np.testing.assert_allclose(decode.probs_from_adjusted(adj.numpy()),
+                                   ref_probs[:, i], atol=1e-5)
+        if i < k - 1:
+            adj = step(tokens=ref_toks[:, i:i + 1], pos=pos + 1 + i)
+    for c, want in zip(dcache, ref_dcache):
+        for n in want:
+            _close_adjusted(c[n].numpy(), want[n])
+    scored = np.concatenate([feed2[:, 1:], ref_toks], axis=1)
+    ref_adj, _, ref_tcache = jserve._build_verify_sampled(
+        tiny[0], *sampling)(tiny[1], arenas["target"][0],
+                            jnp.asarray(scored), jnp.asarray(pos), keys)
+    tcache = arenas["target"][1]
+    got = decode._adjusted_span_program(tiny[3], tcache, tiny[2],
+                                        (slots, k + 1), sampling, program,
+                                        last=False)(tokens=scored, pos=pos)
+    assert got.shape == (slots, k + 1, tiny[2].vocab)
+    _close_adjusted(got.numpy(), ref_adj)
+    for c, want in zip(tcache, ref_tcache):
+        for n in want:
+            _close_adjusted(c[n].numpy(), want[n])

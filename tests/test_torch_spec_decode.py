@@ -22,6 +22,7 @@ from tpusched.jaxbridge import decode as jdec, spec_decode as jsd
 from tpusched.jaxbridge import workload as jwl
 from tpusched_torch import decode, interop, spec_decode as sd
 from tpusched_torch import workload as wl
+from tpusched_torch.program import Program
 
 torch.set_num_threads(1)
 
@@ -181,6 +182,71 @@ def test_sampling_draft_rollout_probs_match_reference(models):
         # each proposal lies in its top-k support and has nonzero mass
         assert probs[0, i, toks[0, i]] > 0
         assert (probs[0, i] > 0).sum() <= 24
+
+
+def _program_calls(monkeypatch):
+    """Every ``Program`` call, as (the program, the names of its inputs)."""
+    calls = []
+    real = Program.__call__
+
+    def spy(self, **values):
+        calls.append((self, tuple(sorted(self.inputs))))
+        return real(self, **values)
+
+    monkeypatch.setattr(Program, "__call__", spy)
+    return calls
+
+
+@pytest.mark.parametrize("draft", ["random", "self"])
+def test_speculative_generate_runs_its_rounds_as_programs(models, draft,
+                                                          monkeypatch):
+    """Each greedy round is two program calls, the draft's (one program
+    per catch-up length: a self-draft, accepting everything, feeds 2 rows
+    after its first round) and the target span's, each built once a
+    call; the tokens and stats stay jaxbridge's."""
+    jcfg, jp, cfg, p = models["target"]
+    djcfg, djp, dcfg, dp = models[draft]
+    prompt = _prompt(4, 8)
+    calls = _program_calls(monkeypatch)
+    got, stats = sd.speculative_generate(p, cfg, dp, dcfg,
+                                         torch.from_numpy(prompt).long(), 11,
+                                         k=3)
+    ref, ref_stats = jsd.speculative_generate(jp, jcfg, djp, djcfg,
+                                              jnp.asarray(prompt), 11, k=3)
+    np.testing.assert_array_equal(got, np.asarray(ref))
+    assert stats == ref_stats
+    rounds = stats["target_calls"] - 1
+    assert len(calls) == 2 * rounds
+    drafts = [prog for prog, names in calls[0::2]]
+    assert all(names == ("feed", "pos") for _, names in calls[0::2])
+    assert all(names == ("pos", "scored") for _, names in calls[1::2])
+    assert len({id(prog) for prog, _ in calls[1::2]}) == 1
+    widths = {prog.inputs["feed"].shape[1] for prog in drafts}
+    assert widths == ({1, 2} if draft == "self" else {1})
+    assert len({id(prog) for prog in drafts}) == len(widths)
+
+
+def test_speculative_sample_runs_its_rounds_as_programs(models,
+                                                        monkeypatch):
+    """Each sampled round is the draft's ingest, k - 1 one-token steps and
+    the verify span, the serving engine's three programs at batch 1; a
+    self-draft still reproduces ``sample_position_keyed``."""
+    jcfg, jp, cfg, p = models["target"]
+    prompt = torch.from_numpy(_prompt(3, 6)).long()
+    ref = decode.sample_position_keyed(p, prompt, cfg, 14, 9,
+                                       temperature=0.8, top_k=32)
+    calls = _program_calls(monkeypatch)
+    got, stats = sd.speculative_sample(p, cfg, p, cfg, prompt, 14, 9, k=3,
+                                       temperature=0.8, top_k=32)
+    np.testing.assert_array_equal(got, ref.numpy())
+    rounds = stats["target_calls"] - 1
+    assert len(calls) == (1 + 2 + 1) * rounds
+    shapes = [tuple(prog.inputs["tokens"].shape) for prog, _ in calls]
+    for r in range(rounds):
+        ingest, *steps, span = shapes[4 * r:4 * r + 4]
+        assert ingest in ((1, 1), (1, 2)) and span == (1, 4)
+        assert steps == [(1, 1), (1, 1)]
+    assert len({id(prog) for prog, _ in calls}) <= 4
 
 
 # -- the numpy functions, copied: equal to the reference's ----------------------

@@ -92,15 +92,21 @@ def _cache_write(cache: torch.Tensor, new: torch.Tensor, pos,
     the cache's device, 0-d or (b,) (each row at its own offset), written
     through index writes that a CUDA graph records, with no read to the
     host. With ``slot`` (a device index, 0-d or (1,)) ``new`` holds one row
-    (1, n, ...), written into that batch row of the cache at the int
-    ``pos``. Any rank past (batch, seq), so the int8 scale planes (b, s,
-    kv) take the path of the values. Rows must fit: unlike the reference's
-    dynamic_update_slice, which clamps an out-of-range start, a row past
-    the end raises (on the card, a device-side assert) and a negative one
-    counts from the end; the serving engine's guards keep every write in
-    range."""
+    (1, n, ...), written into that batch row of the cache at ``pos``: an
+    int (the slot prefill's, a slice write) or a 0-d tensor (the chunk
+    program's, index writes). Any rank past (batch, seq), so the int8
+    scale planes (b, s, kv) take the path of the values. Rows must fit:
+    unlike the reference's dynamic_update_slice, which clamps an
+    out-of-range start, a row past the end raises (on the card, a
+    device-side assert) and a negative one counts from the end; the
+    serving engine's guards keep every write in range."""
     n = new.shape[1]
     if slot is not None:
+        if isinstance(pos, torch.Tensor):
+            rows = _as_pos_vec(pos, cache.device)[:, None] + torch.arange(
+                n, device=cache.device)
+            cache[slot.reshape(1, 1), rows] = new
+            return
         cache[:, pos:pos + n].index_copy_(0, slot.reshape(1), new)
         return
     if not isinstance(pos, torch.Tensor):
@@ -166,11 +172,17 @@ def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
 def _layer_decode(x: torch.Tensor, layer: Dict[str, torch.Tensor], c, pos,
                   cfg: ModelConfig, tp: Optional[Axis] = None,
                   ep: Optional[Axis] = None,
-                  fsdp: Optional[Axis] = None) -> torch.Tensor:
+                  fsdp: Optional[Axis] = None,
+                  slot: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One layer of span scoring; with ``slot`` (a device index) the one
+    row x (1, n, d) is written into that batch row of the cache and attends
+    that row's whole row space, read by ``index_select``."""
     layer = _gather_fsdp(layer, cfg, fsdp)
     h = _rmsnorm(x, layer["ln_attn"])
     q, k, v = _qkv(h, layer, cfg, pos_offset=pos, tp=tp)
-    cache_update(c, k, v, pos)
+    cache_update(c, k, v, pos, slot)
+    if slot is not None:
+        c = {n: t.index_select(0, slot.reshape(1)) for n, t in c.items()}
     ck, cv = cache_kv(c, q.dtype)
     # the group size is the config's on every rank: tp splits whole groups
     o = _cached_attention(q, ck, cv, pos, cfg.n_heads // cfg.kv_heads)
@@ -228,12 +240,22 @@ def score_span(params: Params, cache: KVCache, tokens: torch.Tensor, pos,
     """Teacher-force ``tokens`` (b, n) at positions pos..pos+n-1 (``pos``
     scalar or (b,)): returns (logits (b, n, vocab), cache). ``tp``, ``ep``
     and ``fsdp`` as in :func:`prefill`."""
+    return _score(params, cache, tokens, pos, cfg, tp, ep, fsdp), cache
+
+
+def _score(params: Params, cache: KVCache, tokens: torch.Tensor, pos,
+           cfg: ModelConfig, tp: Optional[Axis] = None,
+           ep: Optional[Axis] = None, fsdp: Optional[Axis] = None,
+           slot: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``score_span``'s logits. With ``slot`` (a device index) one row
+    ``tokens`` (1, n) goes into that batch row of the cache at ``pos`` (a
+    device scalar), its queries attending that row's whole row space
+    masked at ``pos``: the serving engine's chunk program."""
     params = cast_params_for_compute(params, cfg)
     x = embed(params, tokens, tp, cfg, fsdp)
     for layer, c in zip(params["layers"], cache):
-        x = _layer_decode(x, layer, c, pos, cfg, tp, ep, fsdp)
-    return (unembed(params, _rmsnorm(x, params["ln_f"]), cfg, tp, fsdp),
-            cache)
+        x = _layer_decode(x, layer, c, pos, cfg, tp, ep, fsdp, slot)
+    return unembed(params, _rmsnorm(x, params["ln_f"]), cfg, tp, fsdp)
 
 
 def decode_step(params: Params, cache: KVCache, tokens_t: torch.Tensor, pos,
@@ -513,6 +535,66 @@ def draft_rollout(params: Params, cache: KVCache, feed: torch.Tensor,
     return torch.stack(toks, dim=1), cache
 
 
+def _adjusted_span(params: Params, cache: KVCache, tokens: torch.Tensor,
+                   pos, cfg: ModelConfig, sampling: Tuple[float, int, float],
+                   axes: Tuple = (None, None, None),
+                   last: bool = True) -> torch.Tensor:
+    """``score_span`` of ``tokens`` (b, n) at ``pos``, then
+    ``adjusted_logits`` (``sampling``: temperature, top_k, top_p) on the
+    device: of the last row, (b, V) f32, with ``last`` (a sampled draft's
+    ingest and one-token step), else of every row, (b, n, V) (the sampled
+    verify span). ``axes``: (tp, ep, fsdp) as in :func:`prefill`."""
+    logits, _ = score_span(params, cache, tokens, pos, cfg, *axes)
+    if last:
+        return adjusted_logits(logits[:, -1], *sampling)
+    b, n, vocab = logits.shape
+    return adjusted_logits(logits.reshape(b * n, vocab), *sampling).reshape(
+        b, n, vocab)
+
+
+def _adjusted_span_program(params: Params, cache: KVCache, cfg: ModelConfig,
+                           shape: Tuple[int, int],
+                           sampling: Tuple[float, int, float], program,
+                           axes: Tuple = (None, None, None),
+                           last: bool = True) -> Program:
+    """:func:`_adjusted_span` as a program (``program``: ``Program`` with
+    its ``graphed`` and ``pool`` bound): ``tokens`` of ``shape`` (b, n) and
+    ``pos`` (b,), the row of the first token, in; the adjusted logits
+    out. The sampled speculative round's three programs: the draft's
+    ingest and one-token step, and the verify span (``last=False``)."""
+    device = cache[0]["k"].device
+    tokens = torch.zeros(shape, dtype=torch.long, device=device)
+    pos = torch.zeros(shape[0], dtype=torch.long, device=device)
+
+    def body():
+        return _adjusted_span(params, cache, tokens, pos, cfg, sampling,
+                              axes, last)
+
+    return program(body, {"tokens": tokens, "pos": pos})
+
+
+def _keyed_proposals(adj: torch.Tensor, step, keys: Sequence[int],
+                     rows: np.ndarray, k: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """The sampled draft's host loop: ``adj`` (b, V), the adjusted logits
+    of the row the first proposal takes (``rows``, one a batch row), is
+    read back, its float64 distribution drawn with ``(keys[i], rows[i] +
+    j)`` for proposal j, and ``step(tokens (b,) int64, j)`` returns the
+    adjusted logits after feeding proposal j. Returns (proposals (b, k)
+    int64, their distributions (b, k, V) float64): k reads to the host."""
+    toks, probs = [], []
+    for i in range(k):
+        q = probs_from_adjusted(adj.cpu().numpy())
+        tok = np.asarray([_keyed_draw(qq, kk, int(r) + i)
+                          for qq, kk, r in zip(q, keys, rows)],
+                         dtype=np.int64)
+        toks.append(tok)
+        probs.append(q)
+        if i < k - 1:
+            adj = step(tok, i)
+    return np.stack(toks, axis=1), np.stack(probs, axis=1)
+
+
 def sampling_draft_rollout(params: Params, cache: KVCache,
                            feed: torch.Tensor, pos: Union[int, np.ndarray],
                            cfg: ModelConfig, k: int,
@@ -529,28 +611,19 @@ def sampling_draft_rollout(params: Params, cache: KVCache,
     (b, k, V) float64 — the ``probs_from_adjusted`` of the very adjusted
     logits each draw used, which the acceptance ratio divides by — and the
     cache). Each draw is made on the host, so each step reads one (b, V)
-    row of logits back."""
-    b = feed.shape[0]
+    row of adjusted logits back (:func:`_keyed_proposals`)."""
+    b, n = feed.shape
     keys = [key] * b if isinstance(key, int) else [int(x) for x in key]
-    rows = np.broadcast_to(np.asarray(pos, dtype=np.int64), (b,)) + \
-        feed.shape[1]                       # the row the first proposal takes
+    rows = np.broadcast_to(np.asarray(pos, dtype=np.int64), (b,)) + n
     p = upload_pos(pos, feed.device)
-    logits, cache = score_span(params, cache, feed, p, cfg, tp, ep, fsdp)
-    row_logits = logits[:, -1]
-    p = p + feed.shape[1]
-    toks, probs = [], []
-    for i in range(k):
-        q = probs_from_adjusted(host_adjusted_logits(
-            row_logits, temperature, top_k, top_p))
-        tok = np.asarray([_keyed_draw(qq, kk, int(r) + i)
-                          for qq, kk, r in zip(q, keys, rows)],
-                         dtype=np.int64)
-        toks.append(tok)
-        probs.append(q)
-        if i < k - 1:
-            logits, cache = score_span(
-                params, cache, torch.from_numpy(tok).to(feed.device)[:, None],
-                p, cfg, tp, ep, fsdp)
-            row_logits = logits[:, 0]
-            p = p + 1
-    return np.stack(toks, axis=1), np.stack(probs, axis=1), cache
+    sampling = (temperature, top_k, top_p)
+
+    def step(tok, i):
+        return _adjusted_span(params, cache,
+                              torch.from_numpy(tok).to(feed.device)[:, None],
+                              p + n + i, cfg, sampling, (tp, ep, fsdp))
+
+    toks, probs = _keyed_proposals(
+        _adjusted_span(params, cache, feed, p, cfg, sampling, (tp, ep, fsdp)),
+        step, keys, rows, k)
+    return toks, probs, cache

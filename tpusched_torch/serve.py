@@ -39,14 +39,19 @@ generators, so their ranks decide alike with no broadcast.
 
 Each step of the engine is a program, the counterpart of the reference's
 jitted builders (``_build_decode_tick``, ``_build_prefill_slot`` a
-prompt bucket, ``_build_draft_tick`` and ``_build_verify_span``): a body
-over static buffers with the arena written in place (:mod:`.program`).
-On the card an engine with no mesh captures each as a CUDA graph, at
-``warmup()`` or at first use, and replays it on every tick, admission and
-greedy round; the cursors it takes stay on the card through the step. On
-the CPU, and on an engine over a mesh, whose collectives stage through the
-host under gloo, the bodies run as they are. The chunk program, prefix
-registration and insertion and the sampled speculative round run eagerly.
+prompt bucket, ``_build_prefill_chunk``, ``_build_prefix_kv`` a prefix
+length and ``_build_prefix_insert`` a registered prefix,
+``_build_draft_tick`` and ``_build_verify_span``, and the sampled round's
+draft ingest, one-token draft step and verify span): a body over static
+buffers with the arena written in place (:mod:`.program`). On the card an
+engine with no mesh captures each as a CUDA graph, at ``warmup()`` or at
+first use, and replays it on every tick, admission, chunk, registration
+and round; the cursors it takes stay on the card through the step. A
+sampled round is three programs, not one: its draws are made on the host
+in float64 (``decode.keyed_categorical``), so the draft step is replayed
+k - 1 times with a draw between replays. On the CPU, and on an engine
+over a mesh, whose collectives stage through the host under gloo, the
+bodies run as they are.
 
 Pad keys land at positions >= the prompt's true length, which the causal
 cursor masks until the decode step overwrites them. Idle slots decode
@@ -56,18 +61,16 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import functools
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .decode import (KVCache, cache_update, decode_step, draft_rollout,
-                     fold_in, host_adjusted_logits, init_kv_cache,
-                     keyed_categorical, keyed_sample, prefill,
-                     probs_from_adjusted, sample_token,
-                     sampling_draft_rollout, score_span, upload_pos)
+from .decode import (KVCache, _adjusted_span_program, _keyed_proposals,
+                     _score, cache_update, decode_step, draft_rollout,
+                     fold_in, init_kv_cache, keyed_categorical, keyed_sample,
+                     prefill, probs_from_adjusted, sample_token, score_span)
 from .mesh import MODEL_AXES, broadcast
 from .program import Program
 from .spec_decode import accept_span, round_uniforms
@@ -99,13 +102,6 @@ class Completion:
     finished_tick: int
 
 
-def _slot_view(cache: KVCache, slot: int) -> KVCache:
-    """One slot's rows of the arena as a batch-1 cache of views: the decode
-    path's in-place writes through it (``cache_update``, quantizing into an
-    int8 arena, scale planes included) land in the arena."""
-    return [{n: t[slot:slot + 1] for n, t in c.items()} for c in cache]
-
-
 def _build_prefill_slot(params: Params, cache: KVCache, cfg: ModelConfig,
                         bucket: int, axes, program) -> Program:
     """The slot prefill of one prompt bucket: the padded prompt (bucket,),
@@ -126,6 +122,65 @@ def _build_prefill_slot(params: Params, cache: KVCache, cfg: ModelConfig,
 
     return program(body, {"prompt": prompt, "slot": slot,
                           "true_len": true_len})
+
+
+def _build_prefill_chunk(params: Params, cache: KVCache, cfg: ModelConfig,
+                         chunk: int, axes, program) -> Program:
+    """One chunk of one slot's prefill: ``chunk`` (chunk,) tokens, and
+    ``slot``, ``off`` and ``last_row`` (device scalars) in; the logits
+    (vocab,) of chunk row ``last_row``, clipped to [0, chunk - 1], out (the
+    first token's on a prompt's last chunk, where it is true_len - 1 -
+    off). The chunk's K/V go into the slot's rows [off, off + chunk) and
+    its queries attend the slot's whole row space through the decode
+    step's position mask (``decode._score``), so one program serves
+    every chunk of every prompt length and prefix offset. No kernel runs,
+    as no Pallas call runs in the reference's chunk program."""
+    device = cache[0]["k"].device
+    tokens = torch.zeros(chunk, dtype=torch.long, device=device)
+    slot = torch.zeros((), dtype=torch.long, device=device)
+    off = torch.zeros((), dtype=torch.long, device=device)
+    last_row = torch.zeros((), dtype=torch.long, device=device)
+
+    def body():
+        logits = _score(params, cache, tokens[None], off, cfg, *axes,
+                        slot=slot)
+        return logits[0].index_select(
+            0, last_row.clamp(0, chunk - 1).reshape(1))[0]
+
+    return program(body, {"chunk": tokens, "slot": slot, "off": off,
+                          "last_row": last_row})
+
+
+def _build_prefix_kv(params: Params, cfg: ModelConfig, length: int, device,
+                     axes, program) -> Program:
+    """A shared prefix's K/V, one program a prefix length: ``tokens``
+    (length,) in; every layer's K and V stacked, (layers, 2, 1, length,
+    kv_heads, head_dim), out, through the configured attention (the flash
+    kernel for attn="flash") at rotary positions 0..length-1, since a
+    prefix always takes a slot's leading rows. The next registration of
+    the same length overwrites the output: a registration keeps a copy."""
+    tokens = torch.zeros(length, dtype=torch.long, device=device)
+    kv = init_kv_cache(cfg, 1, length, device, axes[0])
+
+    def body():
+        prefill(params, kv, tokens[None], cfg, *axes)
+        return torch.stack([torch.stack([c["k"], c["v"]]) for c in kv])
+
+    return program(body, {"tokens": tokens})
+
+
+def _build_prefix_insert(cache: KVCache, kv: KVCache, program) -> Program:
+    """A registered prefix's K/V ``kv`` copied into rows [0, length) of the
+    arena's batch row ``slot`` (a device scalar, the input): one graph
+    launch for the 2 x layers writes. Exact arenas only, as chunking
+    requires."""
+    slot = torch.zeros((), dtype=torch.long, device=cache[0]["k"].device)
+
+    def body():
+        for c, entry in zip(cache, kv):
+            cache_update(c, entry["k"], entry["v"], 0, slot)
+
+    return program(body, {"slot": slot})
 
 
 def _build_decode_tick(params: Params, cache: KVCache, cfg: ModelConfig,
@@ -210,10 +265,9 @@ class ServeEngine:
     (axes in slice, dp, fsdp, sp, pp, ep and tp; see the module docstring)
     it runs on ``mesh.device`` and takes the full weights from anywhere.
 
-    The decode tick, the slot prefills and the greedy round are programs
-    (see the module docstring): captured as CUDA graphs on the card unless
-    the engine has a mesh, whose collectives stage through the host, and
-    then run as they are, as on the CPU."""
+    Every step is a program (see the module docstring): captured as a
+    CUDA graph on the card unless the engine has a mesh, whose collectives
+    stage through the host, and then run as it is, as on the CPU."""
 
     def __init__(self, params: Params, cfg: ModelConfig, *,
                  slots: int = 8, max_seq: int = 1024,
@@ -348,7 +402,8 @@ class ServeEngine:
         self.top_k = top_k
         self.top_p = top_p
         self.chunk_prefill = chunk_prefill
-        # registered shared prefixes: id -> {"len", "kv"}
+        # registered shared prefixes: id -> {"len", "kv", "insert"}, the
+        # insert program built at the entry's first admission
         self._prefixes: Dict[str, dict] = {}
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -402,16 +457,14 @@ class ServeEngine:
         if p < 1 or p + max(self.chunk_prefill, 2) > self.max_seq:
             raise ValueError("prefix must leave room for a chunk-aligned "
                              "suffix and generation under max_seq")
-        tokens = torch.as_tensor(np.asarray(tokens, dtype=np.int64),
-                                 device=self.device)
-        # the K/V through the configured attention (the flash kernel for
-        # attn="flash") at rotary positions 0..p-1: a prefix always takes a
-        # slot's leading rows. Exact: the engine refuses int8 with chunking
-        kv = prefill(self.params,
-                     init_kv_cache(self.cfg, 1, p, self.device, self._tp),
-                     tokens[None], self.cfg, self._tp, self._ep,
-                     self._fsdp)[1]
-        self._prefixes[prefix_id] = {"len": p, "kv": kv}
+        # one program a prefix length, as the reference compiles one; its
+        # output is the program's, so the entry keeps its own copy. Exact:
+        # the engine refuses int8 with chunking
+        kv = self._program(("prefix", p))(
+            tokens=np.asarray(tokens, dtype=np.int64)).clone()
+        self._prefixes[prefix_id] = {
+            "len": p, "kv": [{"k": x[0], "v": x[1]} for x in kv],
+            "insert": None}
 
     def submit(self, req: Request) -> None:
         if req.max_new_tokens < 1:
@@ -506,34 +559,50 @@ class ServeEngine:
     # -- programs -------------------------------------------------------------
 
     def _program_keys(self) -> List[tuple]:
-        """Every program this engine's configuration runs."""
+        """Every program this engine's configuration runs but the prefix
+        programs, which take a registered prefix's length or its K/V."""
         keys: List[tuple] = []
         if self.chunk_prefill is None:
             keys += [("prefill", b, False) for b in self.prompt_buckets]
+        else:
+            keys.append(("chunk",))
         if self.draft_params is None:
             return keys + [("decode",)]
         keys += [("prefill", b, True) for b in self.prompt_buckets]
         if self.temperature == 0.0:
             keys += [("draft",), ("verify",)]
+        else:
+            keys += [("draft_ingest",), ("draft_step",), ("verify_sampled",)]
         return keys
 
+    def _new_program(self, body, inputs) -> Program:
+        """A program of this engine: on the card all of them share one
+        graph memory pool."""
+        if self._graphs and self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return Program(body, inputs, graphed=self._graphs, pool=self._pool)
+
     def _program(self, key: tuple) -> Program:
-        """The program ``key`` (``_program_keys``), built at first use; on
-        the card all of them share one graph memory pool."""
+        """The program ``key`` (``_program_keys``, or ("prefix", length)),
+        built at first use."""
         prog = self._programs.get(key)
         if prog is not None:
             return prog
-        if self._graphs and self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        program = functools.partial(Program, graphed=self._graphs,
-                                    pool=self._pool)
+        program = self._new_program
         axes = (self._tp, self._ep, self._fsdp)
+        sampling = (self.temperature, self.top_k, self.top_p)
         if key[0] == "prefill":
             _, bucket, draft = key
             prog = _build_prefill_slot(
                 self._draft_weights if draft else self._weights,
                 self.draft_cache if draft else self.cache,
                 self.draft_cfg if draft else self.cfg, bucket, axes, program)
+        elif key[0] == "chunk":
+            prog = _build_prefill_chunk(self._weights, self.cache, self.cfg,
+                                        self.chunk_prefill, axes, program)
+        elif key[0] == "prefix":
+            prog = _build_prefix_kv(self._weights, self.cfg, key[1],
+                                    self.device, axes, program)
         elif key[0] == "decode":
             prog = _build_decode_tick(self._weights, self.cache, self.cfg,
                                       self.slots, axes, program)
@@ -541,11 +610,34 @@ class ServeEngine:
             prog = _build_draft_tick(self._draft_weights, self.draft_cache,
                                      self.draft_cfg, self.slots, self.spec_k,
                                      axes, program)
-        else:
+        elif key[0] == "verify":
             prog = _build_verify_span(self._weights, self.cache, self.cfg,
                                       self.slots, self.spec_k, axes, program)
+        elif key[0] in ("draft_ingest", "draft_step"):
+            # the ingest: each slot's uniform 2-row feed from row pos - 1;
+            # the step: one proposal at its row
+            width = 2 if key[0] == "draft_ingest" else 1
+            prog = _adjusted_span_program(
+                self._draft_weights, self.draft_cache, self.draft_cfg,
+                (self.slots, width), sampling, program, axes)
+        else:
+            prog = _adjusted_span_program(
+                self._weights, self.cache, self.cfg,
+                (self.slots, self.spec_k + 1), sampling, program, axes,
+                last=False)
         self._programs[key] = prog
         return prog
+
+    def _prefix_insert(self, entry: dict) -> Program:
+        """A registered prefix's insert program, which belongs to its entry
+        (a queued request keeps the entry it was submitted with), built at
+        the entry's first admission and captured there with that
+        admission's slot as its input: the capture's warm-up then writes
+        the rows the replay writes, in a slot no tenant reads."""
+        if entry["insert"] is None:
+            entry["insert"] = _build_prefix_insert(self.cache, entry["kv"],
+                                                   self._new_program)
+        return entry["insert"]
 
     # -- engine loop ----------------------------------------------------------
 
@@ -564,9 +656,7 @@ class ServeEngine:
                 p = 0
                 if prefix is not None:
                     p = prefix["len"]
-                    for c, kv in zip(_slot_view(self.cache, slot),
-                                     prefix["kv"]):
-                        cache_update(c, kv["k"], kv["v"], 0)
+                    self._prefix_insert(prefix)(slot=slot)
                 self.slot_prefix[slot] = p
                 self.prefill_off[slot] = p
                 self.pos[slot] = p + len(req.prompt)
@@ -597,6 +687,7 @@ class ServeEngine:
         """One chunk per prefilling slot. The final chunk's last real row
         gives the first sampled token and turns the slot to decoding."""
         C = self.chunk_prefill
+        program = self._program(("chunk",))
         for slot in range(self.slots):
             off = self.prefill_off[slot]
             if off is None:
@@ -607,16 +698,10 @@ class ServeEngine:
             n = min(C, true_len - off)
             chunk = np.zeros(C, dtype=np.int64)
             chunk[:n] = req.prompt[off - p:off - p + n]
-            # the chunk's K/V go into rows [off, off+C) and its queries
-            # attend the slot's whole row space through the decode path's
-            # position mask (earlier chunks live, later rows hidden); no
-            # kernel runs, as no Pallas call runs in the reference's chunk
-            # program
-            logits, _ = score_span(
-                self.params, _slot_view(self.cache, slot),
-                torch.from_numpy(chunk).to(self.device)[None], off, self.cfg,
-                self._tp, self._ep, self._fsdp)
-            next_logits = logits[0, n - 1]     # the last real row
+            # rows [off, off+C) of the slot; the logits of the prompt's
+            # last row, read before the next chunk's replay overwrites them
+            next_logits = program(chunk=chunk, slot=slot, off=off,
+                                  last_row=true_len - 1 - off)
             off += n
             if off < true_len:
                 self.prefill_off[slot] = off
@@ -746,24 +831,24 @@ class ServeEngine:
         the draft's in ``spec_decode.accept_span``, with the round's
         acceptance and residual uniforms and the bonus at row pos + k + 1
         drawn from the slot's key. Each request's tokens equal solo
-        ``spec_decode.speculative_sample`` with its key."""
+        ``spec_decode.speculative_sample`` with its key. Three programs: the
+        draft ingests each slot's 2-row feed at pos - 1, its one-token step
+        is replayed k - 1 times with the host's draws between, and the
+        verify span returns the adjusted logits; k + 1 reads to the host,
+        one a draw and one for the span."""
         k = self.spec_k
         pos = self._round_positions()
-        pos_dev = upload_pos(pos, self.device)
-        feed2 = torch.from_numpy(
-            np.stack([self.prev_tok, self.next_tok], axis=1)).to(self.device)
-        proposals, p_mat, _ = sampling_draft_rollout(
-            self.draft_params, self.draft_cache, feed2, pos - 1,
-            self.draft_cfg, k, self.slot_key, self.temperature, self.top_k,
-            self.top_p, self._tp, self._ep, self._fsdp)
+        step = self._program(("draft_step",))
+        proposals, p_mat = _keyed_proposals(
+            self._program(("draft_ingest",))(
+                tokens=np.stack([self.prev_tok, self.next_tok], axis=1),
+                pos=pos - 1),
+            lambda tok, i: step(tokens=tok[:, None], pos=pos + 1 + i),
+            self.slot_key, pos + 1, k)
         proposals = self._agree(proposals)
-        scored = torch.cat([feed2[:, 1:],
-                            torch.from_numpy(proposals).to(self.device)],
-                           dim=1)
-        logits, _ = score_span(self.params, self.cache, scored, pos_dev,
-                               self.cfg, self._tp, self._ep, self._fsdp)
-        adj = host_adjusted_logits(logits, self.temperature, self.top_k,
-                                   self.top_p)               # (slots, k+1, V)
+        scored = np.concatenate([self.next_tok[:, None], proposals], axis=1)
+        adj = self._program(("verify_sampled",))(
+            tokens=scored, pos=pos).cpu().numpy()          # (slots, k+1, V)
         self._count_round()
         # per slot: n_ok, then the emitted tokens (-1 past their end)
         outcome = np.full((self.slots, k + 2), -1, dtype=np.int64)

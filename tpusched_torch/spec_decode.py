@@ -15,22 +15,34 @@ JAX key).
 
 Rejected rows need no rollback: cursors move only through accepted rows,
 every later query's causal mask hides the rows above it, and each row is
-written again before any query attends it. The reference's module-level
-``jax.jit`` wrappers have no counterpart: these are plain calls under
-``torch.no_grad()``; the prompt's device is the device everything runs on.
+written again before any query attends it.
+
+A round's device work runs as programs (:mod:`.program`) over the two
+caches, with the cursors ``t_pos`` and ``d_pos`` copied in, the
+counterparts of the reference's jitted ``_span``, ``_draft`` and
+``_sampling_draft``: built once a call, captured as CUDA graphs on the
+card and replayed every round; on the CPU the bodies run as they are. The
+greedy draft keeps one program per catch-up feed length (1 or 2 rows), as
+the reference compiles one per shape. A sampled round is three programs,
+since its draws are made on the host: the draft's ingest, its one-token
+step replayed k - 1 times, and the verify span's adjusted logits. The
+prompt's prefill is a plain call; the prompt's device is the device
+everything runs on.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from .decode import (ACCEPT_SALT, RESIDUAL_SALT, draft_rollout,
+from .decode import (ACCEPT_SALT, RESIDUAL_SALT, KVCache,
+                     _adjusted_span_program, _keyed_proposals, draft_rollout,
                      host_adjusted_logits, init_kv_cache, keyed_categorical,
-                     keyed_uniform, prefill, probs_from_adjusted,
-                     sampling_draft_rollout, score_span)
-from .workload import ModelConfig, Params
+                     keyed_uniform, prefill, probs_from_adjusted, score_span)
+from .program import Program
+from .workload import ModelConfig, Params, cast_params_for_compute
 
 def _check(prompt: torch.Tensor, target_cfg: ModelConfig,
            draft_cfg: ModelConfig, k: int, single: str) -> None:
@@ -40,6 +52,47 @@ def _check(prompt: torch.Tensor, target_cfg: ModelConfig,
         raise ValueError("draft and target must share a vocabulary")
     if k < 1:
         raise ValueError("k must be >= 1")
+
+
+def _program_factory(device: torch.device):
+    """``Program`` with this call's ``graphed`` (on the card) and graph pool
+    bound: its programs run one at a time on one stream and share one
+    pool."""
+    graphed = device.type == "cuda"
+    return functools.partial(
+        Program, graphed=graphed,
+        pool=torch.cuda.graph_pool_handle() if graphed else None)
+
+
+def _greedy_draft_program(params: Params, cache: KVCache, cfg: ModelConfig,
+                          width: int, k: int, program) -> Program:
+    """A greedy round's draft, ``decode.draft_rollout`` of a ``width``-row
+    catch-up ``feed`` (1, width) at row ``pos`` (a device scalar):
+    proposals (1, k) out."""
+    device = cache[0]["k"].device
+    feed = torch.zeros((1, width), dtype=torch.long, device=device)
+    pos = torch.zeros((), dtype=torch.long, device=device)
+
+    def body():
+        return draft_rollout(params, cache, feed, pos, cfg, k)[0]
+
+    return program(body, {"feed": feed, "pos": pos})
+
+
+def _greedy_span_program(params: Params, cache: KVCache, cfg: ModelConfig,
+                         k: int, program) -> Program:
+    """A greedy round's verification, ``decode.score_span`` of ``scored``
+    (1, k + 1) at row ``pos`` (a device scalar): the target's argmax
+    (1, k + 1) out."""
+    device = cache[0]["k"].device
+    scored = torch.zeros((1, k + 1), dtype=torch.long, device=device)
+    pos = torch.zeros((), dtype=torch.long, device=device)
+
+    def body():
+        return torch.argmax(score_span(params, cache, scored, pos, cfg)[0],
+                            dim=-1)
+
+    return program(body, {"scored": scored, "pos": pos})
 
 
 def _stats(target_calls: int, total: int, drafted: int,
@@ -70,9 +123,16 @@ def speculative_generate(target_params: Params, target_cfg: ModelConfig,
     max_seq = s0 + total + k + 2          # headroom for the last overshoot
     t_cache = init_kv_cache(target_cfg, 1, max_seq, device=device)
     d_cache = init_kv_cache(draft_cfg, 1, max_seq, device=device)
+    target_params = cast_params_for_compute(target_params, target_cfg)
+    draft_params = cast_params_for_compute(draft_params, draft_cfg)
     t_logits, t_cache = prefill(target_params, t_cache, prompt, target_cfg)
     prefill(draft_params, d_cache, prompt, draft_cfg)
     out = [int(torch.argmax(t_logits[0, s0 - 1]))]
+    program = _program_factory(device)
+    drafts = {n: _greedy_draft_program(draft_params, d_cache, draft_cfg, n,
+                                       k, program) for n in (1, 2)}
+    verify = _greedy_span_program(target_params, t_cache, target_cfg, k,
+                                  program)
 
     # cursors: the next write row of each cache. At every round's start rows
     # [0, t_pos) of the target cache and [0, d_pos) of the draft cache hold
@@ -83,20 +143,14 @@ def speculative_generate(target_params: Params, target_cfg: ModelConfig,
     drafted = accepted = 0
     while len(out) < total:
         feed = out[len(out) - (t_pos - d_pos) - 1:]
-        catch_up = len(feed)
-        span_dev, d_cache = draft_rollout(
-            draft_params, d_cache, torch.tensor([feed], device=device), d_pos,
-            draft_cfg, k)
-        span = span_dev[0].tolist()       # one host read for all proposals
+        catch_up = len(feed)              # 1, or 2 after a full acceptance
+        # one host read for all proposals
+        span = drafts[catch_up](feed=[feed], pos=d_pos)[0].tolist()
         drafted += k
         # one target stream scores [last emitted] + span at t_pos..t_pos+k;
         # row i's argmax answers row t_pos+i+1, row k is the bonus
-        scored = torch.cat([torch.tensor([[out[-1]]], device=device),
-                            span_dev], dim=1)
-        t_logits, t_cache = score_span(target_params, t_cache, scored, t_pos,
-                                       target_cfg)
+        t_arg = verify(scored=[[out[-1]] + span], pos=t_pos)[0].tolist()
         target_calls += 1
-        t_arg = torch.argmax(t_logits[0], dim=-1).tolist()   # (k+1,)
         n_ok = 0
         while n_ok < k and span[n_ok] == t_arg[n_ok]:
             n_ok += 1
@@ -189,29 +243,41 @@ def speculative_sample(target_params: Params, target_cfg: ModelConfig,
     max_seq = s0 + total + k + 2
     t_cache = init_kv_cache(target_cfg, 1, max_seq, device=device)
     d_cache = init_kv_cache(draft_cfg, 1, max_seq, device=device)
+    target_params = cast_params_for_compute(target_params, target_cfg)
+    draft_params = cast_params_for_compute(draft_params, draft_cfg)
     t_logits, t_cache = prefill(target_params, t_cache, prompt, target_cfg)
     prefill(draft_params, d_cache, prompt, draft_cfg)
-
-    def adjusted(logits):                 # (n, V) on the device -> the host
-        return host_adjusted_logits(logits, temperature, top_k, top_p)
-
-    out = [keyed_categorical(adjusted(t_logits[:, s0 - 1])[0], key, s0)]
+    out = [keyed_categorical(host_adjusted_logits(
+        t_logits[:, s0 - 1], temperature, top_k, top_p)[0], key, s0)]
+    # the serving engine's sampled round at batch 1: the draft's ingest (a
+    # program per catch-up length), its one-token step and the verify span
+    program = _program_factory(device)
+    sampling = (temperature, top_k, top_p)
+    ingest = {n: _adjusted_span_program(draft_params, d_cache, draft_cfg,
+                                        (1, n), sampling, program)
+              for n in (1, 2)}
+    step = _adjusted_span_program(draft_params, d_cache, draft_cfg, (1, 1),
+                                  sampling, program)
+    verify = _adjusted_span_program(target_params, t_cache, target_cfg,
+                                    (1, k + 1), sampling, program,
+                                    last=False)
     t_pos = d_pos = s0
     target_calls = 1
     drafted = accepted = 0
     while len(out) < total:
         feed = out[len(out) - (t_pos - d_pos) - 1:]
         catch_up = len(feed)
-        span, p_mat, d_cache = sampling_draft_rollout(
-            draft_params, d_cache, torch.tensor([feed], device=device), d_pos,
-            draft_cfg, k, key, temperature, top_k, top_p)
+        # the first proposal takes row d_pos + catch_up == t_pos + 1
+        span, p_mat = _keyed_proposals(
+            ingest[catch_up](tokens=[feed], pos=[d_pos]),
+            lambda tok, i: step(tokens=tok[:, None],
+                                pos=[d_pos + catch_up + i]),
+            [key], [d_pos + catch_up], k)
         span = span[0].tolist()
         drafted += k
-        scored = torch.tensor([[out[-1]] + span], device=device)
-        t_logits, t_cache = score_span(target_params, t_cache, scored, t_pos,
-                                       target_cfg)
+        adj = verify(tokens=[[out[-1]] + span],
+                     pos=[t_pos]).cpu().numpy()[0]            # (k+1, V)
         target_calls += 1
-        adj = adjusted(t_logits[0])                          # (k+1, V)
         q_mat = probs_from_adjusted(adj)
         acc_u, res_u = round_uniforms(key, t_pos, k)
         n_ok, rejection = accept_span(span, p_mat[0], q_mat[:k], acc_u,
