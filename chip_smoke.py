@@ -26,8 +26,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 5. gradients on ``tiny`` f32 (flash, remat) through the kernels against
    the same run through naive attention, launches counted;
 6. the training path: ``llama_like_big(seq=4096)``, batch 1, five AdamW
-   steps with launches counted per step and a falling loss, then
-   ``measure.measure_adamw_train_step`` (step time, tokens/s, MFU);
+   steps (a captured program: the first step captures it, the rest
+   replay) with launches counted per step and a falling loss, then
+   ``measure.measure_adamw_train_step`` (step time, tokens/s, MFU; its
+   warm runs capture, every timed run replays one graph);
 7. kernel timing with CUDA events, K1 at the serving shape (also inside a
    CUDA graph, which leaves out the host's enqueue time) and K1, K2, K3 at
    the training shape, beside the plain versions, one PyTorch library call
@@ -38,7 +40,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. engine == solo as in phase 4 on ``tiny`` f32 with 4 experts, naive and
    flash (launches counted);
 10. the MoE training path: ``mixtral_like(seq=1024)``, batch 1, five SGD
-    steps with a falling loss and a positive aux loss, then
+    steps (``make_sharded_train_step``, captured) with a falling loss and
+    a positive aux loss, then
     ``measure.measure_train_step``; tiny f32 MoE gradients on the card
     against the CPU's;
 11. MoE decode: ``measure.measure_decode`` on ``mixtral_like(seq=512)`` at
@@ -145,12 +148,15 @@ Phases, in order; any failure raises and the script exits non-zero:
     4096)`` AdamW (mu f32, flash, remat) fed by ``data.TokenBatcher(seed=
     0)``, two steps, ``checkpoint.save`` of params and optimizer state
     under the git-ignored ``.chipwork/`` (seconds and bytes on disk), two
-    more steps (the uninterrupted run), then the trained state freed,
+    more steps (the uninterrupted run), then the trained state freed (the
+    captured step holds it only by weak references),
     ``checkpoint.restore`` into fresh tensors and two steps on
-    ``TokenBatcher(seed=0, start_step=2)``: the resumed losses within 1e-6
-    relative of the uninterrupted ones (bitwise equality printed), the
+    ``TokenBatcher(seed=0, start_step=2)`` (the captured step, called with
+    the restored tensors, captures anew for them): the resumed losses within
+    1e-6 relative of the uninterrupted ones (bitwise equality printed), the
     AdamW count 2, the two streams' batches 2-3 identical, K1/K2/K3 24/12/12
-    every step; peak memory beside phase 6's and the restore's seconds. Then
+    every step; the training peak and the resumed run's (restore and steps)
+    beside phase 6's, and the restore's seconds. Then
     tiny f32 on four gloo ranks sharing the card: SGD saved on {"dp": 2,
     "tp": 2} and restored onto {"fsdp": 2, "tp": 2}, and MoE (4 experts)
     saved on {"dp": 2, "ep": 2} and restored onto {"ep": 4} (one expert a
@@ -169,10 +175,13 @@ Phases, in order; any failure raises and the script exits non-zero:
     ticks, the SLO report's TTFT ``ttft_s_p50``;
 31. ``measure.calibrate()`` (a chain of 4096 x 4096 bf16 matmuls timed by
     the slope of 16 and 64 links) must read above 0 and below 989 TFLOP/s,
-    printed beside ``device_peak_tflops``; then ``budget``'s HBM model on
+    printed beside ``device_peak_tflops`` and beside one fenced 16-link
+    chain's wall time against its matmuls at that rate (the share of the
+    chain the card is busy, which says whether a graph could help it); then ``budget``'s HBM model on
     ``h100-80gb`` for phase 6's training, phase 22's at tp 2, phase 3's
     serving, phase 20's at tp 2 and phase 14's int8 arena, beside the peak
-    each of those phases measured in this run and their ratio (printed, not
+    each of those phases measured in this run (phase 6's also as reserved
+    memory, which holds its graph's pool) and their ratio (printed, not
     held: the reference's model counts nu in f32 and has no ep or pp
     factor), and the card's ``total_memory``;
 32. serving over fully-sharded weights at full width: ``llama_like_big``
@@ -233,16 +242,39 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``speculative_sample`` graphed == through their bodies (the private
     ``spec_decode._program_factory`` swapped for one that builds
     programs with ``graphed=False``); chunked tokens/s (phase 12) printed
-    beside plain (phase 3).
+    beside plain (phase 3);
+37. the train steps, sampled ``sample`` and the request-keyed tick as
+    captured programs, which phases 6, 10 and 29 (and every one-card
+    train step) now also run: ``llama_like_big(seq=4096)`` batch 1 AdamW,
+    five steps graphed against five through the step's body (the private
+    hook ``step._programs.graphs = False``) from the same seeded init,
+    losses and every leaf
+    of params, mu and nu bitwise equal (else the first leaf that differs
+    and the largest difference, and losses within 2e-2), K1/K2/K3
+    24/12/12 every step through replays; an accumulation step of 2 x (1,
+    4096), twice each way (48/24/24 a step); ``mixtral_like(seq=1024)``
+    SGD, three steps each way, no flash launch; each step's replays under
+    ``torch.cuda.set_sync_debug_mode("error")``, its time, one traced
+    step each way and peak memory, allocated and reserved (the graph's
+    pool); sampled ``sample`` on ``llama_like_big`` at batch 8 (128-token
+    prompts, T 0.8, top-p 0.95), 64 tokens under one seed: the public
+    call == the loop graphed (replays sync-free) == through its body, its
+    last steps traced each way, and seconds a token beside ``sample`` at
+    top-p 1 and greedy ``generate``; phase 3's 16 requests request-keyed
+    (phase 18's sampling) drained by the graphed engine, whose decode tick
+    draws on the card, and by an engine running its bodies with every draw
+    made on the host (``keyed_categorical``): equal streams, the smallest
+    distance of a host uniform from its CDF edges, 32 keyed-tick replays
+    sync-free, tokens/s beside phase 3's greedy engine.
 
 The second-to-last line is the ``kernels`` JSON object (each kernel also
 with ``ring_launches`` from phase 24, ``ring_shape`` times,
 ``pp_launches`` from phases 27 and 28, ``ckpt_launches`` from phase 29,
-``pp_fsdp_launches`` from phase 33 and ``dryrun_launches`` from phase 34,
-K1 ``handoff_launches`` from phase 30, ``fsdp_serving_launches`` from
-phase 32 and ``graphed_launches`` from phases 13, 35 and 36), the last
-line the ``ok``
-JSON object. Imports neither JAX nor
+``pp_fsdp_launches`` from phase 33, ``dryrun_launches`` from phase 34
+and ``graphed_train_launches`` from phase 37, K1 ``handoff_launches``
+from phase 30, ``fsdp_serving_launches`` from phase 32 and
+``graphed_launches`` from phases 13, 35 and 36), the last line the
+``ok`` JSON object. Imports neither JAX nor
 the JAX package.
 
     python3 chip_smoke.py --ab DIR
@@ -803,11 +835,13 @@ def phase_timing(attention, shape=(1, 1024, 16, 4, 128)):
 def train_big(attention, optim, workload, mesh=None):
     """Five AdamW steps (lr 1e-4, mu f32) of full-width
     llama_like_big(seq=4096), batch 1, random bf16 weights, on one repeated
-    batch through make_optax_train_step, each step's kernel launches
-    counted (K1 2·n_layers with remat, K2 and K3 n_layers), with a finite,
-    falling loss. With ``mesh`` the same weights and tokens train as this
-    rank's shards. Returns the losses, step times, launches of the five
-    steps and the peak memory of the steps."""
+    batch through make_optax_train_step (on one card a captured program:
+    the first step captures it, the others replay), each step's kernel
+    launches counted (K1 2·n_layers with remat, K2 and K3 n_layers), with
+    a finite, falling loss. With ``mesh`` the same weights and tokens
+    train as this rank's shards. Returns the losses, step times, launches
+    of the five steps and the peak memory of the steps (allocated, and
+    reserved, which holds the graph's pool)."""
     cfg = workload.ModelConfig.llama_like_big(seq=4096)
     params = seeded_params(workload, cfg)
     tokens = torch.as_tensor(np.random.default_rng(0).integers(
@@ -836,7 +870,8 @@ def train_big(attention, optim, workload, mesh=None):
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
     return dict(losses=losses, step_s=step_s, launches=total,
                 per_step=want,
-                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30)
 
 
 def phase_training(attention, measure, optim, workload):
@@ -970,12 +1005,13 @@ def phase_moe_training(measure, workload):
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     tokens = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab, (batch, cfg.seq)), device="cuda")
+    step, _, _ = workload.make_sharded_train_step(None, cfg, lr=0.1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, step_s = [], []
     for _ in range(5):
         t0 = time.perf_counter()
-        params, loss = workload.sgd_train_step(params, tokens, cfg, lr=0.1)
+        params, loss = step(params, tokens)     # captured, then replayed
         losses.append(loss.item())             # the fence
         step_s.append(time.perf_counter() - t0)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -987,7 +1023,7 @@ def phase_moe_training(measure, workload):
     check(losses[-1] < losses[0], f"MoE loss did not fall: {losses}")
     check(np.isfinite(aux.item()) and aux.item() > 0,
           f"MoE aux loss {aux.item()}")
-    del params, logits
+    del params, logits, step
     per_step, tflops, mfu = measure.measure_train_step(cfg, batch)
     print(json.dumps({
         "training": "mixtral_like", "seq": cfg.seq, "batch": batch,
@@ -3126,17 +3162,37 @@ def phase_handoff(attention, checkpoint, decode, measure, serve, workload,
     return launches
 
 
+CALIBRATE_N = 4096           # phase 31's matmul size, calibrate's default
+
+
 def phase_budget(budget, measure, workload, mono, train, int8_peak, tp):
     """Phase 31 (module docstring): calibrate, then the reference's HBM
     model on the H100 beside the peaks this run measured."""
     t0 = time.perf_counter()
-    tflops = measure.calibrate(device="cuda")
+    tflops = measure.calibrate(n=CALIBRATE_N, device="cuda")
     peak = measure.device_peak_tflops()
     check(0 < tflops < 989, f"calibrate read {tflops} TFLOP/s, outside "
           f"(0, 989): the timing path is broken")
-    print(json.dumps({"calibrate": {"n": 4096, "k1": 16, "k2": 64,
-                                    "tflops": tflops, "peak_tflops": peak,
-                                    "share_of_peak": tflops / 989}}))
+    # calibrate's chain stays eager unless the card idles in it: the wall
+    # time of one fenced 16-link chain (median of 3) against 16 matmuls
+    # at the rate the slope just read
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n = CALIBRATE_N
+    a, b = (torch.randn(n, n, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+
+    def chain():
+        x = a
+        for _ in range(16):
+            x = (x @ b) * (1.0 / n)
+        return x.float().sum()
+    chain_s = float(np.median([fenced_s(chain) for _ in range(4)][1:]))
+    del a, b
+    print(json.dumps({"calibrate": {
+        "n": n, "k1": 16, "k2": 64, "tflops": tflops, "peak_tflops": peak,
+        "share_of_peak": tflops / 989, "chain_16_wall_s": chain_s,
+        "chain_16_matmul_s": 16 * 2 * n**3 / (tflops * 1e12),
+        "chain_busy_share": 16 * 2 * n**3 / (tflops * 1e12) / chain_s}}))
     acc = "h100-80gb"
     train_cfg = workload.ModelConfig.llama_like_big(seq=4096)
     serve_cfg = workload.ModelConfig.llama_like_big()
@@ -3147,6 +3203,11 @@ def phase_budget(budget, measure, workload, mono, train, int8_peak, tp):
         "train": (budget.train_hbm_breakdown(train_cfg, 1, mu_dtype="f32",
                                              accelerator=acc),
                   "phase 6", train["peak_mem_gib"]),
+        # the captured step's memory as the card holds it: the graph's
+        # private pool stays reserved between replays
+        "train_reserved": (budget.train_hbm_breakdown(
+            train_cfg, 1, mu_dtype="f32", accelerator=acc),
+            "phase 6, reserved", train["peak_reserved_gib"]),
         "train_tp2": (budget.train_hbm_breakdown(
             train_cfg, 1, mu_dtype="f32", tp=2, accelerator=acc),
             "phase 22", max(r["train"]["peak_mem_gib"] for r in two)),
@@ -4021,6 +4082,394 @@ def phase_chunk_prefix_sampled(attention, decode, serve, spec_decode,
             "solo": solo, **summary}
 
 
+# -- the train steps, sampled sample and the keyed tick as programs (37) ------
+
+TRAIN_PROGRAM_STEPS = 5      # AdamW steps each way, as phase 6
+MOE_PROGRAM_STEPS = 3
+ACCUM_STACK = 2              # microbatches of (1, 4096) a stack
+ACCUM_STEPS = 2              # stacks: the first captures, the second replays
+SAMPLE_BATCH, SAMPLE_PROMPT, SAMPLE_STEPS = 8, 128, 64
+SAMPLE_SLOPE = (16, 64)      # steps of the two timed sample calls
+SAMPLE_TRACED = 4            # the steps traced() runs: three timed, one traced
+KEYED_REPLAYS = 32
+
+
+@contextlib.contextmanager
+def sync_free():
+    """Inside, any synchronization of the card raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def run_steps(attention, call, n, replays_sync_free):
+    """``n`` calls of ``call()`` (a train step; returns its loss): the
+    first, which captures a graphed step, fenced and timed alone, the
+    other n - 1 as one fenced block, under :func:`sync_free` when
+    ``replays_sync_free``; each step's (K1, K2, K3) launches. Returns
+    (losses, first_s, per_step_s of the block, launches)."""
+    losses, launches = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zero_counts(attention)
+    losses.append(call())
+    launches.append(bwd_counts(attention))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with sync_free() if replays_sync_free else contextlib.nullcontext():
+        for _ in range(n - 1):
+            zero_counts(attention)
+            losses.append(call())
+            launches.append(bwd_counts(attention))
+    torch.cuda.synchronize()
+    per = (time.perf_counter() - t0) / (n - 1)
+    return [x.item() for x in losses], first_s, per, launches
+
+
+def named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    return {path: leaf for k, v in items
+            for path, leaf in named_leaves(v, f"{prefix}/{k}").items()}
+
+
+def trees_compare(got: dict, want: dict) -> dict:
+    """Named trees (path -> tensor) compared leaf by leaf: bitwise, or the
+    first leaf that differs and the largest difference over all."""
+    first, worst = None, 0.0
+    for path, leaf in want.items():
+        if not torch.equal(got[path], leaf):
+            first = first or path
+            worst = max(worst, float((got[path].float() - leaf.float())
+                                     .abs().max()))
+    return {"bitwise": first is None, "first_differing_leaf": first,
+            "max_abs_diff": worst}
+
+
+def graphed_vs_body(attention, workload, cfg, build, n, label):
+    """Phase 37's train comparison: for ``graphs`` in (True, False) the
+    step ``build(graphs)`` returns, (call, tree to compare), run ``n``
+    times from the same seeded init (:func:`run_steps`; the graphed run's
+    replays sync-free), then traced for one more step each. Losses and
+    every leaf of the tree are held bitwise equal, or the first leaf that
+    differs is printed with the largest difference."""
+    out, trees, calls = {}, {}, {}
+    for graphs in (True, False):
+        name = "graphed" if graphs else "body"
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2**30
+        call, tree = build(graphs)
+        losses, first_s, per, launches = run_steps(attention, call, n,
+                                                   graphs)
+        out[name] = {"losses": losses, "first_step_s": first_s,
+                     "step_ms": 1e3 * per, "launches": launches,
+                     "resident_before_gib": resident,
+                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "peak_reserved_gib":
+                         torch.cuda.max_memory_reserved() / 2**30}
+        check(all(np.isfinite(losses)), f"{label} {name}: losses {losses}")
+        trees[name], calls[name] = named_leaves(tree), call
+    cmp = trees_compare(trees["graphed"], trees["body"])
+    cmp["losses_equal"] = out["graphed"]["losses"] == out["body"]["losses"]
+    for name in ("graphed", "body"):
+        out[name]["trace"] = traced(calls[name], f"{label} {name}")
+    return out, cmp
+
+
+def programs_adamw(attention, optim, workload):
+    """Phase 37a-b: llama_like_big(seq=4096) batch 1 AdamW (phase 6's),
+    TRAIN_PROGRAM_STEPS graphed steps against as many body steps from the
+    same seeded init, K1/K2/K3 24/12/12 every step through replays; then
+    an accumulation step of ACCUM_STACK x (1, 4096), ACCUM_STEPS each
+    way."""
+    cfg = workload.ModelConfig.llama_like_big(seq=4096)
+    tx = optim.adamw(1e-4, mu_dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (1, cfg.seq)),
+                             device="cuda")
+    stack = torch.as_tensor(rng.integers(0, cfg.vocab, (
+        ACCUM_STACK, 1, cfg.seq)), device="cuda")
+    want = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+
+    def adamw(graphs):
+        step, init_opt, _, _ = workload.make_optax_train_step(None, cfg, tx)
+        step._programs.graphs = graphs    # False: the bodies, on the card
+        params = seeded_params(workload, cfg)
+        state = init_opt(params)
+        return (lambda: step(params, state, tokens)[2],
+                {"params": params, "mu": state.mu, "nu": state.nu})
+
+    def accum(graphs):
+        step, init_opt, _, _ = workload.make_accum_train_step(
+            None, cfg, tx, ACCUM_STACK)
+        step._programs.graphs = graphs
+        params = seeded_params(workload, cfg)
+        state = init_opt(params)
+        return (lambda: step(params, state, stack)[2],
+                {"params": params, "mu": state.mu, "nu": state.nu})
+
+    out = {}
+    for name, build, n, per in (
+            ("adamw", adamw, TRAIN_PROGRAM_STEPS, want),
+            ("accum", accum, ACCUM_STEPS,
+             tuple(ACCUM_STACK * w for w in want))):
+        runs, cmp = graphed_vs_body(attention, workload, cfg, build, n,
+                                    f"llama_like_big {name} step seq 4096")
+        for kind, run in runs.items():
+            check(all(tuple(c) == per for c in run["launches"]),
+                  f"{name} {kind}: (K1, K2, K3) a step {run['launches']}, "
+                  f"wanted {per}")
+        check(runs["graphed"]["losses"][-1] < runs["graphed"]["losses"][0]
+              or name == "accum", f"{name}: loss did not fall")
+        if not (cmp["bitwise"] and cmp["losses_equal"]):
+            cmp["note"] = REPLAY_NOTE
+            check(max(abs(a - b) / abs(b) for a, b in zip(
+                runs["graphed"]["losses"], runs["body"]["losses"]))
+                <= TRAIN_LOSS_RTOL, f"{name}: graphed and body losses "
+                f"{runs['graphed']['losses']} {runs['body']['losses']}")
+        # the counts of the last replay, checked equal to ``per`` above
+        out[name] = {**runs, "compare": cmp, "launches_per_step":
+                     list(runs["graphed"]["launches"][-1])}
+        torch.cuda.empty_cache()
+    return out
+
+
+def programs_moe_sgd(attention, workload):
+    """Phase 37c: mixtral_like(seq=1024) batch 1 SGD at lr 0.1 (phase
+    10's), graphed against bodies from the same seeded init, no flash
+    launch, each traced."""
+    cfg = workload.ModelConfig.mixtral_like(seq=1024)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, cfg.seq)), device="cuda")
+
+    def sgd(graphs):
+        step, _, _ = workload.make_sharded_train_step(None, cfg, lr=0.1)
+        step._programs.graphs = graphs
+        params = seeded_params(workload, cfg)
+        return lambda: step(params, tokens)[1], params
+
+    runs, cmp = graphed_vs_body(attention, workload, cfg, sgd,
+                                MOE_PROGRAM_STEPS,
+                                "mixtral_like SGD step seq 1024")
+    for kind, run in runs.items():
+        check(all(tuple(c) == (0, 0, 0) for c in run["launches"]),
+              f"mixtral_like {kind}: flash launches {run['launches']}")
+    if not (cmp["bitwise"] and cmp["losses_equal"]):
+        cmp["note"] = REPLAY_NOTE
+    torch.cuda.empty_cache()
+    return {**runs, "compare": cmp}
+
+
+def sample_loop(decode, params, cfg, prompt, steps, seed, graphed):
+    """``decode.sample``'s loop written out (prefill, first draw, then
+    ``decode._sampled_step`` once a token) with ``graphed`` chosen, the
+    replays after the capture sync-free but the last SAMPLE_TRACED, which
+    are :func:`traced`: (tokens (b, steps + 1), the trace)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, s0 = prompt.shape
+    sampling = (SAMPLED["temperature"], 0, SAMPLED["top_p"])
+    cache = decode.init_kv_cache(cfg, b, s0 + steps, "cuda")
+    logits, _ = decode.prefill(params, cache, prompt, cfg)
+    tok = decode.sample_token(logits[:, s0 - 1], gen, *sampling)
+    out = torch.empty((b, steps + 1), dtype=torch.long, device="cuda")
+    out[:, 0] = tok
+    pos = torch.full((), s0, dtype=torch.long, device="cuda")
+    step = decode._sampled_step(params, cache, tok.clone(), pos, out, s0,
+                                cfg, gen, sampling, graphed=graphed)
+    step()
+    with sync_free() if graphed else contextlib.nullcontext():
+        for _ in range(steps - 1 - SAMPLE_TRACED):
+            step()
+    name = "graphed" if graphed is None else "body"
+    trace = traced(step, f"llama_like_big sampled step batch 8 {name}")
+    torch.cuda.synchronize()
+    return out, trace
+
+
+def programs_sample(decode, workload):
+    """Phase 37d: sampled ``sample`` on llama_like_big at batch 8 (128-token
+    prompts, T 0.8, top-p 0.95), 64 tokens under one generator seed: the
+    public call, the loop graphed (replays sync-free) and through its body
+    give the same tokens, the loop's last steps traced each way; seconds
+    a token by the slope between two lengths (the median of three calls
+    each), for ``sample``, ``sample`` without the nucleus filter (top-p 1)
+    and greedy ``generate``."""
+    cfg = workload.ModelConfig.llama_like_big()
+    params = seeded_params(workload, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (SAMPLE_BATCH, SAMPLE_PROMPT),
+                           generator=gen, device="cuda")
+    seed = 3
+
+    def public(steps, top_p=SAMPLED["top_p"]):
+        return decode.sample(params, prompt, cfg, steps,
+                             torch.Generator(device="cuda").manual_seed(seed),
+                             temperature=SAMPLED["temperature"], top_p=top_p)
+
+    with torch.no_grad():
+        got = public(SAMPLE_STEPS)
+        graphed, graphed_trace = sample_loop(decode, params, cfg, prompt,
+                                             SAMPLE_STEPS, seed, None)
+        body, body_trace = sample_loop(decode, params, cfg, prompt,
+                                       SAMPLE_STEPS, seed, False)
+        check(torch.equal(got, graphed) and torch.equal(got, body),
+              "sampled sample: graphed and body tokens differ")
+        check(bool(((got >= 0) & (got < cfg.vocab)).all()),
+              "sampled tokens out of the vocabulary")
+        per_token = {}
+        for name, fn in (("sample", public),
+                         ("sample_top_p_1", functools.partial(public,
+                                                              top_p=1.0)),
+                         ("generate", lambda k:
+                          decode.generate(params, prompt, cfg, k))):
+            # each call prefills and captures anew: the median of three a
+            # length, so one slow capture does not tilt the slope
+            t = [float(np.median([fenced_s(functools.partial(fn, k))
+                                  for _ in range(3)])) for k in SAMPLE_SLOPE]
+            per_token[name] = (t[1] - t[0]) / (SAMPLE_SLOPE[1]
+                                               - SAMPLE_SLOPE[0])
+    return {"tokens_equal": True, "batch": SAMPLE_BATCH,
+            "prompt": SAMPLE_PROMPT, "steps": SAMPLE_STEPS,
+            "idle_share": {"graphed": graphed_trace["idle_share_unprofiled"],
+                           "body": body_trace["idle_share_unprofiled"]},
+            "step_ms": {k: 1e3 * v for k, v in per_token.items()},
+            "distinct_tokens": int(torch.unique(got).numel())}
+
+
+def host_draws(decode, margins):
+    """The engine's keyed draw as the host made it before its tick drew on
+    the device (the adjusted rows copied over, ``keyed_categorical`` each),
+    recording each draw's distance from the nearer edge of its CDF
+    interval in ``margins``."""
+    def draw(adj, keys, rows):
+        toks = []
+        for row, key, r in zip(adj.cpu().numpy(), keys.tolist(),
+                               rows.tolist()):
+            key &= (1 << 64) - 1
+            cdf = np.cumsum(decode.probs_from_adjusted(row))
+            u = decode.keyed_uniform(key, r)
+            tok = decode.keyed_categorical(row, key, r)
+            lo = cdf[tok - 1] if tok else 0.0
+            margins.append(min(u - lo, max(cdf[tok], 1.0 if tok ==
+                                           len(cdf) - 1 else 0.0) - u))
+            toks.append(tok)
+        return torch.tensor(toks, device=adj.device)
+    return draw
+
+
+def programs_keyed(serve, decode, workload, mono):
+    """Phase 37e: phase 3's 16 requests, request-keyed (T 0.8, top-p 0.95,
+    seed 7), drained by the graphed engine, whose decode tick draws on the
+    device, and by an engine that runs its bodies with every draw made on
+    the host (``keyed_categorical``): equal streams, and the smallest
+    distance of a host uniform from its CDF edges; then KEYED_REPLAYS
+    replays of the keyed tick sync-free; tokens/s beside phase 3's greedy
+    engine."""
+    cfg = workload.ModelConfig.llama_like_big()
+    params = seeded_params(workload, cfg)
+    reqs = make_requests(cfg, serve)
+    margins: list = []
+    out, streams = {}, {}
+    for name in ("graphed", "host draws"):
+        eng = serve.ServeEngine(params, cfg, device="cuda", **SERVE_GEOMETRY,
+                                **SAMPLED)
+        host = name == "host draws"
+        eng._graphs = not host
+        draw = serve.keyed_draw
+        if host:
+            serve.keyed_draw = host_draws(decode, margins)
+        try:
+            eng.warmup()
+            for r in reqs:
+                eng.submit(r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = eng.run_until_drained()
+            torch.cuda.synchronize()
+            drain_s = time.perf_counter() - t0
+        finally:
+            serve.keyed_draw = draw
+        check_completions(done, reqs, cfg.vocab, f"keyed {name}")
+        streams[name] = {c.rid: c.tokens.tolist() for c in done}
+        tokens = sum(len(c.tokens) for c in done)
+        out[name] = {"ticks": eng.tick_count, "drain_s": drain_s,
+                     "tokens_per_s": tokens / drain_s}
+        if not host:
+            prog = eng._program(("decode",))
+            values = {"tokens": eng.next_tok, "pos": eng.pos,
+                      "keys": [decode.as_int64(k) for k in eng.slot_key]}
+            first = prog(**values).clone()
+            with sync_free():
+                for _ in range(KEYED_REPLAYS):
+                    prog(**values)
+            torch.cuda.synchronize()
+            check(torch.equal(prog.outputs, first) and prog.graph is not None,
+                  "keyed tick replays differ or were not captured")
+        del eng
+    differ = [r for r in streams["graphed"]
+              if streams["graphed"][r] != streams["host draws"][r]]
+    check(not differ, f"keyed streams {differ} differ from the host draws'")
+    return {**out, "streams_equal": True, "draws": len(margins),
+            "min_cdf_margin": float(min(margins)),
+            "sync_free_replays": KEYED_REPLAYS,
+            "phase3_greedy_tokens_per_s": mono["stats"]["tokens_per_s"]}
+
+
+def phase_train_programs(attention, decode, optim, serve, workload,
+                         mono) -> dict:
+    """Phase 37 (module docstring). Returns the per-step launches of the
+    captured AdamW step."""
+    t0 = time.perf_counter()
+    train = programs_adamw(attention, optim, workload)
+    moe = programs_moe_sgd(attention, workload)
+    sampled = programs_sample(decode, workload)
+    with torch.no_grad():
+        keyed = programs_keyed(serve, decode, workload, mono)
+    for name, rec in (("adamw", train["adamw"]), ("accum", train["accum"]),
+                      ("mixtral_sgd", moe)):
+        print(json.dumps({"train_program": name, **{
+            k: {kk: vv for kk, vv in v.items() if kk != "trace"}
+            if isinstance(v, dict) and "trace" in v else v
+            for k, v in rec.items()}}))
+    print(json.dumps({"sampled_sample": sampled}))
+    print(json.dumps({"keyed_serving": keyed}))
+    summary = {
+        "train_programs_summary": True,
+        "step_ms": {name: {k: rec[k]["step_ms"] for k in ("graphed", "body")}
+                    for name, rec in (("adamw", train["adamw"]),
+                                      ("accum", train["accum"]),
+                                      ("mixtral_sgd", moe))},
+        "bitwise": {name: rec["compare"]["bitwise"]
+                    and rec["compare"]["losses_equal"]
+                    for name, rec in (("adamw", train["adamw"]),
+                                      ("accum", train["accum"]),
+                                      ("mixtral_sgd", moe))},
+        "idle_share": {name: {k: rec[k]["trace"].get(
+            "idle_share_unprofiled") for k in ("graphed", "body")}
+            for name, rec in (("adamw", train["adamw"]),
+                              ("mixtral_sgd", moe))},
+        "sample_step_ms": sampled["step_ms"],
+        "sample_idle_share": sampled["idle_share"],
+        "keyed_tokens_per_s": {k: keyed[k]["tokens_per_s"]
+                               for k in ("graphed", "host draws")},
+        "min_cdf_margin": keyed["min_cdf_margin"],
+        "phase_s": time.perf_counter() - t0}
+    print(json.dumps(summary))
+    return {"adamw_per_step": train["adamw"]["launches_per_step"],
+            "accum_per_step": train["accum"]["launches_per_step"],
+            **summary}
+
+
 def ab_turn(tree: str, other_root: str) -> None:
     """One turn of ``--ab``, in a process of its own: builds the kernels of
     the ``tpusched_torch`` on PYTHONPATH, then prints one JSON line of
@@ -4229,6 +4678,11 @@ def main(argv) -> int:
     zero_counts(attention)
     later = phase_chunk_prefix_sampled(attention, decode, serve, spec_decode,
                                        workload, mono, chunked, slo_streams)
+    # the train steps, sampled sample and the keyed tick as programs,
+    # after every earlier phase so that those run as before
+    zero_counts(attention)
+    train_programs = phase_train_programs(attention, decode, optim, serve,
+                                          workload, mono)
     graphed_launches = {
         "prefix_registration_replay": later["full_width"][
             "prefix_registration_launches"],
@@ -4262,6 +4716,10 @@ def main(argv) -> int:
               "tiny_tp2_per_rank": {m: r["flash_launches"]
                                     for m, r in two["tiny"].items()},
               "training_tp2_per_rank": two["train"]["launches"][0]}
+    def graphed_train(j):         # phase 37: through the captured steps
+        return {"adamw_per_step": train_programs["adamw_per_step"][j],
+                "accum_per_step": train_programs["accum_per_step"][j]}
+
     source = "tpusched_torch/csrc/"
     replaces = "tpusched/jaxbridge/attention.py:"
     # flash_fwd's own fields are the serving path's, at its (1, 1024, 16, 4,
@@ -4284,7 +4742,8 @@ def main(argv) -> int:
          "fsdp_serving_launches": fsdp_serving,
          "pp_fsdp_launches": pp_fsdp_launches,
          "dryrun_launches": dryrun_launches[0],
-         "graphed_launches": graphed_launches},
+         "graphed_launches": graphed_launches,
+         "graphed_train_launches": graphed_train(0)},
         {"name": "flash_bwd_dkdv", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "218",
          "launches": train_launches[1], "max_abs_err": bwd_err[1],
@@ -4293,7 +4752,8 @@ def main(argv) -> int:
          "tp_shapes": {"training_tp2": rank_train["flash_bwd_dkdv"]},
          **ring["flash_bwd_dkdv"], "pp_launches": pp_launches,
          **ckpt["flash_bwd_dkdv"], "pp_fsdp_launches": pp_fsdp_launches,
-         "dryrun_launches": dryrun_launches[1]},
+         "dryrun_launches": dryrun_launches[1],
+         "graphed_train_launches": graphed_train(1)},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "265",
          "launches": train_launches[2], "max_abs_err": bwd_err[0],
@@ -4302,7 +4762,8 @@ def main(argv) -> int:
          "tp_shapes": {"training_tp2": rank_train["flash_bwd_dq"]},
          **ring["flash_bwd_dq"], "pp_launches": pp_launches,
          **ckpt["flash_bwd_dq"], "pp_fsdp_launches": pp_fsdp_launches,
-         "dryrun_launches": dryrun_launches[2]}]}))
+         "dryrun_launches": dryrun_launches[2],
+         "graphed_train_launches": graphed_train(2)}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -157,6 +157,68 @@ def test_sample_is_deterministic_per_generator():
     assert torch.equal(greedy, decode.generate(p, prompt, cfg, 6))
 
 
+SAMPLINGS = [dict(temperature=1.0), dict(temperature=0.7, top_k=5),
+             dict(temperature=1.3, top_p=0.8),
+             dict(temperature=0.9, top_k=40, top_p=0.5)]
+
+
+@pytest.mark.parametrize("kw", SAMPLINGS, ids=["plain", "top_k", "top_p",
+                                               "both"])
+def test_written_out_draw_equals_multinomial(kw):
+    """``sample_token`` draws by the exponential race written out, which is
+    how ``torch.multinomial(probs, 1)`` draws: 64 draws from one seeded
+    generator equal multinomial's from another seeded alike, and both
+    generators end in the same state."""
+    logits = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (4, 256)).astype(np.float32) * 3)
+    g1, g2 = (torch.Generator().manual_seed(21) for _ in range(2))
+    probs = torch.softmax(decode.adjusted_logits(logits, **{
+        "top_k": 0, "top_p": 1.0, **kw}), dim=-1)
+    for _ in range(64):
+        assert torch.equal(decode.sample_token(logits, g1, **kw),
+                           torch.multinomial(probs, 1, generator=g2)[:, 0])
+    assert torch.equal(g1.get_state(), g2.get_state())
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+def test_sample_token_refuses_logits_that_are_not_finite(bad):
+    """``torch.multinomial`` refused a distribution with a NaN; the
+    written-out draw keeps that refusal (an assert on the device, which
+    raises on the CPU) instead of returning argmax's token."""
+    logits = torch.zeros((2, 16))
+    logits[1, 3] = bad
+    with pytest.raises(RuntimeError, match="not finite"):
+        decode.sample_token(logits, torch.Generator().manual_seed(0), 1.0)
+
+
+@pytest.mark.parametrize("kw", SAMPLINGS[:2], ids=["plain", "top_k"])
+def test_sampled_sample_program_equals_eager_steps(kw):
+    """``sample`` at temperature > 0 replays one step program a token
+    (its body here): the tokens of the eager loop it replaced (prefill,
+    then ``decode_step`` at an int cursor and one ``torch.multinomial``
+    draw a step) from the same seed, bit for bit."""
+    _, _, cfg, p = _model(seed=2)
+    prompt = torch.from_numpy(_tokens(8, (3, 6))).long()
+    got = decode.sample(p, prompt, cfg, 9, torch.Generator().manual_seed(5),
+                        **kw)
+    gen = torch.Generator().manual_seed(5)
+    sampling = {"top_k": 0, "top_p": 1.0, **kw}
+
+    def draw(logits):
+        probs = torch.softmax(decode.adjusted_logits(logits, **sampling), -1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0]
+
+    with torch.no_grad():
+        cache = decode.init_kv_cache(cfg, 3, 15, "cpu")
+        logits, cache = decode.prefill(p, cache, prompt, cfg)
+        toks = [draw(logits[:, 5])]
+        for t in range(9):
+            logits, cache = decode.decode_step(p, cache, toks[-1], 6 + t,
+                                               cfg)
+            toks.append(draw(logits))
+    assert torch.equal(got, torch.stack(toks, dim=1))
+
+
 def _quant_inputs() -> np.ndarray:
     """Seeded (b, s, kv, hd) rows and the edge cases of the quantizer: an
     all-zero row (the 1e-8/127 scale floor), a row below the floor, and

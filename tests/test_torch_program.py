@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -20,7 +21,7 @@ import pytest
 import torch
 
 from tpusched.jaxbridge import decode as jdec, workload as jwl
-from tpusched_torch import decode, interop, serve, spec_decode
+from tpusched_torch import decode, interop, optim, serve, spec_decode
 from tpusched_torch import workload as wl
 from tpusched_torch.program import Program
 from tpusched_torch.serve import Request, ServeEngine
@@ -160,6 +161,11 @@ def _meta_program(name, kind):
     if name == "decode_tick":
         return serve._build_decode_tick(params, cache, cfg, B, axes,
                                         program), (B, cfg.vocab)
+    if name == "keyed_tick":
+        return serve._build_decode_tick(params, cache, cfg, B, axes,
+                                        program, keyed=sampling), (B,)
+    if name in TRAIN_BODIES:
+        return _meta_train_program(name, cfg, params)
     if name == "prefill_slot":
         return serve._build_prefill_slot(params, cache, cfg, S0, axes,
                                          program), (cfg.vocab,)
@@ -171,9 +177,42 @@ def _meta_program(name, kind):
                                         program), (B, K + 1)
     meta = dict(dtype=torch.long, device="meta")
     out = torch.zeros((B, 5), **meta)
+    if name == "sampled_step":
+        return decode._sampled_step(
+            params, cache, torch.zeros(B, **meta), torch.zeros((), **meta),
+            out, S0, cfg, torch.Generator(), sampling, graphed=False), None
     return decode._greedy_step(params, cache, torch.zeros(B, **meta),
                                torch.zeros((), **meta), out, S0,
                                cfg), None
+
+
+TRAIN_BODIES = ("sgd_step", "adamw_step", "accum_micro", "accum_update")
+
+
+def _meta_train_program(name, cfg, params):
+    """A single-card train step's program over meta weights, optimizer
+    state and tokens (naive attention; the MoE kind through the capacity
+    path), the tree set as a step's call sets it for its bodies."""
+    tokens = torch.zeros((B, S0), dtype=torch.long, device="meta")
+    ts = wl.TrainShardings(None, cfg)
+    b = types.SimpleNamespace(params=params, state=None)
+    if name == "sgd_step":
+        return wl._sgd_program(b, ts, tokens, 1e-2, graphed=False), ()
+    tx = optim.adamw(1e-3, mu_dtype=torch.float32)
+    b.state = tx.init(params)
+    if name == "adamw_step":
+        return wl._adamw_program(b, ts, tx, tokens, graphed=False)[0], ()
+    micro, update, _ = wl._accum_programs(b, ts, tx, tokens, 4,
+                                          graphed=False)
+    return (micro, None) if name == "accum_micro" else (update, ())
+
+
+def _meta_exponential(exponential_):
+    """``Tensor.exponential_`` without its generator: the meta device has
+    no generator to draw from (it draws nothing)."""
+    def draw(self, lambd=1.0, *, generator=None):
+        return exponential_(self, lambd)
+    return draw
 
 
 def _refused(fn):
@@ -189,14 +228,18 @@ def _refused(fn):
                                   "prefix_kv", "prefix_insert",
                                   "draft_ingest", "draft_step",
                                   "verify_sampled", "solo_draft",
-                                  "solo_span"])
+                                  "solo_span", "keyed_tick", "sampled_step",
+                                  *TRAIN_BODIES])
 def test_program_bodies_read_nothing_back_to_the_host(name, kind,
                                                       monkeypatch):
     """Every body runs start to finish with weights, arena and inputs on
     the meta device, where ``int()``, ``.item()`` or numpy of a tensor
     raises, and with ``torch.tensor``/``as_tensor``/``from_numpy``
     refused: the step holds no host read and no upload that a CUDA graph
-    could not record. No op of these bodies lacks a meta kernel."""
+    could not record. No op of these bodies lacks a meta kernel; the
+    sampled step's draw runs without its generator there. The train
+    bodies take their gradients through autograd, the MoE kind's through
+    the capacity path (``F.one_hot`` given its class count)."""
     prog, shape = _meta_program(name, kind)
     assert all(t.device.type == "meta" for t in prog.inputs.values())
     with monkeypatch.context() as m:
@@ -204,8 +247,11 @@ def test_program_bodies_read_nothing_back_to_the_host(name, kind,
         # which a capture refuses from pageable memory
         for fn in ("tensor", "as_tensor", "from_numpy"):
             m.setattr(torch, fn, _refused(fn))
+        if name == "sampled_step":
+            m.setattr(torch.Tensor, "exponential_",
+                      _meta_exponential(torch.Tensor.exponential_))
         out = prog.body()
-    if shape is None:        # the greedy step and the insert write in place
+    if shape is None:        # the steps and the insert write in place
         assert out is None
     else:
         assert out.device.type == "meta" and tuple(out.shape) == shape

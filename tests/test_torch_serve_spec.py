@@ -382,6 +382,37 @@ def test_request_keyed_is_batching_invariant_and_solo_exact(tiny):
     assert a != run(range(6), seed=6)
 
 
+def _host_keyed_draw(adj, keys, rows):
+    """The draw the engine made on the host before its tick drew on the
+    device: the adjusted rows copied over, ``keyed_categorical`` each."""
+    host = adj.cpu().numpy()
+    return torch.tensor([decode.keyed_categorical(a, k & (2**64 - 1), r)
+                         for a, k, r in zip(host, keys.tolist(),
+                                            rows.tolist())])
+
+
+@pytest.mark.parametrize("chunk", [None, 5], ids=["monolithic", "chunked"])
+def test_request_keyed_tick_draws_as_the_host_did(tiny, monkeypatch, chunk):
+    """The decode tick draws each slot's token on the device (the keyed
+    tick program) and the first token is drawn on the device too: the
+    streams equal an engine whose draws go through the host's
+    ``keyed_categorical``, and ``sample_position_keyed`` alone."""
+    reqs = _requests(61, 5, gen=(4, 9))
+
+    def run():
+        eng = ServeEngine(tiny[3], tiny[2], device="cpu",
+                          chunk_prefill=chunk, **{**GEOMETRY, **SAMPLING})
+        return {r: v[0] for r, v in _drain(eng, reqs).items()}
+
+    device = run()
+    with monkeypatch.context() as m:
+        m.setattr(serve, "keyed_draw", _host_keyed_draw)
+        host = run()
+    assert device == host
+    for r in reqs:
+        assert device[r.rid] == _solo_keyed(tiny, r), f"request {r.rid}"
+
+
 def test_request_keyed_composes_with_int8_arena(tiny):
     i8 = dataclasses.replace(tiny[2], kv_cache_dtype="int8")
     reqs = _requests(59, 4, gen=(5, 6))

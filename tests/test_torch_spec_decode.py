@@ -321,6 +321,48 @@ def test_keyed_categorical_matches_its_distribution():
     assert ((counts[keep] - n * q[keep]) ** 2 / (n * q[keep])).sum() < CHI2_7
 
 
+def _keyed_pairs(n, seed):
+    """``n`` (key, row) pairs: keys below and at or above 2**63 (both ends
+    included), rows small, negative, large and past ``ACCEPT_SALT`` and
+    ``RESIDUAL_SALT``, as the speculative round keys them."""
+    rng = np.random.default_rng(seed)
+    keys = [int(k) for k in rng.integers(0, 2**63, n // 2, dtype=np.uint64)]
+    keys += [2**63 + int(k) for k in rng.integers(0, 2**63, n - n // 2,
+                                                   dtype=np.uint64)]
+    keys[:4] = [0, 2**63 - 1, 2**63, 2**64 - 1]
+    base = rng.integers(0, 1 << 20, n)
+    kind = np.arange(n) % 5
+    rows = np.where(kind == 0, base, np.where(
+        kind == 1, -base - 1, np.where(
+            kind == 2, decode.ACCEPT_SALT + base, np.where(
+                kind == 3, decode.RESIDUAL_SALT + base,
+                rng.integers(-2**62, 2**62, n)))))
+    return keys, [int(r) for r in rows]
+
+
+def test_device_keyed_draw_equals_keyed_categorical():
+    """The serving engine's device draw (``keyed_draw``) against the
+    host's law (``keyed_categorical``) on 10**4 (key, row) pairs, each
+    over its own adjusted row of 64 logits (a quarter of them top-k
+    masked with ``NEG_INF``): the uniforms are the host's bit for bit,
+    and every token is the host's."""
+    n, vocab = 10_000, 64
+    keys, rows = _keyed_pairs(n, 17)
+    rng = np.random.default_rng(18)
+    adj = (rng.standard_normal((n, vocab)) * 3).astype(np.float32)
+    masked = adj < np.sort(adj, axis=1)[:, [vocab - 8]]
+    adj[(np.arange(n) % 4 == 0)[:, None] & masked] = np.float32(-3.4e38)
+    k = torch.tensor([decode.as_int64(x) for x in keys])
+    r = torch.tensor(rows)
+    u = decode.keyed_uniform_device(k, r).numpy()
+    assert u.tolist() == [decode.keyed_uniform(a, b)
+                          for a, b in zip(keys, rows)]
+    got = decode.keyed_draw(torch.from_numpy(adj), k, r)
+    assert got.dtype == torch.long
+    assert got.tolist() == [decode.keyed_categorical(a, x, y)
+                            for a, x, y in zip(adj, keys, rows)]
+
+
 def test_accept_span_with_keyed_uniforms_emits_target_distribution():
     """One proposal drawn from p with its row's key, accepted with the
     ACCEPT_SALT uniform, else resampled from the residual with the

@@ -369,8 +369,9 @@ def batcher_rank(m: tmesh.Mesh, cfg, steps: int, ref_batch) -> dict:
                                                       seed=3))]
     params = wl.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     step, _, _ = wl.make_sharded_train_step(m, cfg)
-    shards = wl.shard_params(params, cfg, m)
-    losses = [float(step(shards, torch.from_numpy(b))[1])
+    # the step updates its shards in place: each loss from fresh ones
+    losses = [float(step(wl.shard_params(params, cfg, m),
+                         torch.from_numpy(b))[1])
               for b in (batches[0], np.asarray(ref_batch, np.int64))]
     return {"batches": batches, "losses": losses}
 

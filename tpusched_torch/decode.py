@@ -26,7 +26,9 @@ Speculative decoding's draft phase (``draft_rollout``,
 follow this module's own counter-based convention with the same laws: a
 key is a 64-bit int, ``fold_in`` mixes data into it with the splitmix64
 finaliser, and a draw is an inverse-CDF lookup of ``keyed_uniform`` in the
-float64 distribution of the adjusted logits, on the host.
+float64 distribution of the adjusted logits, on the host
+(``keyed_categorical``, the law's reference) or on the device
+(``keyed_draw``, inside the serving engine's decode tick).
 """
 from __future__ import annotations
 
@@ -296,14 +298,27 @@ def sample_token(logits: torch.Tensor,
                  temperature: float = 1.0, top_k: int = 0,
                  top_p: float = 1.0) -> torch.Tensor:
     """One draw per row of logits (b, vocab) from ``adjusted_logits``'s
-    distribution with the given generator; temperature 0 is argmax."""
+    distribution with the given generator; temperature 0 is argmax.
+
+    The draw is the exponential race that ``torch.multinomial(probs, 1)``
+    runs, written out: the argmax of ``probs / q`` with q ~ Exp(1) from the
+    generator, the same kernels on the same generator, so the same tokens
+    (``tests/test_torch_decode.py`` pins it). ``multinomial`` first checks
+    the distribution with a read to the host, which a CUDA graph capture
+    refuses; the race reads nothing back. Its check is kept as an assert on
+    the device (``torch._assert_async``): a non-finite probability, which
+    softmax makes of a NaN or infinite logit, raises on the CPU and fails
+    the kernel on the card, where argmax would return a token."""
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1)
     if generator is None:
         raise ValueError("sampling at temperature > 0 needs a generator")
     probs = torch.softmax(adjusted_logits(logits, temperature, top_k, top_p),
                           dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    torch._assert_async(torch.isfinite(probs).all(),
+                        "sampling from a distribution that is not finite")
+    q = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / q, dim=-1)
 
 
 def _greedy_step(params: Params, cache: KVCache, tok: torch.Tensor,
@@ -327,6 +342,33 @@ def _greedy_step(params: Params, cache: KVCache, tok: torch.Tensor,
                    graphed=tok.device.type == "cuda" and tp is None)
 
 
+def _sampled_step(params: Params, cache: KVCache, tok: torch.Tensor,
+                  pos: torch.Tensor, out: torch.Tensor, s0: int,
+                  cfg: ModelConfig, generator: torch.Generator,
+                  sampling: Tuple[float, int, float],
+                  graphed: Optional[bool] = None) -> Program:
+    """One sampled decode step as a :class:`Program`, :func:`_greedy_step`'s
+    sibling: feed ``tok`` at row ``pos``, draw the next token with
+    ``generator`` (:func:`sample_token`, ``sampling`` = temperature, top_k,
+    top_p), write it into ``tok`` and column ``pos - s0 + 1`` of ``out``,
+    advance ``pos``, all on the device. The generator is registered with
+    the graph, so each replay draws the next numbers of its stream; the
+    first call's warm-up is the first step (``advances``), so nothing
+    rewinds. Captured on the card unless ``graphed`` is False."""
+    def body():
+        logits, _ = decode_step(params, cache, tok, pos, cfg)
+        nxt = sample_token(logits, generator, *sampling)
+        tok.copy_(nxt)
+        out.index_copy_(1, (pos - (s0 - 1)).reshape(1), nxt[:, None])
+        pos.add_(1)
+
+    if graphed is None:
+        graphed = tok.device.type == "cuda"
+    return Program(body, {"tok": tok, "pos": pos}, graphed=graphed,
+                   generators=(generator,) if graphed else (),
+                   advances=True)
+
+
 @torch.no_grad()
 def sample(params: Params, prompt: torch.Tensor, cfg: ModelConfig,
            steps: int, generator: Optional[torch.Generator] = None,
@@ -340,9 +382,10 @@ def sample(params: Params, prompt: torch.Tensor, cfg: ModelConfig,
     not draw alike.
 
     Greedy decoding replays one captured step (:func:`_greedy_step`) per
-    token, with the token, the position and the output kept on the card.
-    Sampling (temperature > 0, a ``torch.Generator``) runs its steps
-    eagerly: each step's draw is a call of its own."""
+    token, with the token, the position and the output kept on the card;
+    sampling (temperature > 0, a ``torch.Generator``) likewise replays
+    :func:`_sampled_step`, the draw inside it. Under ``tp`` sampling runs
+    its steps eagerly, each draw rank 0's, broadcast."""
     params = cast_params_for_compute(params, cfg)
     b, s0 = prompt.shape
     cache = init_kv_cache(cfg, b, s0 + steps, device=prompt.device, tp=tp)
@@ -366,6 +409,16 @@ def sample(params: Params, prompt: torch.Tensor, cfg: ModelConfig,
         for t in range(steps):
             # the capture's warm-up took one step: the first call rewinds
             step(**({"tok": tok, "pos": s0} if t == 0 else {}))
+        return out
+    if tp is None:
+        out = torch.empty((b, steps + 1), dtype=torch.long,
+                          device=prompt.device)
+        out[:, 0] = tok
+        pos = torch.full((), s0, dtype=torch.long, device=prompt.device)
+        step = _sampled_step(params, cache, tok.clone(), pos, out, s0, cfg,
+                             generator, (temperature, top_k, top_p))
+        for _ in range(steps):
+            step()
         return out
     toks = [tok]
     for t in range(steps):
@@ -458,6 +511,61 @@ def keyed_sample(logits: torch.Tensor, keys: Sequence[int],
     adj = host_adjusted_logits(logits, temperature, top_k, top_p)
     return np.asarray([keyed_categorical(a, int(k), int(r))
                        for a, k, r in zip(adj, keys, rows)], dtype=np.int64)
+
+
+# splitmix64's odd constants as the int64s of the same bits (two's
+# complement): an int64 product wraps mod 2**64, so the device computes
+# _mix64's bits exactly
+_GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
+_MIX1 = 0xBF58476D1CE4E5B9 - (1 << 64)
+_MIX2 = 0x94D049BB133111EB - (1 << 64)
+
+
+def as_int64(key: int) -> int:
+    """A 64-bit key (an int in [0, 2**64), or any int mod 2**64) as the
+    int64 of the same bits, for a device buffer."""
+    key &= _MASK64
+    return key - (1 << 64) if key >> 63 else key
+
+
+def _srl(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of int64 ``x`` by ``n``: ``>>`` is arithmetic,
+    so the sign's copies are masked off."""
+    return (x >> n) & ((1 << (64 - n)) - 1)
+
+
+def _mix64_device(x: torch.Tensor) -> torch.Tensor:
+    """:func:`_mix64` on int64 tensors, bit for bit."""
+    x = x + _GOLDEN
+    x = (x ^ _srl(x, 30)) * _MIX1
+    x = (x ^ _srl(x, 27)) * _MIX2
+    return x ^ _srl(x, 31)
+
+
+def keyed_uniform_device(keys: torch.Tensor,
+                         rows: torch.Tensor) -> torch.Tensor:
+    """:func:`keyed_uniform` of int64 ``keys`` and ``rows`` (same shape,
+    keys as :func:`as_int64` gives them) on their device: float64, the top
+    53 bits of ``fold_in(key, row)`` times 2**-53."""
+    return _srl(_mix64_device(keys ^ _mix64_device(rows)),
+                11).double() * 2.0 ** -53
+
+
+def keyed_draw(adj: torch.Tensor, keys: torch.Tensor,
+               rows: torch.Tensor) -> torch.Tensor:
+    """Request-keyed sampling on the device: row i of adjusted logits
+    ``adj`` (b, V) draws with ``(keys[i], rows[i])`` (int64 (b,) each), the
+    inverse CDF of its float64 softmax at :func:`keyed_uniform_device`.
+    Returns (b,) int64 on the device; its law is :func:`keyed_categorical`,
+    the host's draw, which it equals wherever the uniform does not lie
+    within a float64 rounding of an edge of the CDF (the card's ``exp``
+    and sums may differ from numpy's in the last place). Reads nothing
+    back to the host, so a CUDA graph holds it."""
+    a = adj.double()
+    q = torch.exp(a - a.amax(dim=-1, keepdim=True))
+    cdf = torch.cumsum(q / q.sum(dim=-1, keepdim=True), dim=-1)
+    u = keyed_uniform_device(keys, rows)
+    return (cdf <= u[:, None]).sum(dim=-1).clamp_(max=adj.shape[-1] - 1)
 
 
 @torch.no_grad()

@@ -35,8 +35,8 @@ import torch
 from . import optim
 from .decode import generate
 from .workload import (ModelConfig, init_params, make_optax_train_step,
-                       moe_capacity, resolve_device, sgd_train_step,
-                       tree_leaves)
+                       make_sharded_train_step, moe_capacity, resolve_device,
+                       tree_leaves, tree_map)
 
 
 @dataclasses.dataclass
@@ -347,18 +347,25 @@ def measure_train_step(cfg: ModelConfig, batch: int, k1: int = 2,
                        reporter: Optional[GoodputReporter] = None,
                        device=None) -> Tuple[float, float, Optional[float]]:
     """Median per-step seconds, TFLOP/s and MFU (None on the CPU or an
-    unknown card) of :func:`workload.sgd_train_step`, each step taking the
-    previous one's parameters. ``reporter`` gets the measured step time and
-    batch·seq tokens a step as one report."""
+    unknown card) of the SGD step (``make_sharded_train_step`` without a
+    mesh), each step taking the previous one's parameters. As the
+    reference copies its seeded params into a donated chain for every run,
+    each run copies them into the parameters the step is bound to and
+    updates those in place, so every run replays the one CUDA graph that
+    the first warm run captured. ``reporter`` gets the measured step time
+    and batch·seq tokens a step as one report."""
     device = resolve_device(device)
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                         device)
+    start = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                        device)
+    params = tree_map(torch.clone, start)
     tokens = _tokens(cfg, batch, device)
+    step, _, _ = make_sharded_train_step(None, cfg, lr=lr)
 
     def chain(k):
-        p, loss = params, None
+        tree_map(lambda p, s: p.copy_(s), params, start)
+        loss = None
         for _ in range(k):
-            p, loss = sgd_train_step(p, tokens, cfg, lr=lr)
+            _, loss = step(params, tokens)
         return loss
 
     for k in (k1, k2):
@@ -377,32 +384,40 @@ def measure_adamw_train_step(cfg: ModelConfig, batch: int, k1: int = 1,
     """Per-step seconds, TFLOP/s, MFU and an accounting note for AdamW
     training with full optimizer state, through ``make_optax_train_step``
     (value and grad, then the in-place AdamW update), mu in ``mu_dtype``
-    (f32 by default) over params in ``cfg.master_dtype``. Params and state are built fresh on the device for
-    every run, so each chain starts from the same point and no second copy
-    is kept. Returns (per_step_s, tflops, mfu, note)."""
+    (f32 by default) over params in ``cfg.master_dtype``. Every run starts
+    from the seeded init: ``fresh()`` copies it into the params and state
+    the step is bound to (moments zeroed, count 0), so every run replays
+    the one CUDA graph that the first warm run captured, outside the
+    slope. Returns (per_step_s, tflops, mfu, note)."""
     device = resolve_device(device)
     tx = optim.adamw(lr, mu_dtype=mu_dtype if mu_dtype is not None
                      else torch.float32)
     tokens = _tokens(cfg, batch, device)
     step, init_opt, _, _ = make_optax_train_step(None, cfg, tx)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    state = init_opt(params)
 
     def fresh():
-        p = init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                        device)
-        return p, init_opt(p)
+        seeded = init_params(
+            cfg, torch.Generator(device=device).manual_seed(0), device)
+        tree_map(lambda p, s: p.copy_(s), params, seeded)
+        del seeded
+        for t in tree_leaves(state.mu) + tree_leaves(state.nu):
+            t.zero_()
+        state.count = 0
 
     def run(k: int) -> float:
-        params, state = fresh()
+        fresh()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         loss = None
         for _ in range(k):
-            params, state, loss = step(params, state, tokens)
+            _, _, loss = step(params, state, tokens)
         _fence(loss)
         return time.perf_counter() - t0
 
-    params, state = fresh()
     leaves = tree_leaves(params)
     state_gib = sum(t.numel() * t.element_size() for t in
                     leaves + tree_leaves(state.mu) + tree_leaves(state.nu)
@@ -410,8 +425,8 @@ def measure_adamw_train_step(cfg: ModelConfig, batch: int, k1: int = 1,
     note = (f"{sum(t.numel() for t in leaves) / 1e9:.2f}B params, "
             f"params+AdamW state {state_gib:.1f} GiB resident, "
             f"remat={cfg.remat}")
-    del params, state, leaves
-    run(k1)                                  # warm: builds the kernels
+    del leaves
+    run(k1)                         # warm: builds the kernels, captures
     run(k2)
     per_step = time_chained(run, k1, k2, repeats)
     return (per_step, *_rates(cfg, batch, per_step, device), note)

@@ -1,8 +1,9 @@
 """A step as one program over static buffers: the port's counterpart of a
 ``jax.jit`` with its cache donated.
 
-The reference builds each step of its serving engine, and greedy
-``generate``'s scanned loop, as one compiled XLA program. Run eagerly on
+The reference builds each step of its serving engine, ``generate``'s and
+``sample``'s scanned loops and its train steps as one compiled XLA
+program. Run eagerly on
 the card, the same step is a few hundred to a few thousand kernel
 launches, each issued by the host, and the card waits for the host most
 of the time. A :class:`Program` wraps a plain function, the body, that
@@ -22,6 +23,15 @@ Elsewhere (``graphed=False``: the CPU, or an engine whose collectives
 stage through the host) each call runs the body on the same buffers, and
 its output is copied into the static output that the first call made.
 
+A body that advances state it reads again (a train step updating its
+parameters, a sampling step drawing from a generator) is built with
+``advances=True``: its first call's warm-up run IS that call's step, the
+capture follows with no replay, and every later call replays. A
+``torch.Generator`` the body draws from is passed in ``generators``: it is
+registered with the graph before the capture, so each replay draws at the
+generator's current offset and advances it, as the body called eagerly
+would, instead of replaying one frozen draw.
+
 The flash kernels' launch counters (``attention.FLASH_*_LAUNCHES``)
 count the wrappers' Python calls, which a replay does not make. So a
 program counts the launches its capture recorded, leaves the counters
@@ -31,7 +41,8 @@ program's results.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import gc
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -76,11 +87,14 @@ class Program:
 
     def __init__(self, body: Callable[[], Optional[torch.Tensor]],
                  inputs: Dict[str, torch.Tensor], *, graphed: bool,
-                 pool=None):
+                 pool=None, generators: Sequence[torch.Generator] = (),
+                 advances: bool = False):
         self.body = body
         self.inputs = inputs
         self.graphed = graphed
         self.pool = pool
+        self.generators = tuple(generators)
+        self.advances = advances
         self.outputs: Optional[torch.Tensor] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._launches = (0,) * len(_COUNTERS)
@@ -93,18 +107,47 @@ class Program:
         nothing reads them (an idle arena)."""
         if not self.graphed or self.graph is not None:
             return
+        if self.advances:
+            raise RuntimeError("a program that advances its state captures "
+                               "at its first call, whose step the warm-up "
+                               "runs")
+        self._capture()
+
+    def _capture(self) -> None:
+        """The warm-up call and the capture, both on a side stream. An
+        advancing program keeps the warm-up's launches counted and its
+        output as the static output's value: that run was its first
+        step."""
         before = _counts()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            self.body()
-        torch.cuda.current_stream().wait_stream(side)
+            warm = self.body()
+        ran = _counts()
         _set_counts(before)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool, stream=side):
-            outputs = self.body()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        # no cyclic collection while capturing: one could destroy another
+        # program's graph, which the capture refuses (torch.cuda.graph no
+        # longer collects first)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=side):
+                outputs = self.body()
+        finally:
+            if collecting:
+                gc.enable()
         self._launches = tuple(a - b for a, b in zip(_counts(), before))
-        _set_counts(before)
+        if self.advances:
+            _set_counts(ran)
+            if outputs is not None:
+                with torch.cuda.stream(side):   # after the warm-up's writes
+                    outputs.copy_(warm)
+        else:
+            _set_counts(before)
+        torch.cuda.current_stream().wait_stream(side)
         self.outputs, self.graph = outputs, graph
 
     def __call__(self, **values) -> Optional[torch.Tensor]:
@@ -119,7 +162,10 @@ class Program:
             else:
                 self.outputs.copy_(out)
             return self.outputs
-        self.capture()
+        if self.graph is None:
+            self._capture()
+            if self.advances:
+                return self.outputs
         self.graph.replay()
         _set_counts(tuple(c + n for c, n in zip(_counts(), self._launches)))
         return self.outputs

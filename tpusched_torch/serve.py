@@ -18,9 +18,9 @@ draft arena mirrors every admission, each tick the draft proposes
 ``spec_k`` tokens per slot and the target verifies every slot's proposals
 in one span, and acceptance is per slot on the host; greedy output equals
 the plain engine's. ``request_keyed=True`` draws each token with its
-request's key and absolute row (``decode.keyed_sample``), so a sampled
-request's tokens do not depend on its neighbours; sampled speculation
-needs it.
+request's key and absolute row (``decode.keyed_draw``, on the device, in
+the decode tick), so a sampled request's tokens do not depend on its
+neighbours; sampled speculation needs it.
 
 With ``mesh`` the engine serves SPMD: every rank of the mesh builds the
 same engine from the full weights (or its shards, as
@@ -68,9 +68,10 @@ import numpy as np
 import torch
 
 from .decode import (KVCache, _adjusted_span_program, _keyed_proposals,
-                     _score, cache_update, decode_step, draft_rollout,
-                     fold_in, init_kv_cache, keyed_categorical, keyed_sample,
-                     prefill, probs_from_adjusted, sample_token, score_span)
+                     _score, adjusted_logits, as_int64, cache_update,
+                     decode_step, draft_rollout, fold_in, init_kv_cache,
+                     keyed_categorical, keyed_draw, prefill,
+                     probs_from_adjusted, sample_token, score_span)
 from .mesh import MODEL_AXES, broadcast
 from .program import Program
 from .spec_decode import accept_span, round_uniforms
@@ -184,19 +185,33 @@ def _build_prefix_insert(cache: KVCache, kv: KVCache, program) -> Program:
 
 
 def _build_decode_tick(params: Params, cache: KVCache, cfg: ModelConfig,
-                       slots: int, axes, program) -> Program:
+                       slots: int, axes, program,
+                       keyed: Optional[Tuple[float, int, float]] = None
+                       ) -> Program:
     """One lock-step decode over the arena, ``decode.decode_step`` itself:
     ``tokens`` (slots,) and ``pos`` (slots,) in, logits (slots, vocab) out.
     Idle slots decode garbage at their stale cursor, as in the
-    reference."""
+    reference. With ``keyed`` (temperature, top_k, top_p) the tick also
+    draws each slot's token on the device, the reference's
+    ``_keyed_sample``: ``keys`` (slots,) int64 in (each tenant's key as
+    ``decode.as_int64`` gives it), the token that will occupy row pos + 1
+    drawn with (key, pos + 1) by ``decode.keyed_draw``, tokens (slots,)
+    out."""
     device = cache[0]["k"].device
     tokens = torch.zeros(slots, dtype=torch.long, device=device)
     pos = torch.zeros(slots, dtype=torch.long, device=device)
+    keys = torch.zeros(slots, dtype=torch.long, device=device)
 
     def body():
-        return decode_step(params, cache, tokens, pos, cfg, *axes)[0]
+        logits = decode_step(params, cache, tokens, pos, cfg, *axes)[0]
+        if keyed is None:
+            return logits
+        return keyed_draw(adjusted_logits(logits, *keyed), keys, pos + 1)
 
-    return program(body, {"tokens": tokens, "pos": pos})
+    inputs = {"tokens": tokens, "pos": pos}
+    if keyed is not None:
+        inputs["keys"] = keys
+    return program(body, inputs)
 
 
 def _build_draft_tick(params: Params, cache: KVCache, cfg: ModelConfig,
@@ -605,7 +620,9 @@ class ServeEngine:
                                     self.device, axes, program)
         elif key[0] == "decode":
             prog = _build_decode_tick(self._weights, self.cache, self.cfg,
-                                      self.slots, axes, program)
+                                      self.slots, axes, program,
+                                      sampling if self.request_keyed
+                                      else None)
         elif key[0] == "draft":
             prog = _build_draft_tick(self._draft_weights, self.draft_cache,
                                      self.draft_cfg, self.slots, self.spec_k,
@@ -735,9 +752,12 @@ class ServeEngine:
         A request-keyed draw binds the tenant's key to the slot here."""
         if self.request_keyed:
             self.slot_key[slot] = fold_in(self._key, rid)
-            return int(self._agree(keyed_sample(
-                logits_row[None, :], [self.slot_key[slot]], [row],
-                self.temperature, self.top_k, self.top_p))[0])
+            keys, rows = (torch.full((1,), x, dtype=torch.long,
+                                     device=self.device)
+                          for x in (as_int64(self.slot_key[slot]), row))
+            return int(self._agree(keyed_draw(adjusted_logits(
+                logits_row[None, :], self.temperature, self.top_k,
+                self.top_p), keys, rows))[0])
         return int(self._sample(logits_row[None, :])[0])
 
     def _maybe_finish(self, slot: int) -> None:
@@ -891,19 +911,16 @@ class ServeEngine:
                 self._tick_speculative(active)
             return len(active)
         # one lock-step decode over the whole arena, idle slots included
-        logits = self._program(("decode",))(tokens=self.next_tok,
-                                            pos=self.pos)
         if self.request_keyed:
-            # the token drawn now occupies row pos + 1 of its slot, the row
-            # the solo position-keyed sampler keys
-            toks = np.zeros(self.slots, dtype=np.int64)
-            toks[active] = keyed_sample(
-                logits[active], [self.slot_key[s] for s in active],
-                self.pos[active] + 1, self.temperature, self.top_k,
-                self.top_p)
-            toks = self._agree(toks)
+            # the tick draws on the device: the token drawn now occupies
+            # row pos + 1 of its slot, the row the solo position-keyed
+            # sampler keys; an idle slot's draw is discarded
+            toks = self._agree(self._program(("decode",))(
+                tokens=self.next_tok, pos=self.pos,
+                keys=[as_int64(k) for k in self.slot_key])).cpu().numpy()
         else:
-            toks = self._sample(logits)
+            toks = self._sample(self._program(("decode",))(
+                tokens=self.next_tok, pos=self.pos))
         self.tick_count += 1
         for s in active:
             self.pos[s] += 1

@@ -9,7 +9,10 @@ used as ``h @ W``; an MoE layer (``n_experts > 0``) holds an f32 ``router``
 thin ``nn.Module`` owning those tensors so ``.to()`` and ``state_dict()``
 work. Training: ``loss_fn``, ``value_and_grad`` (autograd over the dict's
 tensors), ``sgd_train_step``, and ``make_optax_train_step``/
-``make_accum_train_step`` around an optimizer from ``optim``.
+``make_accum_train_step`` around an optimizer from ``optim``. The three
+step builders return programs (:mod:`.program`) that update params and
+state in place: captured as CUDA graphs at their first call on one card,
+their bodies called as they are over a mesh and on the CPU.
 
 Parallelism (``mesh``): ``param_specs`` gives each leaf the reference's
 partition spec, ``shard_params`` cuts this rank's slice, and the forward,
@@ -30,10 +33,13 @@ Every entry point runs on the CUDA card unless the caller passes
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
 import numbers
+import types
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -42,6 +48,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import attention
+from .program import Program
 from .mesh import (BATCH_AXES, DATA_AXES_BUT_FSDP, Axis, Mesh, all_reduce,
                    copy_to, gather, gather_last, local_chunk, reduce_from,
                    scatter_last)
@@ -536,8 +543,11 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in params["layers"]:
         if remat:
+            # no block draws a random number, so no RNG state is saved and
+            # restored around it: a CUDA graph capture refuses that read
             x, aux = checkpoint(_block, x, layer, cfg, attn_fn, dropless, tp,
-                                pos_offset, fsdp, moe, use_reentrant=False)
+                                pos_offset, fsdp, moe, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
             x, aux = _block(x, layer, cfg, attn_fn, dropless, tp, pos_offset,
                             fsdp, moe)
@@ -873,23 +883,181 @@ def _specs_or_none(mesh: Optional[Mesh], cfg: ModelConfig):
             else (param_specs(cfg, mesh), token_spec(mesh)))
 
 
+class _BoundPrograms:
+    """The programs of a train step, built by ``build`` for the tensors of
+    the call that first needs them and kept while later calls pass the same
+    tensors (params and optimizer state updated in place, as the reference
+    donates them) and a key (the tokens' shape and dtype) that has not
+    changed. A call with other tensors, or another key, builds anew: the
+    old programs, and on the card their graph and its pool, are dropped
+    first, and the old tensors are never written again.
+
+    The step keeps no tree alive. Its tensors are known by weak references,
+    and the bodies read the tree of the call in progress from ``tree``
+    (``params``, ``state``), which :meth:`bound` sets for the call and
+    clears after it. So a tree the caller drops is freed at once, before a
+    restore loads the next (the graph's pool goes at the next call). The
+    bodies hold ``tree``, never this object, so no cycle keeps a dropped
+    step's graph for the collector, which could free it in the middle of
+    another capture.
+
+    Without a mesh, on the card, the programs are captured as CUDA graphs;
+    over a mesh (whose collectives stage through the host under gloo) and
+    on the CPU their bodies are called as they are. ``graphs = False``, set
+    before the first call, calls the bodies on the card too: a private
+    hook for comparing the two (``step._programs``)."""
+
+    def __init__(self, mesh: Optional[Mesh], build: Callable):
+        self.mesh = mesh
+        self.build = build
+        self.graphs = True
+        self.tree = types.SimpleNamespace(params=None, state=None)
+        self.programs = None
+        self._refs: Tuple = ()
+        self._key = None
+
+    @contextlib.contextmanager
+    def bound(self, params: Params, state, key, *args):
+        """The programs for ``params`` and ``state`` (None for SGD), built
+        by ``build(self.tree, *args, graphed=)`` if they are not those of
+        the last call, with the tree set for the bodies while the call
+        runs."""
+        held = tree_leaves(params)
+        if state is not None:
+            held = held + tree_leaves(state.mu) + tree_leaves(state.nu)
+        self.tree.params, self.tree.state = params, state
+        try:
+            if (self.programs is None or key != self._key
+                    or len(held) != len(self._refs)
+                    or any(r() is not t for r, t in zip(self._refs, held))):
+                self.programs, self._refs = None, ()
+                graphed = (self.graphs and self.mesh is None
+                           and held[0].device.type == "cuda")
+                self.programs = self.build(self.tree, *args, graphed=graphed)
+                self._refs = tuple(weakref.ref(t) for t in held)
+                self._key = key
+            yield self.programs
+        finally:
+            self.tree.params = self.tree.state = None
+
+
+def _tokens_buffer(tokens: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The static tokens a step program reads (the global batch), on the
+    params' device."""
+    return torch.zeros(tokens.shape, dtype=tokens.dtype, device=like.device)
+
+
+def _sgd_program(b, ts: TrainShardings, tokens: torch.Tensor, lr: float, *,
+                 graphed: bool) -> Program:
+    """The SGD step as a program over the tree ``b`` (``b.params`` while a
+    call runs, :class:`_BoundPrograms`): ``tokens`` in, the global loss out,
+    ``b.params`` updated in place (``p -= lr·g``, the bits of
+    ``sgd_train_step``'s new tree)."""
+    buf = _tokens_buffer(tokens, tree_leaves(b.params)[0])
+
+    def body():
+        loss, grads = ts.mean(*ts(b.params, ts.local(buf)))
+        with torch.no_grad():
+            for p, g in zip(tree_leaves(b.params), tree_leaves(grads)):
+                p.sub_(lr * g.to(p.dtype))
+        return loss
+
+    return Program(body, {"tokens": buf}, graphed=graphed, advances=True)
+
+
+def _adamw_program(b, ts: TrainShardings, tx,
+                   tokens: torch.Tensor, *, graphed: bool):
+    """Value and grad, then the optimizer's device part (``tx.apply_``),
+    as a program: ``tokens`` in, the global loss out, ``b.params`` and
+    ``b.state``'s moments updated in place. Returns (program, the
+    bias-correction buffers it reads), which the host part
+    (``tx.advance_``) fills before each call."""
+    buf = _tokens_buffer(tokens, tree_leaves(b.params)[0])
+    corr = tx.corrections(b.state)
+
+    def body():
+        loss, grads = ts.mean(*ts(b.params, ts.local(buf)))
+        tx.apply_(tree_map(lambda p, g: g.to(p.dtype), b.params, grads),
+                  b.state, b.params, corr)
+        return loss
+
+    return (Program(body, {"tokens": buf}, graphed=graphed, advances=True),
+            corr)
+
+
+def _accum_programs(b, ts: TrainShardings, tx,
+                    micro: torch.Tensor, slots: int, *, graphed: bool):
+    """Gradient accumulation as two programs, the counterpart of the
+    reference's ``lax.scan``. The micro-step (``tokens``, one global
+    microbatch, and its ``index`` in) adds this rank's f32 gradients into a
+    static accumulator and writes its loss at ``index`` of a static
+    (``slots``,) buffer; it is called once a microbatch. The update (``n``,
+    the stack's length, in) divides the sums by ``n``, averages them over
+    the mesh (:meth:`TrainShardings.mean`), applies the optimizer's device
+    part, zeroes the accumulator and the losses for the next stack and
+    returns the mean loss. Returns (micro-step, update, bias-correction
+    buffers)."""
+    like = tree_leaves(b.params)[0]
+    corr = tx.corrections(b.state)
+    buf = _tokens_buffer(micro, like)
+    index = torch.zeros((), dtype=torch.long, device=like.device)
+    n = torch.ones((), dtype=torch.float32, device=like.device)
+    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for p in tree_leaves(b.params)]
+    losses = torch.zeros(slots, dtype=torch.float32, device=like.device)
+
+    def micro_body():
+        loss, grads = ts(b.params, ts.local(buf))
+        with torch.no_grad():
+            for a, g in zip(acc, tree_leaves(grads)):
+                a.add_(g.float())
+            losses.index_copy_(0, index.reshape(1), loss.reshape(1))
+
+    def update_body():
+        it = iter(acc)
+        loss, grads = ts.mean(losses.sum() / n,
+                              tree_map(lambda _: next(it) / n, b.params))
+        tx.apply_(tree_map(lambda p, g: g.to(p.dtype), b.params, grads),
+                  b.state, b.params, corr)
+        with torch.no_grad():
+            for a in acc:
+                a.zero_()
+            losses.zero_()
+        return loss
+
+    return (Program(micro_body, {"tokens": buf, "index": index},
+                    graphed=graphed, advances=True),
+            Program(update_body, {"n": n}, graphed=graphed, advances=True),
+            corr)
+
+
 def make_sharded_train_step(mesh: Optional[Mesh], cfg: ModelConfig,
                             lr: float = 1e-3):
     """SGD over ``mesh`` (axes in slice, dp, fsdp, sp, ep, tp):
     ``step(params, tokens) -> (params, loss)`` on this rank's shards
     (:func:`shard_params`) and the GLOBAL batch (B, S), whose rows the step
-    splits over the batch axes and whose sequence the loss splits over sp;
+    splits over the batch axes (:meth:`TrainShardings.local`), and the
     gradients and the loss are averaged over the batch axes and summed over
     sp (:meth:`TrainShardings.mean`: the loss is the global mean). Returns
     (step, param_specs, token_spec) where the reference returns
-    ``NamedSharding``s."""
+    ``NamedSharding``s.
+
+    The step is a program (:func:`_sgd_program`) that updates ``params`` IN
+    PLACE and returns the same tree, as the reference's step donates them:
+    captured as a CUDA graph at its first call on one card, and replayed
+    after that; its body called as it is over a mesh and on the CPU. A call
+    with other tensors builds it anew for them (:class:`_BoundPrograms`)."""
     ts = TrainShardings(mesh, cfg)
+    programs = _BoundPrograms(
+        mesh, lambda b, tokens, graphed: _sgd_program(b, ts, tokens, lr,
+                                                      graphed=graphed))
 
     def step(params, tokens):
-        loss, grads = ts.mean(*ts(params, ts.local(tokens)))
-        new = tree_map(lambda p, g: p - lr * g.to(p.dtype), params, grads)
-        return new, loss
+        with programs.bound(params, None, (tokens.shape, tokens.dtype),
+                            tokens) as prog:
+            return params, prog(tokens=tokens).clone()
 
+    step._programs = programs
     return (step, *_specs_or_none(mesh, cfg))
 
 
@@ -899,15 +1067,22 @@ def make_optax_train_step(mesh: Optional[Mesh], cfg: ModelConfig, tx):
     loss)``, updating params and state in place. Returns (step, init_opt,
     param_specs, token_spec), both specs None without a mesh. On a mesh as
     :func:`make_sharded_train_step`; ``tx.init`` runs on the shards, so the
-    optimizer state mirrors each (AdamW is elementwise)."""
+    optimizer state mirrors each (AdamW is elementwise). The step is a
+    program (:func:`_adamw_program`), captured and rebound as
+    :func:`make_sharded_train_step`'s, whose host part (``tx.advance_``:
+    the count and the bias corrections) runs before every call."""
     ts = TrainShardings(mesh, cfg)
+    programs = _BoundPrograms(
+        mesh, lambda b, tokens, graphed: _adamw_program(b, ts, tx, tokens,
+                                                        graphed=graphed))
 
     def step(params, opt_state, tokens):
-        loss, grads = ts.mean(*ts(params, ts.local(tokens)))
-        tx.update_(tree_map(lambda p, g: g.to(p.dtype), params, grads),
-                   opt_state, params)
-        return params, opt_state, loss
+        with programs.bound(params, opt_state, (tokens.shape, tokens.dtype),
+                            tokens) as (prog, corr):
+            tx.advance_(opt_state, corr)
+            return params, opt_state, prog(tokens=tokens).clone()
 
+    step._programs = programs
     return (step, tx.init, *_specs_or_none(mesh, cfg))
 
 
@@ -916,28 +1091,33 @@ def make_accum_train_step(mesh: Optional[Mesh], cfg: ModelConfig, tx,
     """Gradient accumulation: one optimizer update per stack of microbatches
     (accum, B, S), gradients summed in f32 and divided by the stack's own
     length (a shorter final stack still averages correctly), the loss the
-    mean over microbatches. ``accum_steps`` is kept for the reference's
+    mean of the microbatches' losses. ``accum_steps`` is the reference's
     signature; as there, the stack sets the count. On a mesh each
     microbatch's B splits over the batch axes (the token spec is (None,
     batch, None)) and the sums are averaged over them once a step. Returns
-    as :func:`make_optax_train_step`."""
+    as :func:`make_optax_train_step`. The step is two programs
+    (:func:`_accum_programs`), the micro-step called a microbatch and the
+    update once a stack, captured and rebound as
+    :func:`make_sharded_train_step`'s; their loss buffer holds
+    ``accum_steps`` microbatches, and a longer stack builds them anew."""
     ts = TrainShardings(mesh, cfg)
+    programs = _BoundPrograms(
+        mesh, lambda b, micro, slots, graphed: _accum_programs(
+            b, ts, tx, micro, slots, graphed=graphed))
 
     def step(params, opt_state, token_stack):
-        token_stack = ts.local(token_stack, 1)
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
-        losses = []
-        for tokens in token_stack:
-            loss, grads = ts(params, tokens)
-            tree_map(lambda a, g: a.add_(g.float()), acc, grads)
-            losses.append(loss)
         n_micro = token_stack.shape[0]
-        loss, grads = ts.mean(torch.stack(losses).mean(),
-                              tree_map(lambda a: a / n_micro, acc))
-        tx.update_(tree_map(lambda p, g: g.to(p.dtype), params, grads),
-                   opt_state, params)
-        return params, opt_state, loss
+        slots = max(accum_steps, n_micro)
+        micro = token_stack[0]
+        with programs.bound(params, opt_state,
+                            (micro.shape, micro.dtype, slots), micro,
+                            slots) as (micro_step, update, corr):
+            for i in range(n_micro):
+                micro_step(tokens=token_stack[i], index=i)
+            tx.advance_(opt_state, corr)
+            return params, opt_state, update(n=n_micro).clone()
+
+    step._programs = programs
 
     specs, tokens = _specs_or_none(mesh, cfg)
     return (step, tx.init, specs,
