@@ -265,13 +265,32 @@ Phases, in order; any failure raises and the script exits non-zero:
     draws on the card, and by an engine running its bodies with every draw
     made on the host (``keyed_categorical``): equal streams, the smallest
     distance of a host uniform from its CDF edges, 32 keyed-tick replays
-    sync-free, tokens/s beside phase 3's greedy engine.
+    sync-free, tokens/s beside phase 3's greedy engine;
+38. the runner of the reference's on-chip lines
+    (``tpusched_torch.bench``) in this process at full width: its
+    ``decode`` and ``spec_solo`` line groups, each printed line parsed back
+    and held to the reference's ``emit`` keys, the runner's card (the
+    ``nvidia-smi`` line of phase 1) and its peak memory, a decode rate
+    with an HBM bandwidth share in (0, 1), and a speculative stream with
+    fewer target streams than plain decoding and no more proposals
+    accepted than drafted, equal to plain greedy decoding's (timed on
+    programs captured by a warm call) or the reference's divergence line
+    at a near tie; then the runner's xl gate,
+    three pure-bf16 AdamW steps (mu and nu bf16) of full-width
+    ``llama_like_xl(seq=4096)`` with a finite, falling loss and finite
+    moments, K1/K2/K3 40/20/20 a step through the captured step's replays,
+    peak memory beside the budget's total; then K1, K2 and K3 timed at its
+    shape (1, 4096, 20, 5, 128) as in phase 7 (phase 2 holds them against
+    their plain versions there, and at (8, 2048, 8, 2, 128) and (2, 8192, 8,
+    2, 128), the runner's other training shapes). The whole runner runs in
+    a call of its own: ``python -m tpusched_torch.bench``.
 
 The second-to-last line is the ``kernels`` JSON object (each kernel also
 with ``ring_launches`` from phase 24, ``ring_shape`` times,
 ``pp_launches`` from phases 27 and 28, ``ckpt_launches`` from phase 29,
-``pp_fsdp_launches`` from phase 33, ``dryrun_launches`` from phase 34
-and ``graphed_train_launches`` from phase 37, K1 ``handoff_launches``
+``pp_fsdp_launches`` from phase 33, ``dryrun_launches`` from phase 34,
+``graphed_train_launches`` from phase 37 and ``xl_shape`` from phase 38,
+K1 ``handoff_launches``
 from phase 30, ``fsdp_serving_launches`` from phase 32 and
 ``graphed_launches`` from phases 13, 35 and 36), the last line the
 ``ok`` JSON object. Imports neither JAX nor
@@ -287,6 +306,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import io
 import itertools
 import json
 import math
@@ -312,6 +332,8 @@ TRACE_DIR = (pathlib.Path(__file__).resolve().parent / "build" / "torch_kernels"
 # two consumer warpgroups and one producer warpgroup of 128 threads
 HOPPER_KERNELS = {"flash_fwd_sm90": (240, 24), "flash_bwd_dkdv_sm90": (232, 40),
                   "flash_bwd_dq_sm90": (240, 24)}
+# llama_like_xl's training shape (b, s, h, kv, d): 20 heads over 5
+XL_SHAPE = (1, 4096, 20, 5, 128)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -372,7 +394,8 @@ def phase_environment(build):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+    smi = smi.splitlines()[0]
+    print(smi)
     t0 = time.perf_counter()
     built = build.build_all()
     build_s = time.perf_counter() - t0
@@ -396,6 +419,7 @@ def phase_environment(build):
     serialized = [line for line in text.splitlines()
                   if "wgmma.mma_async instructions are serialized" in line]
     check(not serialized, f"ptxas serialized wgmma: {serialized}")
+    return smi
 
 
 def ptxas_usage(logs) -> dict:
@@ -470,6 +494,11 @@ def phase_kernel_vs_plain(attention):
         (1, 1024, 4, 1, 128, bf16, True, 0),
         (1, 4096, 8, 2, 128, bf16, True, 0),     # phase 22's per-rank forward
         (1, 8192, 16, 4, 128, bf16, True, 0),    # phase 24's one process
+        # the runner's training lines (tpusched_torch.bench): xl's 20 heads
+        # over 5, llama_like at seq 2048 b8 and at seq 8192 b2
+        XL_SHAPE + (bf16, True, 0),
+        (8, 2048, 8, 2, 128, bf16, True, 0),
+        (2, 8192, 8, 2, 128, bf16, True, 0),
     ] + [  # every length the tiny f32 phases prefill: prompts 4-13, the
            # bucket 16, phase 15's 12-token prefix and prefix + suffix 16-25;
            # phase 19's drafts (one and two layers of tiny's heads) too, and
@@ -519,8 +548,9 @@ def phase_backward_vs_plain(attention):
     the worst 64-row tile's relative L2 error within 2e-2 in bf16 and 1e-4
     in f32 (a tile below 1e-3 per element held to that floor). Run twice on
     the same inputs, both kernels give bitwise equal dq, dk and dv. The
-    last case hands in a D that is not Σ dO∘O: both versions must use it.
-    Returns the training shape's max abs errors (dq, max of dk and dv)."""
+    case with a given D hands in one that is not Σ dO∘O: both versions
+    must use it. Returns the max abs errors (dq, max of dk and dv) at the
+    training shape and at :data:`XL_SHAPE`."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # (b, s, h, kv, d, dtype, causal, pad, given dd)
@@ -547,8 +577,12 @@ def phase_backward_vs_plain(attention):
         (1, 8192, 16, 4, 128, bf16, True, 0, False),   # phase 24's one process
         (2, 32, 2, 1, 32, f32, True, 0, False),        # phase 22's tiny rank
         (4, 32, 4, 2, 32, f32, True, 0, False),        # and its whole model
+        # the runner's training lines, as in phase 2
+        XL_SHAPE + (bf16, True, 0, False),
+        (8, 2048, 8, 2, 128, bf16, True, 0, False),
+        (2, 8192, 8, 2, 128, bf16, True, 0, False),
     ]
-    main_err = None
+    main_err, xl_err = None, None
     for b, s, h, kv, d, dtype, causal, pad, given_dd in cases:
         q, k, v = rand_qkv(gen, b, s, h, kv, d, dtype, pad)
         do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
@@ -585,6 +619,8 @@ def phase_backward_vs_plain(attention):
                   f"plain version at {(b, s, h, kv, d, dtype, causal)}")
         if main_err is None:
             main_err = (errs[0], max(errs[1:]))
+        if (b, s, h, kv, d) == XL_SHAPE:
+            xl_err = (errs[0], max(errs[1:]))
     # a dO the kernels cannot take is refused, not run
     q, k, v = rand_qkv(gen, 1, 64, 2, 2, 64, bf16)
     out, lse = attention.flash_forward(q, k, v, True)
@@ -594,7 +630,7 @@ def phase_backward_vs_plain(attention):
         pass
     else:
         raise RuntimeError("flash backward took a dO of another dtype")
-    return main_err
+    return main_err, xl_err
 
 
 def grad_rel_err(got, ref) -> float:
@@ -4470,6 +4506,76 @@ def phase_train_programs(attention, decode, optim, serve, workload,
             **summary}
 
 
+EMIT_KEYS = ["metric", "value", "unit", "vs_baseline"]
+
+
+def runner_line(bench, ctx, name) -> dict:
+    """The runner's one-line group ``name`` run in this process on
+    ``ctx``: its printed line echoed and parsed back, held to the
+    reference's ``emit`` keys first, then the runner's ``line``, ``card``
+    and ``peaks_gib``."""
+    buf = io.StringIO()
+    ctx.start(name)
+    with contextlib.redirect_stdout(buf):
+        bench.LINES[name](ctx)
+    texts = buf.getvalue().splitlines()
+    print("\n".join(texts))
+    check(len(texts) == 1, f"runner line {name} printed {len(texts)} lines")
+    rec = json.loads(texts[0])
+    check(list(rec)[:4] == EMIT_KEYS and isinstance(rec["metric"], str)
+          and rec["line"] == name and rec["card"] == ctx.card
+          and all(isinstance(p, list) and len(p) == 2 and p[0] > 0
+                  for p in rec["peaks_gib"].values()),
+          f"runner line {name}: fields {rec}")
+    return rec
+
+
+def phase_runner(attention, bench, budget, smi: str) -> dict:
+    """Phase 38 (module docstring). Returns the xl gate's launches over
+    its steps, the steps, and the kernels' times at :data:`XL_SHAPE`."""
+    t0 = time.perf_counter()
+    ctx = bench.context()
+    check(ctx.card == smi, f"the runner reads the card as {ctx.card!r}, "
+          f"nvidia-smi as {smi!r}")
+    decode_line = runner_line(bench, ctx, "decode")
+    check(decode_line["unit"] == "tokens/s" and decode_line["value"] > 0
+          and decode_line["vs_baseline"] == 1.0
+          and 0 < decode_line["hbm_bandwidth_utilization"] < 1,
+          f"decode line: {decode_line}")
+    spec_line = runner_line(bench, ctx, "spec_solo")
+    check(spec_line["plain_calls"] == ctx.sizes.spec_steps + 1
+          and spec_line["target_calls"] < spec_line["plain_calls"]
+          and spec_line["accepted"] <= spec_line["drafted"],
+          f"spec_solo line: {spec_line}")
+    if spec_line["value"] is None:      # the reference's divergence line
+        check(spec_line["near_tie"]["margin"] <= bench.NEAR_TIE
+              and "DIVERGED" in spec_line["metric"],
+              f"spec_solo line: {spec_line}")
+    else:
+        check(spec_line["unit"] == "tokens/s" and spec_line["value"] > 0
+              and spec_line["spec_s"] > 0 and spec_line["plain_s"] > 0,
+              f"spec_solo line: {spec_line}")
+    # the xl gate: pure-bf16 AdamW on full-width llama_like_xl, launches
+    # counted through the captured step's replays
+    ctx.start("adamw_xl gate")
+    xl = ctx.model("llama_like_xl", ctx.sizes.big_seq)
+    gate = ctx.measured("gate", bench.xl_gate, ctx, xl)
+    steps = bench.XL_GATE_STEPS
+    per_step = [2 * xl.n_layers, xl.n_layers, xl.n_layers]    # remat: K1 twice
+    check(gate["flash_launches"] == [steps * n for n in per_step]
+          and gate["mu_dtype"] == gate["nu_dtype"] == "bfloat16",
+          f"xl gate: {gate}, wanted {per_step} launches a step")
+    print(json.dumps({"xl_gate": gate, "per_step": per_step,
+                      "peak_allocated_reserved_gib": ctx.peaks["gate"],
+                      "budget_total_gib": budget.train_hbm_breakdown(
+                          xl, 1, mu_dtype="bf16").total_gib}))
+    ctx.start("xl timing")
+    timing = phase_training_timing(attention, XL_SHAPE, "xl training shape")
+    print(json.dumps({"phase_38_s": time.perf_counter() - t0}))
+    return {"launches": gate["flash_launches"], "steps": steps,
+            "timing": timing}
+
+
 def ab_turn(tree: str, other_root: str) -> None:
     """One turn of ``--ab``, in a process of its own: builds the kernels of
     the ``tpusched_torch`` on PYTHONPATH, then prints one JSON line of
@@ -4561,14 +4667,14 @@ def main(argv) -> int:
     if argv:
         print(__doc__, file=sys.stderr)
         return 2
-    from tpusched_torch import (_build, attention, budget, checkpoint, data,
-                                decode, entry, measure, optim, serve,
-                                spec_decode, workload)
+    from tpusched_torch import (_build, attention, bench, budget,
+                                checkpoint, data, decode, entry, measure,
+                                optim, serve, spec_decode, workload)
     from tpusched_torch import mesh as tmesh
 
-    phase_environment(_build)
+    smi = phase_environment(_build)
     max_abs_err = phase_kernel_vs_plain(attention)
-    bwd_err = phase_backward_vs_plain(attention)
+    bwd_err, xl_bwd_err = phase_backward_vs_plain(attention)
     t_start = time.perf_counter()
     mono = phase_serving(attention, serve, workload)
     phase_parity(attention, decode, serve, workload)
@@ -4683,6 +4789,20 @@ def main(argv) -> int:
     zero_counts(attention)
     train_programs = phase_train_programs(attention, decode, optim, serve,
                                           workload, mono)
+    # the runner's lines and the xl gate, after every earlier phase so
+    # that those run as before
+    zero_counts(attention)
+    runner = phase_runner(attention, bench, budget, smi)
+    xl_timing = runner["timing"]
+    xl_timing["flash_bwd_dq"]["max_abs_err"] = xl_bwd_err[0]
+    xl_timing["flash_bwd_dkdv"]["max_abs_err"] = xl_bwd_err[1]
+    xl = {name: {"xl_shape": {
+        "shape": list(XL_SHAPE), "causal": True,
+        "launches": {"gate_per_step": runner["launches"][j]
+                     // runner["steps"],
+                     "gate_steps": runner["steps"]}, **xl_timing[name]}}
+        for j, name in enumerate(("flash_fwd", "flash_bwd_dkdv",
+                                  "flash_bwd_dq"))}
     graphed_launches = {
         "prefix_registration_replay": later["full_width"][
             "prefix_registration_launches"],
@@ -4743,7 +4863,7 @@ def main(argv) -> int:
          "pp_fsdp_launches": pp_fsdp_launches,
          "dryrun_launches": dryrun_launches[0],
          "graphed_launches": graphed_launches,
-         "graphed_train_launches": graphed_train(0)},
+         "graphed_train_launches": graphed_train(0), **xl["flash_fwd"]},
         {"name": "flash_bwd_dkdv", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "218",
          "launches": train_launches[1], "max_abs_err": bwd_err[1],
@@ -4753,7 +4873,7 @@ def main(argv) -> int:
          **ring["flash_bwd_dkdv"], "pp_launches": pp_launches,
          **ckpt["flash_bwd_dkdv"], "pp_fsdp_launches": pp_fsdp_launches,
          "dryrun_launches": dryrun_launches[1],
-         "graphed_train_launches": graphed_train(1)},
+         "graphed_train_launches": graphed_train(1), **xl["flash_bwd_dkdv"]},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "265",
          "launches": train_launches[2], "max_abs_err": bwd_err[0],
@@ -4763,7 +4883,7 @@ def main(argv) -> int:
          **ring["flash_bwd_dq"], "pp_launches": pp_launches,
          **ckpt["flash_bwd_dq"], "pp_fsdp_launches": pp_fsdp_launches,
          "dryrun_launches": dryrun_launches[2],
-         "graphed_train_launches": graphed_train(2)}]}))
+         "graphed_train_launches": graphed_train(2), **xl["flash_bwd_dq"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

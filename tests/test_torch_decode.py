@@ -102,6 +102,26 @@ def test_generate_greedy_tokens_equal_reference(attn, n_kv_heads):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
+@pytest.mark.parametrize("attn", ["naive", "flash"])
+def test_a_generation_keeps_its_step_across_calls(attn):
+    """A ``Generation`` called on three prompts of its shape gives
+    jaxbridge's greedy tokens each time from the one step program it
+    built, and hands out copies that a later call leaves alone; a prompt
+    of another shape is refused."""
+    jcfg, jp, cfg, p = _model(attn, 2)
+    gen = decode.Generation(p, cfg, 2, 9, 7, "cpu")
+    step, got = gen.step, []
+    for seed in (4, 5, 4):
+        prompt = _tokens(seed, (2, 9))
+        got.append(gen(torch.from_numpy(prompt).long()))
+        ref = jdec.generate(jp, jnp.asarray(prompt), jcfg, steps=7)
+        np.testing.assert_array_equal(got[-1].numpy(), np.asarray(ref))
+        assert gen.step is step
+    np.testing.assert_array_equal(got[0].numpy(), got[2].numpy())
+    with pytest.raises(ValueError, match="shape"):
+        gen(torch.from_numpy(_tokens(4, (2, 8))).long())
+
+
 @pytest.mark.parametrize("temperature,top_k,top_p", [
     (1.0, 0, 1.0), (0.7, 5, 1.0), (1.3, 0, 0.8), (0.9, 40, 0.5),
     (1.0, 0, 0.0), (1.0, 256, 0.999)])

@@ -2,11 +2,13 @@
 included), and not chip_smoke.py, imports JAX, optax, orbax or anything of
 the tpusched package (the machine with the card has none of them); the
 programs (``program``), the serving, speculative, tensor-parallel, fsdp×sp, expert-parallel and
-pipelined paths, the checkpoints, the token stream, the budget and the
-goodput reporter run with all of them refused."""
+pipelined paths, the checkpoints, the token stream, the budget, the
+goodput reporter and the runner of the reference's on-chip lines
+(``tpusched_torch.bench``) run with all of them refused."""
 from __future__ import annotations
 
 import ast
+import json
 import os
 import pathlib
 import subprocess
@@ -411,3 +413,29 @@ def test_entry_points_run_with_jax_unimportable(tmp_path):
         "train→export→serve"]
     assert all(line.endswith("OK") for line in lines[1:-1])
     assert lines[-1] == "[]"
+
+
+def test_bench_command_line_runs_with_jax_unimportable():
+    """With jax, optax, orbax and tpusched refused at import, the runner's
+    command line (``tpusched_torch.bench.main``, ``--device cpu``) runs its
+    line groups on the CPU at the tests' tiny sizes, each line a JSON
+    object with the reference's ``emit`` keys first, and has loaded none
+    of them."""
+    prog = REFUSE_ORBAX + (
+        "import functools\n"
+        "from tpusched_torch import bench\n"
+        "bench.context = functools.partial(bench.context, tiny=True)\n"
+        "assert bench.main(['--device', 'cpu', '--lines',"
+        " 'adamw_xl,decode,spec_solo,slo']) == 0\n"
+        f"print({LOADED})\n")
+    r = subprocess.run([sys.executable, "-c", prog], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stderr[-2000:]
+    lines = r.stdout.strip().splitlines()
+    assert lines[-1] == "[]"
+    recs = [json.loads(line) for line in lines[:-1]]
+    assert [rec["line"] for rec in recs] == [
+        "adamw_xl", "decode", "spec_solo", "slo", "slo"]
+    assert all(list(rec)[:4] == ["metric", "value", "unit", "vs_baseline"]
+               for rec in recs)

@@ -197,6 +197,31 @@ def _program_calls(monkeypatch):
     return calls
 
 
+@pytest.mark.parametrize("draft", ["random", "self", "truncated"])
+def test_a_speculation_keeps_its_programs_across_calls(models, draft,
+                                                       monkeypatch):
+    """A ``Speculation`` called on three prompts of its length gives
+    jaxbridge's tokens and stats each time, running the programs it built
+    at construction (no program is made by a call); a prompt of another
+    length is refused."""
+    jcfg, jp, cfg, p = models["target"]
+    djcfg, djp, dcfg, dp = models[draft]
+    spec = sd.Speculation(p, cfg, dp, dcfg, 8, 11, 3, "cpu")
+    built = []
+    monkeypatch.setattr(Program, "__init__", lambda *a, **kw: built.append(a))
+    for seed in (4, 5, 4):
+        prompt = _prompt(seed, 8)
+        got, stats = spec(torch.from_numpy(prompt).long())
+        ref, ref_stats = jsd.speculative_generate(jp, jcfg, djp, djcfg,
+                                                  jnp.asarray(prompt), 11,
+                                                  k=3)
+        np.testing.assert_array_equal(got, np.asarray(ref))
+        assert stats == ref_stats
+    assert built == []
+    with pytest.raises(ValueError, match="shape"):
+        spec(torch.from_numpy(_prompt(4, 9)).long())
+
+
 @pytest.mark.parametrize("draft", ["random", "self"])
 def test_speculative_generate_runs_its_rounds_as_programs(models, draft,
                                                           monkeypatch):

@@ -369,6 +369,51 @@ def _sampled_step(params: Params, cache: KVCache, tok: torch.Tensor,
                    advances=True)
 
 
+class Generation:
+    """Greedy generation of ``steps`` steps for prompts of one shape
+    (``batch``, ``s0``), its cache and its step program kept between calls:
+    the step (:func:`_greedy_step`) is captured at the first call and
+    replayed by every later one, as the reference's scanned loop stays
+    compiled between calls. :func:`generate` builds one for a call. ``tp``
+    as in :func:`sample`."""
+
+    def __init__(self, params: Params, cfg: ModelConfig, batch: int,
+                 s0: int, steps: int, device=None,
+                 tp: Optional[Axis] = None):
+        self.params = cast_params_for_compute(params, cfg)
+        self.cfg, self.tp = cfg, tp
+        self.shape, self.steps = (batch, s0), steps
+        self.cache = init_kv_cache(cfg, batch, s0 + steps, device=device,
+                                   tp=tp)
+        device = self.cache[0]["k"].device
+        self.out = torch.empty((batch, steps + 1), dtype=torch.long,
+                               device=device)
+        self.pos = torch.full((), s0, dtype=torch.long, device=device)
+        self.step = _greedy_step(self.params, self.cache,
+                                 torch.zeros(batch, dtype=torch.long,
+                                             device=device),
+                                 self.pos, self.out, s0, cfg, tp)
+
+    @torch.no_grad()
+    def __call__(self, prompt: torch.Tensor) -> torch.Tensor:
+        """(batch, steps + 1) tokens for ``prompt`` (batch, s0), copied out
+        of the buffer that the next call overwrites."""
+        if tuple(prompt.shape) != self.shape:
+            raise ValueError(f"a prompt of shape {tuple(prompt.shape)} for "
+                             f"a generation of prompts {self.shape}")
+        s0 = self.shape[1]
+        logits, _ = prefill(self.params, self.cache, prompt, self.cfg,
+                            self.tp)
+        tok = torch.argmax(logits[:, s0 - 1], dim=-1)
+        self.out[:, 0] = tok
+        if self.steps:
+            self.step.capture()
+        for t in range(self.steps):
+            # a capture's warm-up takes one step: the first call rewinds
+            self.step(**({"tok": tok, "pos": s0} if t == 0 else {}))
+        return self.out.clone()
+
+
 @torch.no_grad()
 def sample(params: Params, prompt: torch.Tensor, cfg: ModelConfig,
            steps: int, generator: Optional[torch.Generator] = None,
@@ -381,35 +426,25 @@ def sample(params: Params, prompt: torch.Tensor, cfg: ModelConfig,
     the ranks feed the same token even where their generators would
     not draw alike.
 
-    Greedy decoding replays one captured step (:func:`_greedy_step`) per
-    token, with the token, the position and the output kept on the card;
+    Greedy decoding is a :class:`Generation` built for the call: it
+    replays one captured step (:func:`_greedy_step`) per token, with the
+    token, the position and the output kept on the card;
     sampling (temperature > 0, a ``torch.Generator``) likewise replays
     :func:`_sampled_step`, the draw inside it. Under ``tp`` sampling runs
     its steps eagerly, each draw rank 0's, broadcast."""
-    params = cast_params_for_compute(params, cfg)
     b, s0 = prompt.shape
+    if temperature == 0.0:
+        return Generation(params, cfg, b, s0, steps, prompt.device,
+                          tp)(prompt)
+    params = cast_params_for_compute(params, cfg)
     cache = init_kv_cache(cfg, b, s0 + steps, device=prompt.device, tp=tp)
 
     def draw(logits):
-        tok = sample_token(logits, generator, temperature, top_k, top_p)
-        # argmax of logits that are whole on every rank needs no broadcast
-        return tok if temperature == 0.0 else broadcast(tok, tp)
+        return broadcast(sample_token(logits, generator, temperature, top_k,
+                                      top_p), tp)
 
     logits, cache = prefill(params, cache, prompt, cfg, tp)
     tok = draw(logits[:, s0 - 1])
-    if temperature == 0.0:
-        out = torch.empty((b, steps + 1), dtype=torch.long,
-                          device=prompt.device)
-        out[:, 0] = tok
-        pos = torch.full((), s0, dtype=torch.long, device=prompt.device)
-        step = _greedy_step(params, cache, tok.clone(), pos, out, s0, cfg,
-                            tp)
-        if steps:
-            step.capture()
-        for t in range(steps):
-            # the capture's warm-up took one step: the first call rewinds
-            step(**({"tok": tok, "pos": s0} if t == 0 else {}))
-        return out
     if tp is None:
         out = torch.empty((b, steps + 1), dtype=torch.long,
                           device=prompt.device)

@@ -20,14 +20,15 @@ written again before any query attends it.
 A round's device work runs as programs (:mod:`.program`) over the two
 caches, with the cursors ``t_pos`` and ``d_pos`` copied in, the
 counterparts of the reference's jitted ``_span``, ``_draft`` and
-``_sampling_draft``: built once a call, captured as CUDA graphs on the
-card and replayed every round; on the CPU the bodies run as they are. The
-greedy draft keeps one program per catch-up feed length (1 or 2 rows), as
-the reference compiles one per shape. A sampled round is three programs,
-since its draws are made on the host: the draft's ingest, its one-token
-step replayed k - 1 times, and the verify span's adjusted logits. The
-prompt's prefill is a plain call; the prompt's device is the device
-everything runs on.
+``_sampling_draft``: built once a call (or once for a
+:class:`Speculation`, which keeps them between calls), captured as CUDA
+graphs on the card and replayed every round; on the CPU the bodies run as
+they are. The greedy draft keeps one program per catch-up feed length (1
+or 2 rows), as the reference compiles one per shape. A sampled round is
+three programs, since its draws are made on the host: the draft's ingest,
+its one-token step replayed k - 1 times, and the verify span's adjusted
+logits. The prompt's prefill is a plain call; the prompt's device is the
+device everything runs on.
 """
 from __future__ import annotations
 
@@ -48,6 +49,11 @@ def _check(prompt: torch.Tensor, target_cfg: ModelConfig,
            draft_cfg: ModelConfig, k: int, single: str) -> None:
     if prompt.shape[0] != 1:
         raise ValueError(single)
+    _check_pair(target_cfg, draft_cfg, k)
+
+
+def _check_pair(target_cfg: ModelConfig, draft_cfg: ModelConfig,
+                k: int) -> None:
     if target_cfg.vocab != draft_cfg.vocab:
         raise ValueError("draft and target must share a vocabulary")
     if k < 1:
@@ -104,6 +110,79 @@ def _stats(target_calls: int, total: int, drafted: int,
             "accept_rate": accepted / max(drafted, 1)}
 
 
+class Speculation:
+    """Greedy speculative decoding of ``steps`` steps for one-sequence
+    prompts of length ``s0``, its device state kept between calls: the two
+    caches and the round programs over them (the greedy draft of a 1- and
+    a 2-row catch-up feed, and the target's span), built once and replayed
+    by every call, as the reference's jitted programs stay compiled between
+    calls. :func:`speculative_generate` builds one for a call."""
+
+    def __init__(self, target_params: Params, target_cfg: ModelConfig,
+                 draft_params: Params, draft_cfg: ModelConfig, s0: int,
+                 steps: int, k: int = 4, device=None):
+        _check_pair(target_cfg, draft_cfg, k)
+        self.target_cfg, self.draft_cfg = target_cfg, draft_cfg
+        self.s0, self.total, self.k = s0, int(steps) + 1, k
+        max_seq = s0 + self.total + k + 2   # headroom for the last overshoot
+        self.t_cache = init_kv_cache(target_cfg, 1, max_seq, device=device)
+        self.d_cache = init_kv_cache(draft_cfg, 1, max_seq, device=device)
+        self.target_params = cast_params_for_compute(target_params,
+                                                     target_cfg)
+        self.draft_params = cast_params_for_compute(draft_params, draft_cfg)
+        program = _program_factory(self.t_cache[0]["k"].device)
+        self.drafts = {n: _greedy_draft_program(
+            self.draft_params, self.d_cache, draft_cfg, n, k, program)
+            for n in (1, 2)}
+        self.verify = _greedy_span_program(self.target_params, self.t_cache,
+                                           target_cfg, k, program)
+
+    @torch.no_grad()
+    def __call__(self, prompt: torch.Tensor) -> Tuple[np.ndarray, dict]:
+        """(tokens (1, steps + 1) int32, stats) for ``prompt`` (1, s0), as
+        :func:`speculative_generate` returns them."""
+        if tuple(prompt.shape) != (1, self.s0):
+            raise ValueError(f"a prompt of shape {tuple(prompt.shape)} for "
+                             f"a speculation of prompts (1, {self.s0})")
+        s0, total, k = self.s0, self.total, self.k
+        t_logits, _ = prefill(self.target_params, self.t_cache, prompt,
+                              self.target_cfg)
+        prefill(self.draft_params, self.d_cache, prompt, self.draft_cfg)
+        out = [int(torch.argmax(t_logits[0, s0 - 1]))]
+
+        # cursors: the next write row of each cache. At every round's start
+        # rows [0, t_pos) of the target cache and [0, d_pos) of the draft
+        # cache hold the accepted stream; out's last t_pos - d_pos + 1
+        # tokens are what the draft has not ingested yet
+        t_pos = d_pos = s0
+        target_calls = 1                      # the prefill gave out[0]
+        drafted = accepted = 0
+        while len(out) < total:
+            feed = out[len(out) - (t_pos - d_pos) - 1:]
+            catch_up = len(feed)          # 1, or 2 after a full acceptance
+            # one host read for all proposals
+            span = self.drafts[catch_up](feed=[feed], pos=d_pos)[0].tolist()
+            drafted += k
+            # one target stream scores [last emitted] + span at
+            # t_pos..t_pos+k; row i's argmax answers row t_pos+i+1, row k
+            # is the bonus
+            t_arg = self.verify(scored=[[out[-1]] + span],
+                                pos=t_pos)[0].tolist()
+            target_calls += 1
+            n_ok = 0
+            while n_ok < k and span[n_ok] == t_arg[n_ok]:
+                n_ok += 1
+            accepted += n_ok
+            out.extend(span[:n_ok])
+            out.append(t_arg[n_ok])       # the correction, or the bonus
+            # the target's valid rows reach t_pos + n_ok; the draft's: the
+            # catch-up plus the accepted proposals it fed (never span[k-1])
+            t_pos += n_ok + 1
+            d_pos += catch_up + min(n_ok, k - 1)
+        tokens = np.asarray([out[:total]], dtype=np.int32)
+        return tokens, _stats(target_calls, total, drafted, accepted)
+
+
 @torch.no_grad()
 def speculative_generate(target_params: Params, target_cfg: ModelConfig,
                          draft_params: Params, draft_cfg: ModelConfig,
@@ -117,52 +196,8 @@ def speculative_generate(target_params: Params, target_cfg: ModelConfig,
     _check(prompt, target_cfg, draft_cfg, k,
            "speculative_generate is single-sequence (b=1); batched "
            "speculation belongs in the serve engine")
-    device = prompt.device
-    total = int(steps) + 1
-    s0 = prompt.shape[1]
-    max_seq = s0 + total + k + 2          # headroom for the last overshoot
-    t_cache = init_kv_cache(target_cfg, 1, max_seq, device=device)
-    d_cache = init_kv_cache(draft_cfg, 1, max_seq, device=device)
-    target_params = cast_params_for_compute(target_params, target_cfg)
-    draft_params = cast_params_for_compute(draft_params, draft_cfg)
-    t_logits, t_cache = prefill(target_params, t_cache, prompt, target_cfg)
-    prefill(draft_params, d_cache, prompt, draft_cfg)
-    out = [int(torch.argmax(t_logits[0, s0 - 1]))]
-    program = _program_factory(device)
-    drafts = {n: _greedy_draft_program(draft_params, d_cache, draft_cfg, n,
-                                       k, program) for n in (1, 2)}
-    verify = _greedy_span_program(target_params, t_cache, target_cfg, k,
-                                  program)
-
-    # cursors: the next write row of each cache. At every round's start rows
-    # [0, t_pos) of the target cache and [0, d_pos) of the draft cache hold
-    # the accepted stream; out's last t_pos - d_pos + 1 tokens are what the
-    # draft has not ingested yet
-    t_pos = d_pos = s0
-    target_calls = 1                      # the prefill gave out[0]
-    drafted = accepted = 0
-    while len(out) < total:
-        feed = out[len(out) - (t_pos - d_pos) - 1:]
-        catch_up = len(feed)              # 1, or 2 after a full acceptance
-        # one host read for all proposals
-        span = drafts[catch_up](feed=[feed], pos=d_pos)[0].tolist()
-        drafted += k
-        # one target stream scores [last emitted] + span at t_pos..t_pos+k;
-        # row i's argmax answers row t_pos+i+1, row k is the bonus
-        t_arg = verify(scored=[[out[-1]] + span], pos=t_pos)[0].tolist()
-        target_calls += 1
-        n_ok = 0
-        while n_ok < k and span[n_ok] == t_arg[n_ok]:
-            n_ok += 1
-        accepted += n_ok
-        out.extend(span[:n_ok])
-        out.append(t_arg[n_ok])           # the correction, or the bonus
-        # the target's valid rows reach t_pos + n_ok; the draft's: the
-        # catch-up plus the accepted proposals it fed (never span[k-1])
-        t_pos += n_ok + 1
-        d_pos += catch_up + min(n_ok, k - 1)
-    tokens = np.asarray([out[:total]], dtype=np.int32)
-    return tokens, _stats(target_calls, total, drafted, accepted)
+    return Speculation(target_params, target_cfg, draft_params, draft_cfg,
+                       prompt.shape[1], steps, k, prompt.device)(prompt)
 
 
 # -- distribution-preserving speculative SAMPLING -----------------------------
