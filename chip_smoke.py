@@ -191,9 +191,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     rank (12 x (8 + 2) = 120), every matrix, embed and out half its size
     on a rank, each stream equal to the start of phase 3's or first
     differing at a near tie; then the same weights
-    exported and read back as fsdp shards by ``load_for_serving(mesh=)``:
-    the same launches and the in-memory engine's streams exactly; peak
-    memory a rank beside phase 3's, drain and load seconds;
+    exported and read back as fsdp shards by ``load_for_serving(mesh=)``,
+    served through the engine's programs' bodies (the in-memory engine
+    runs its captured chains, phase 39): the same launches and the
+    in-memory engine's streams exactly; peak memory a rank beside phase
+    3's, drain and load seconds;
 33. phase 27's GPipe step on {"pp": 2, "fsdp": 2}, four gloo ranks, two
     steps: K1 = K2 = K3 = 24 a stage a step, every leaf over fsdp half its
     stage's size, the first loss within 1e-6 relative of phase 27's; peak
@@ -283,14 +285,47 @@ Phases, in order; any failure raises and the script exits non-zero:
     shape (1, 4096, 20, 5, 128) as in phase 7 (phase 2 holds them against
     their plain versions there, and at (8, 2048, 8, 2, 128) and (2, 8192, 8,
     2, 128), the runner's other training shapes). The whole runner runs in
-    a call of its own: ``python -m tpusched_torch.bench``.
+    a call of its own: ``python -m tpusched_torch.bench``;
+39. the engine, ``generate(tp=)`` and ``sample(tp=)`` over a mesh as
+    chains of CUDA graphs broken at each collective, which the serving
+    of phases 20, 21, 26, 30, 32 and 34 now also runs (phases 20, 26 and
+    32 hold each program's segments to its collectives + 1): on two gloo
+    ranks sharing the card, full-width ``llama_like_big`` on {"tp": 2}
+    with phase 3's requests, weights and geometry, run graphed and
+    drained through its bodies (the private hook ``_graphs``), the decode
+    tick and
+    both prefill buckets replay == body bitwise after three ticks, the
+    graphed engine run to tick 24 (phase 20 drains it whole, K1 216 a rank
+    through the replays), the bodies' drain K1 216 a rank and its streams
+    equal to phase 20's and to the graphed run's so far, tick 10 traced
+    each way on rank 0, the ticks' mean and median ms printed; the greedy
+    round with a self-draft (the target's weights propose, so drafts are
+    accepted and rejected; a random ``llama_like`` draft accepts none) on
+    phase 3's 16 whole requests drained both ways, untraced: the draft
+    tick and verify span replay == body bitwise, the two drains' streams
+    equal whole, their rounds and stats equal, some draft accepted, K1 12
+    a target or draft prefill, the streams equal to plain decoding's
+    counted (a bf16 near tie may flip them); tiny f32 (TF32
+    off) on {"tp": 2}: chunked, prefix, int8, request-keyed and
+    sampled-round engines, ``generate(tp=)`` and ``sample(tp=)`` graphed ==
+    through their bodies; ``mixtral_like`` on {"ep": 2} with phase 26's
+    traffic through its bodies, equal to phase 26's graphed drain (phase
+    32 holds fsdp's chains against its bodies). Every captured program's
+    segments are held to the collectives its warm-up ran + 1 (a program
+    counts them; ``tests/test_torch_mesh_program.py`` pins each program's
+    collectives on the CPU). Gloo through the host: these times say
+    nothing of NCCL or NVLink.
+
+Each group of phases prints its seconds (``phases_20_22_s`` ...
+``phases_32_34_s``, ``phases_20_34_s``, ``phases_35_39_s``) and the
+script its own (``script_s``).
 
 The second-to-last line is the ``kernels`` JSON object (each kernel also
 with ``ring_launches`` from phase 24, ``ring_shape`` times,
 ``pp_launches`` from phases 27 and 28, ``ckpt_launches`` from phase 29,
 ``pp_fsdp_launches`` from phase 33, ``dryrun_launches`` from phase 34,
 ``graphed_train_launches`` from phase 37 and ``xl_shape`` from phase 38,
-K1 ``handoff_launches``
+K1 ``mesh_graphed_launches`` from phase 39, ``handoff_launches``
 from phase 30, ``fsdp_serving_launches`` from phase 32 and
 ``graphed_launches`` from phases 13, 35 and 36), the last line the
 ``ok`` JSON object. Imports neither JAX nor
@@ -1618,19 +1653,25 @@ def phase_spec_solo(attention, decode, spec_decode, workload,
     return launches
 
 
-def drain_traced(eng, label, device, at=10):
-    """Drain ``eng`` tick by tick as ``run_until_drained`` does, tracing the
-    tick numbered ``at`` (:func:`trace_summary`, with the active slots);
-    returns the trace and the fenced wall time of the untraced ticks."""
+def drain_traced(eng, label, device, at=10, times=None, until=None):
+    """Drain ``eng`` tick by tick as ``run_until_drained`` does (or stop
+    once its tick count reaches ``until``), tracing the tick numbered
+    ``at`` (:func:`trace_summary`, with the active slots); returns the
+    trace and the fenced wall time of the untraced ticks, each of which is
+    also appended to ``times`` when given."""
     trace, untraced_s = None, 0.0
-    while eng.queue or any(r is not None for r in eng.req):
+    while ((eng.queue or any(r is not None for r in eng.req))
+           and (until is None or eng.tick_count < until)):
         if eng.tick_count == at and label:
             with profiler() as prof:
                 wall = fenced_s(eng.tick)
             trace = trace_summary(prof, label, wall, tick=at, active=sum(
                 r is not None for r in eng.req))
         else:
-            untraced_s += fenced_s(eng.tick)
+            tick_s = fenced_s(eng.tick)
+            untraced_s += tick_s
+            if times is not None:
+                times.append(tick_s)
         check(eng.tick_count < 100_000, "serving did not drain")
     return trace, untraced_s
 
@@ -1885,7 +1926,7 @@ def tp_serve(mesh, name):
                 ticks=eng.tick_count, kv_heads=int(eng.cache[0]["k"].shape[2]),
                 tokens={c.rid: c.tokens for c in done},
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-                drain_s=drain_s)
+                drain_s=drain_s, segments=program_segments(eng))
 
 
 def all_reduce_ms(mesh) -> dict:
@@ -2095,6 +2136,7 @@ def phase_tp(attention, decode, serve, workload, tmesh, mono, moe_mono,
                   f"tp {tp}: {run['launches']} flash launches for "
                   f"{run['prefills']} prefills")
             check(run["kv_heads"] == cfg.kv_heads // tp, "arena heads")
+            check_segments(run["segments"], f"llama_like_big at tp {tp}")
         ties = {}
         for rid, toks in runs[0]["tokens"].items():
             if not np.array_equal(toks, mono["tokens"][rid]):
@@ -2115,12 +2157,14 @@ def phase_tp(attention, decode, serve, workload, tmesh, mono, moe_mono,
             "unsharded_peak_mem_gib": mono["peak_mem_gib"],
             "drain_s_per_rank": [r["drain_s"] for r in runs],
             "all_reduce_ms_per_rank": [r["all_reduce_ms"] for r in ranks],
-            "drain_s_note": GLOO_NOTE}))
+            "segments": runs[0]["segments"], "drain_s_note": GLOO_NOTE}))
     del params
     ranks_agree(two, "mixtral_like", "mixtral_like at tp 2")
     moe = [r["mixtral_like"] for r in two]
     check(all(r["launches"] == 0 for r in moe),
           "mixtral_like at tp 2 launched the flash kernel")
+    for run in moe:
+        check_segments(run["segments"], "mixtral_like at tp 2")
     # reported, not held: a bf16 rounding difference may flip a top-2
     # route, which moves the logits by more than a near tie (phase 21
     # holds the MoE tp path exact in f32)
@@ -2141,7 +2185,7 @@ def phase_tp(attention, decode, serve, workload, tmesh, mono, moe_mono,
         "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in moe],
         "unsharded_peak_mem_gib": moe_mono["peak_mem_gib"],
         "drain_s_per_rank": [r["drain_s"] for r in moe],
-        "drain_s_note": GLOO_NOTE}))
+        "segments": moe[0]["segments"], "drain_s_note": GLOO_NOTE}))
     for mode in two[0]["tiny"]:
         check(two[0]["tiny"][mode] == two[1]["tiny"][mode],
               f"tiny {mode}: the ranks disagree")
@@ -2613,6 +2657,8 @@ def phase_ep(attention, decode, serve, workload, tmesh, moe_mono, moe_train,
     check(all(r["launches"] == 0 for r in runs),
           "mixtral_like on ep 2 launched the flash kernel")
     moe_cfg = workload.ModelConfig.mixtral_like()
+    for run in runs:
+        check_segments(run["segments"], "mixtral_like on ep 2")
     params = seeded_params(workload, moe_cfg)
     reqs = make_requests(moe_cfg, serve)
     ties = {}
@@ -2633,8 +2679,9 @@ def phase_ep(attention, decode, serve, workload, tmesh, moe_mono, moe_train,
         "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in runs],
         "unsharded_peak_mem_gib": moe_mono["peak_mem_gib"],
         "drain_s_per_rank": [r["drain_s"] for r in runs],
-        "drain_s_note": GLOO_NOTE,
+        "segments": runs[0]["segments"], "drain_s_note": GLOO_NOTE,
         "phase_26_s": time.perf_counter() - t0}))
+    return runs[0]
 
 
 def pp_cfg(workload):
@@ -3298,15 +3345,17 @@ def fsdp_fractions(workload, shards, whole_shapes, specs, mesh):
     return out
 
 
-def fsdp_serve_drain(mesh, params, cfg, reqs):
+def fsdp_serve_drain(mesh, params, cfg, reqs, graphs=True):
     """One rank's drain of ``reqs`` at phase 3's geometry on ``mesh``, as a
     user drives the engine, from ``params`` (the whole tree, or this
-    rank's shards); K1 counted from the engine's construction; the peak
-    memory from after its construction (its shards, the whole arena, the
-    drain)."""
+    rank's shards), through its captured chains or, with ``graphs``
+    False, its programs' bodies; K1 counted from the engine's
+    construction; the peak memory from after its construction (its
+    shards, the whole arena, the drain)."""
     from tpusched_torch import attention, serve, workload
     attention.FLASH_FWD_LAUNCHES = 0
     eng = serve.ServeEngine(params, cfg, mesh=mesh, **SERVE_GEOMETRY)
+    eng._graphs = graphs
     del params
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -3325,7 +3374,7 @@ def fsdp_serve_drain(mesh, params, cfg, reqs):
                 ticks=eng.tick_count, kv_heads=int(eng.cache[0]["k"].shape[2]),
                 tokens={c.rid: c.tokens for c in done}, drain_s=drain_s,
                 fsdp_leaf_fractions=sorted(set(halves)),
-                fsdp_leaves=len(halves),
+                fsdp_leaves=len(halves), segments=program_segments(eng),
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
@@ -3339,8 +3388,10 @@ def fsdp_serve_requests(cfg, serve):
 
 def fsdp_serve_rank(mesh, directory):
     """Phase 32 on one rank of FSDP_SERVE_MESH: :func:`fsdp_serve_requests`
-    served from phase 3's seeded weights, then from the snapshot under
-    ``directory`` read as this rank's shards (``load_for_serving(mesh=)``)."""
+    served from phase 3's seeded weights through the captured chains, then
+    from the snapshot under ``directory`` read as this rank's shards
+    (``load_for_serving(mesh=)``) through the programs' bodies, so that
+    the two drains also hold the chains against the bodies."""
     from tpusched_torch import checkpoint, serve, workload
     cfg = workload.ModelConfig.llama_like_big()
     reqs = fsdp_serve_requests(cfg, serve)
@@ -3350,7 +3401,7 @@ def fsdp_serve_rank(mesh, directory):
     shards = checkpoint.load_for_serving(directory, cfg, mesh=mesh)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    out["snapshot"] = fsdp_serve_drain(mesh, shards, cfg, reqs)
+    out["snapshot"] = fsdp_serve_drain(mesh, shards, cfg, reqs, graphs=False)
     out["snapshot"]["load_s"] = load_s
     return out
 
@@ -3364,8 +3415,9 @@ def phase_fsdp_serving(attention, checkpoint, decode, serve, workload, tmesh,
     every fsdp leaf is half its whole size, each stream equals the start
     of phase 3's or first differs at a near tie;
     then the same from a fresh ``export_for_serving`` of the seeded weights
-    read as shards: the same launches and the in-memory engine's streams
-    exactly. Returns K1's launches a rank."""
+    read as shards and drained through the programs' bodies: the same
+    launches and the in-memory engine's (graphed) streams exactly. Returns
+    K1's launches a rank."""
     t0 = time.perf_counter()
     cfg = workload.ModelConfig.llama_like_big()
     reqs = fsdp_serve_requests(cfg, serve)
@@ -3390,6 +3442,8 @@ def phase_fsdp_serving(attention, checkpoint, decode, serve, workload, tmesh,
                   and run["fsdp_leaves"] == 7 * cfg.n_layers + 2,
                   f"fsdp serving: leaves over fsdp hold "
                   f"{run['fsdp_leaf_fractions']} of their whole size")
+            if which == "in_memory":
+                check_segments(run["segments"], "fsdp serving")
         lines[which] = runs
     in_memory = lines["in_memory"][0]["tokens"]
     differ = [rid for rid, toks in lines["snapshot"][0]["tokens"].items()
@@ -3417,6 +3471,7 @@ def phase_fsdp_serving(attention, checkpoint, decode, serve, workload, tmesh,
         "streams_equal_to_phase_3_start": len(runs[0]["tokens"]) - len(ties),
         "near_ties": ties,
         "snapshot_streams_equal_to_in_memory": len(runs[0]["tokens"]),
+        "snapshot_through_bodies": True,
         "snapshot_load_s_per_rank": [r["load_s"]
                                      for r in lines["snapshot"]],
         "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in runs],
@@ -3426,6 +3481,7 @@ def phase_fsdp_serving(attention, checkpoint, decode, serve, workload, tmesh,
         "drain_s_per_rank": [r["drain_s"] for r in runs],
         "snapshot_drain_s_per_rank": [r["drain_s"]
                                       for r in lines["snapshot"]],
+        "segments": runs[0]["segments"],
         "drain_s_note": GLOO_NOTE, "phase_32_s": time.perf_counter() - t0}))
     return {"in_memory_per_rank": [r["launches"] for r in runs],
             "snapshot_per_rank": [r["launches"] for r in lines["snapshot"]]}
@@ -4576,6 +4632,407 @@ def phase_runner(attention, bench, budget, smi: str) -> dict:
             "timing": timing}
 
 
+# -- the engine, generate(tp=) and sample(tp=) over a mesh as chains (39) -----
+
+MESH_GRAPHED_TICKS = 24     # phase 20 drains the tp 2 engine graphed whole
+MESH_TINY_STEPS = 7
+
+
+def chain_counts(prog) -> list:
+    """[segments, collectives its warm-up ran] of a program."""
+    return [len(prog.segments), prog.warmup_collectives]
+
+
+def program_segments(eng) -> dict:
+    """:func:`chain_counts` by program of a card engine (key joined by
+    '/'): [0, 0] for a program run through its body."""
+    return {"/".join(map(str, key)): chain_counts(prog)
+            for key, prog in eng._programs.items()}
+
+
+def check_segments(segments: dict, what) -> None:
+    """Every captured program over a mesh made collectives in its warm-up
+    and broke its chain at each: one segment more than them
+    (``tests/test_torch_mesh_program.py`` pins the collectives of one body
+    call of each program on the CPU, kind by kind)."""
+    for key, (got, collectives) in segments.items():
+        check(collectives > 0 and got == collectives + 1,
+              f"{what}: program {key} captured {got} segments for the "
+              f"{collectives} collectives of its warm-up")
+
+
+def bitwise(rec, what) -> None:
+    check(rec["output_bitwise"] and rec["arena_bitwise"],
+          f"{what}: {rec['program']}'s replay differs from its body: {rec}")
+
+
+def mesh_serve(attention, serve, mesh, params, cfg, reqs, label, graphs,
+               compare=None, trace=True, ticks=None, **kw) -> dict:
+    """One rank's engine at phase 3's geometry on ``mesh``, graphed or
+    through its bodies (``_graphs = False``): warmed (timed: a graphed
+    engine captures there), ``reqs`` submitted, PROGRAM_TICKS ticks run,
+    ``compare(eng)`` where given (replays held against bodies), then
+    ticked until drained or, with ``ticks``, until its tick count reaches
+    it, with tick 10 traced on rank 0 when ``trace``: the untraced ticks'
+    mean (admissions included, as phase 35 takes it) and median. K1
+    counted from the engine's construction (the comparisons leave the
+    counters as they were)."""
+    kind = "graphed" if graphs else "bodies"
+    attention.FLASH_FWD_LAUNCHES = 0
+    eng = serve.ServeEngine(params, cfg, mesh=mesh, **SERVE_GEOMETRY, **kw)
+    eng._graphs = graphs
+    warm_s = fenced_s(eng.warmup)
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(PROGRAM_TICKS):
+        eng.tick()
+    recs = compare(eng) if compare is not None else []
+    traced_label = (f"{label} {kind} tick, {mesh.shape}"
+                    if trace and mesh.rank == 0 else None)
+    times = []
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary, drain_s = drain_traced(eng, traced_label, "cuda",
+                                        times=times, until=ticks)
+    torch.cuda.synchronize()
+    if ticks is None:
+        check_completions(eng.completions, reqs, cfg.vocab,
+                          f"{label} {kind} on {mesh.shape}")
+    out = {"tokens": {c.rid: c.tokens for c in eng.completions},
+           "comparisons": recs,
+           "flash_launches": attention.FLASH_FWD_LAUNCHES,
+           "prefills": eng.prefills + eng.draft_prefills,
+           "ticks": eng.tick_count, "spec_stats": dict(eng.spec_stats),
+           "tick_ms": 1e3 * drain_s / len(times), "warmup_s": warm_s,
+           "median_tick_ms": 1e3 * float(np.median(times)),
+           "segments": program_segments(eng),
+           "breaks_run": sum(p.breaks_run for p in eng._programs.values()),
+           "trace": summary}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_plain(attention, cfg):
+    def compare(eng):
+        recs = [replay_vs_body(attention, eng._program(("decode",)),
+                               eng.cache, {"tokens": eng.next_tok,
+                                           "pos": eng.pos}, "decode_tick")]
+        for bucket in SERVE_BUCKETS:
+            recs.append(replay_vs_body(
+                attention, eng._program(("prefill", bucket, False)),
+                eng.cache, prefill_values(cfg, bucket), f"prefill_{bucket}"))
+        return recs
+    return compare
+
+
+def compare_round(attention):
+    def compare(eng):
+        pos = eng._round_positions()
+        draft = eng._program(("draft",))
+        recs = [replay_vs_body(attention, draft, eng.draft_cache,
+                               {"feed2": np.stack([eng.prev_tok,
+                                                   eng.next_tok], axis=1),
+                                "pos": pos}, "draft_tick")]
+        scored = np.concatenate([eng.next_tok[:, None],
+                                 draft.outputs.cpu().numpy()], axis=1)
+        recs.append(replay_vs_body(attention, eng._program(("verify",)),
+                                   eng.cache, {"scored": scored, "pos": pos},
+                                   "verify_span"))
+        return recs
+    return compare
+
+
+def mesh_tiny(attention, decode, serve, workload, mesh) -> dict:
+    """Phase 39e on one rank: tiny f32 (TINY_GQA, TF32 off) at tp = 2,
+    chunked, prefix, int8, request-keyed and sampled-round engines
+    graphed and through their bodies (their streams and segments), and
+    ``generate(tp=)``/``sample(tp=)`` graphed and through their step's
+    body."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = dataclasses.replace(workload.ModelConfig.tiny(), **TINY_GQA)
+    params = seeded_params(workload, base)
+    rng = np.random.default_rng(2)
+    reqs = [serve.Request(
+        rid=i, prompt=rng.integers(0, base.vocab, size=int(rng.integers(4, 14)),
+                                   dtype=np.int32),
+        max_new_tokens=int(rng.integers(3, 8))) for i in range(5)]
+    prefix = rng.integers(0, base.vocab, 12, dtype=np.int32)
+    keyed = dict(temperature=0.8, top_k=24, seed=5, request_keyed=True)
+    modes = {  # mode -> (cfg, engine kwargs, registered prefix)
+        "chunked": (base, dict(chunk_prefill=5), False),
+        "prefix": (base, dict(chunk_prefill=5), True),
+        "int8": (dataclasses.replace(base, kv_cache_dtype="int8"), {}, False),
+        "request_keyed": (base, keyed, False),
+        "sampled_round": (base, dict(draft_params=params, draft_cfg=base,
+                                     spec_k=3, **keyed), False)}
+    out = {}
+    for mode, (cfg, kw, use_prefix) in modes.items():
+        mreqs = [dataclasses.replace(r, prefix_id="sys")
+                 if use_prefix and r.rid % 2 == 0 else r for r in reqs]
+        runs = {}
+        for graphs in (True, False):
+            eng = serve.ServeEngine(params, cfg, mesh=mesh, device="cuda",
+                                    slots=2, max_seq=64, prompt_bucket=16,
+                                    **kw)
+            eng._graphs = graphs
+            if use_prefix:
+                eng.register_prefix("sys", prefix)
+            for r in mreqs:
+                eng.submit(r)
+            runs[graphs] = ({c.rid: c.tokens.tolist()
+                             for c in eng.run_until_drained()},
+                            dict(eng.spec_stats), program_segments(eng))
+        check(runs[True][:2] == runs[False][:2],
+              f"tiny f32 {mode} at tp 2: graphed {runs[True][:2]} != bodies "
+              f"{runs[False][:2]}")
+        check_segments(runs[True][2], f"tiny {mode}")
+        out[mode] = {"tokens": runs[True][0], "segments": runs[True][2]}
+    shards = workload.shard_params(params, base, mesh)
+    prompt = torch.as_tensor(rng.integers(0, base.vocab, (2, 9)),
+                             device="cuda")
+    steps, s0 = MESH_TINY_STEPS, prompt.shape[1]
+    gen = decode.Generation(shards, base, 2, s0, steps, "cuda", mesh.tp)
+    graphed = gen(prompt)
+    segments = {"greedy_step": chain_counts(gen.step)}
+    gen.step = decode._greedy_step(
+        gen.params, gen.cache, torch.zeros(2, dtype=torch.long,
+                                           device="cuda"),
+        gen.pos, gen.out, s0, base, mesh.tp, graphed=False)
+    check(torch.equal(graphed, gen(prompt)),
+          "generate(tp=): graphed and body tokens differ")
+    sampled = {}
+    for graphed_step in (None, False):
+        sampled[graphed_step] = tp_sample_loop(decode, shards, base, prompt,
+                                               steps, mesh.tp, graphed_step)
+    segments["sampled_step"] = sampled[None][1]
+    check(torch.equal(sampled[None][0], sampled[False][0]),
+          "sample(tp=): graphed and body tokens differ")
+    public = decode.sample(shards, prompt, base, steps,
+                           torch.Generator(device="cuda").manual_seed(11),
+                           0.8, top_k=24, tp=mesh.tp)
+    check(torch.equal(public, sampled[None][0]),
+          "sample(tp=): the public call differs from its loop")
+    check_segments(segments, "tiny decode steps at tp 2")
+    out["decode"] = {"generate": graphed.tolist(),
+                     "sample": public.tolist(), "segments": segments}
+    return out
+
+
+def tp_sample_loop(decode, params, cfg, prompt, steps, tp, graphed):
+    """``decode.sample``'s loop over tp shards written out (the first draw
+    tp rank 0's, broadcast), its step built with ``graphed``, the
+    generator seeded 11 on every rank: (tokens, its :func:`chain_counts`)."""
+    from tpusched_torch.mesh import broadcast
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, s0 = prompt.shape
+    sampling = (0.8, 24, 1.0)
+    cache = decode.init_kv_cache(cfg, b, s0 + steps, "cuda", tp)
+    logits, _ = decode.prefill(params, cache, prompt, cfg, tp)
+    tok = broadcast(decode.sample_token(logits[:, s0 - 1], gen, *sampling),
+                    tp)
+    out = torch.empty((b, steps + 1), dtype=torch.long, device="cuda")
+    out[:, 0] = tok
+    pos = torch.full((), s0, dtype=torch.long, device="cuda")
+    step = decode._sampled_step(params, cache, tok.clone(), pos, out, s0,
+                                cfg, gen, sampling, graphed=graphed, tp=tp)
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    return out, chain_counts(step)
+
+
+def bodies_drain(serve, params, cfg, mesh, reqs, what) -> dict:
+    """``reqs`` drained at phase 3's geometry on ``mesh`` by an engine that
+    calls its programs' bodies (no warm-up: a drain's streams do not
+    depend on it): the streams by rid."""
+    eng = serve.ServeEngine(params, cfg, mesh=mesh, **SERVE_GEOMETRY)
+    eng._graphs = False
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run_until_drained()
+    check_completions(done, reqs, cfg.vocab, what)
+    return {c.rid: c.tokens for c in done}
+
+
+def mesh_programs_rank(mesh):
+    """Phase 39 on one of two gloo ranks sharing the card (module
+    docstring): {"tp": 2}, then {"ep": 2} over the same ranks, each part
+    timed."""
+    from tpusched_torch import attention, decode, serve, workload
+    from tpusched_torch import mesh as tmesh
+    cfg = workload.ModelConfig.llama_like_big()
+    moe = workload.ModelConfig.mixtral_like()
+    params = seeded_params(workload, cfg)
+    reqs = make_requests(cfg, serve)
+    # a self-draft: the target's weights propose, so drafts are accepted
+    # (a random llama_like draft agrees with no token) and the round's
+    # accept and reject paths both run
+    draft = dict(draft_params=params, draft_cfg=cfg, spec_k=SPEC_K)
+    round_label = "llama_like_big self-draft round"
+    parts = {
+        "tp_serving": lambda: {
+            "graphed": mesh_serve(
+                attention, serve, mesh, params, cfg, reqs, "llama_like_big",
+                True, compare_plain(attention, cfg), ticks=MESH_GRAPHED_TICKS),
+            "bodies": mesh_serve(attention, serve, mesh, params, cfg, reqs,
+                                 "llama_like_big", False)},
+        "tp_round": lambda: {
+            "graphed": mesh_serve(attention, serve, mesh, params, cfg, reqs,
+                                  round_label, True, compare_round(attention),
+                                  trace=False, **draft),
+            "bodies": mesh_serve(attention, serve, mesh, params, cfg, reqs,
+                                 round_label, False, trace=False, **draft)},
+        "tiny": lambda: mesh_tiny(attention, decode, serve, workload, mesh),
+        "ep_bodies": lambda: bodies_drain(
+            serve, seeded_params(workload, moe), moe,
+            tmesh.build_named_mesh(EP_SERVE_MESH, "gloo", "cuda"),
+            make_requests(moe, serve), "mixtral_like ep bodies")}
+    out = {}
+    with torch.no_grad():
+        for name, part in parts.items():
+            t0 = time.perf_counter()
+            out[name] = part()
+            out[f"{name}_s"] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    return out
+
+
+def mesh_line(run: dict) -> dict:
+    """A drain's record for the printed line: launches, ticks, the tick's
+    ms, breaks run, and where it was traced the traced tick's device busy
+    time and idle share (against the traced wall and against the
+    untraced mean tick)."""
+    line = {"flash_launches": run["flash_launches"],
+            "prefills": run["prefills"], "ticks": run["ticks"],
+            "spec_stats": run["spec_stats"], "tick_ms": run["tick_ms"],
+            "warmup_s": run["warmup_s"],
+            "median_tick_ms": run["median_tick_ms"],
+            "breaks_run": run["breaks_run"]}
+    trace = run["trace"]
+    if trace is None:
+        return line
+    return {**line, "traced_kernels": trace["kernels"],
+            "traced_graph_launches": trace["graph_launches"],
+            "traced_syncs": trace["syncs"],
+            "device_busy_ms": 1e3 * trace["device_busy_s"],
+            "traced_wall_ms": 1e3 * trace["wall_s"],
+            "idle_share": trace["idle_share"],
+            "idle_share_vs_tick_ms": 1.0 - 1e3 * trace["device_busy_s"]
+            / run["tick_ms"], "trace_file": trace["file"]}
+
+
+def phase_mesh_programs(workload, tmesh, workdir, refs: dict) -> dict:
+    """Phase 39 (module docstring): one spawn of two gloo ranks sharing the
+    card, then the checks, against ``refs`` too where given: phase 20's
+    graphed drain of the same engine (``tp``: rank 0's streams;
+    ``tp_launches``: K1 a rank through its replays) and phase 26's
+    (``ep``). Phase 32 holds fsdp's graphed drain against its bodies'
+    itself. Returns K1's launches a rank for the kernels line."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ranks = tmesh.launch(mesh_programs_rank, {"tp": 2}, backend="gloo",
+                         device="cuda", workdir=str(workdir))
+    cfg = workload.ModelConfig.llama_like_big()
+
+    def same(a, b):
+        return a.keys() == b.keys() and all(np.array_equal(a[i], b[i])
+                                            for i in a)
+
+    for part in ("tp_serving", "tp_round"):
+        for kind in ("graphed", "bodies"):
+            runs = [r[part][kind] for r in ranks]
+            for run in runs:
+                check(same(run["tokens"], runs[0]["tokens"]),
+                      f"{part} {kind}: the ranks' streams differ")
+                # K1 once a layer a prefill, the self-draft's included
+                check(run["flash_launches"]
+                      == flash_layers(cfg) * run["prefills"],
+                      f"{part} {kind}: {run['flash_launches']} K1 launches "
+                      f"for {run['prefills']} prefills")
+                for rec in run["comparisons"]:
+                    bitwise(rec, f"{part} at tp 2")
+                if kind == "graphed":
+                    check_segments(run["segments"], part)
+        g, b = ranks[0][part]["graphed"], ranks[0][part]["bodies"]
+        # the tp 2 engine's graphed run stops after MESH_GRAPHED_TICKS:
+        # its completions so far; the round's drains whole
+        whole = (part == "tp_serving"
+                 or g["tokens"].keys() == b["tokens"].keys())
+        check(whole and all(np.array_equal(t, b["tokens"][rid])
+                            for rid, t in g["tokens"].items()),
+              f"{part}: the graphed and the bodies' streams differ")
+    rnd = [r["tp_round"] for r in ranks]
+    stats = [(r["graphed"]["spec_stats"], r["bodies"]["spec_stats"])
+             for r in rnd]
+    check(all(g == b and g["accepted"] > 0 for g, b in stats)
+          and all(r["graphed"]["ticks"] == r["bodies"]["ticks"] for r in rnd),
+          f"tp round: the graphed and the bodies' stats differ, or no draft "
+          f"was accepted: {stats}")
+    bodies = [r["tp_serving"]["bodies"] for r in ranks]
+    # reported, not held: the round's verify span scores 5 positions in one
+    # pass, which may flip a bf16 near tie against the one-token tick
+    round_plain = sum(np.array_equal(t, bodies[0]["tokens"][rid])
+                      for rid, t in rnd[0]["bodies"]["tokens"].items())
+    # 12 x (16 requests + 2 warm-up prefills) = 216 at full width
+    want = cfg.n_layers * (len(bodies[0]["tokens"]) + len(SERVE_BUCKETS))
+    check(all(r["flash_launches"] == want for r in bodies)
+          and all(n == want for n in refs.get("tp_launches", [want])),
+          f"tp 2 serving: K1 {[r['flash_launches'] for r in bodies]} a rank "
+          f"through the bodies, {refs.get('tp_launches')} through phase "
+          f"20's replays, wanted {want}")
+    if "tp" in refs:
+        check(same(bodies[0]["tokens"], refs["tp"]),
+              "tp 2 serving: the bodies' drain differs from phase 20's "
+              "graphed drain")
+    for r in ranks[1:]:
+        check(r["tiny"] == ranks[0]["tiny"], "tiny at tp 2: the ranks differ")
+        check(same(r["ep_bodies"], ranks[0]["ep_bodies"]),
+              "ep bodies: the ranks' streams differ")
+    if "ep" in refs:
+        check(same(ranks[0]["ep_bodies"], refs["ep"]),
+              "mixtral_like on ep 2: the bodies' drain differs from phase "
+              "26's graphed drain")
+    line = {
+        "mesh_programs": "llama_like_big", "mesh": {"tp": 2},
+        "backend": "gloo", "ranks_agree": True,
+        "replay_equals_body_bitwise": [
+            rec["program"] for part in ("tp_serving", "tp_round")
+            for rec in ranks[0][part]["graphed"]["comparisons"]],
+        "segments": {part: ranks[0][part]["graphed"]["segments"]
+                     for part in ("tp_serving", "tp_round")},
+        "flash_launches_per_rank": {
+            "phase_20_replays": refs.get("tp_launches"),
+            "bodies": [r["flash_launches"] for r in bodies]},
+        "bodies_streams_equal_phase_20_graphed": "tp" in refs,
+        "graphed_ticks": MESH_GRAPHED_TICKS,
+        **{f"{part}_{kind}": mesh_line(ranks[0][part][kind])
+           for part in ("tp_serving", "tp_round")
+           for kind in ("graphed", "bodies")},
+        "round_draft": "self: llama_like_big on the target's weights",
+        "round_requests": len(rnd[0]["bodies"]["tokens"]),
+        "round_streams_equal_plain_bodies": round_plain,
+        "note": GLOO_NOTE + "; says nothing of NCCL or NVLink"}
+    print(json.dumps(line))
+    print(json.dumps({
+        "mesh_programs": "tiny f32 tp 2, mixtral_like ep 2",
+        "tiny_graphed_equal_bodies": sorted(ranks[0]["tiny"]),
+        "tiny_segments": {m: v["segments"]
+                          for m, v in ranks[0]["tiny"].items()},
+        "ep_bodies_equal_phase_26_graphed": "ep" in refs,
+        "fsdp": "phase 32: its snapshot drain through the bodies == its "
+                "graphed in-memory drain",
+        "seconds_rank_0": {k: v for k, v in ranks[0].items()
+                           if k.endswith("_s")},
+        "phase_39_s": time.perf_counter() - t0}))
+    return {"tp2_serving_bodies_per_rank": [r["flash_launches"]
+                                            for r in bodies],
+            "tp2_round_replays_per_rank": [r["graphed"]["flash_launches"]
+                                           for r in rnd],
+            "tp2_round_bodies_per_rank": [r["bodies"]["flash_launches"]
+                                          for r in rnd]}
+
+
 def ab_turn(tree: str, other_root: str) -> None:
     """One turn of ``--ab``, in a process of its own: builds the kernels of
     the ``tpusched_torch`` on PYTHONPATH, then prints one JSON line of
@@ -4672,6 +5129,7 @@ def main(argv) -> int:
                                 optim, serve, spec_decode, workload)
     from tpusched_torch import mesh as tmesh
 
+    t_script = time.perf_counter()
     smi = phase_environment(_build)
     max_abs_err = phase_kernel_vs_plain(attention)
     bwd_err, xl_bwd_err = phase_backward_vs_plain(attention)
@@ -4721,6 +5179,7 @@ def main(argv) -> int:
     # tensor and data parallelism on gloo ranks sharing the card, after
     # every earlier phase so that those run as before; then the kernels at
     # the ranks' shapes, timed as in phase 7
+    t_gloo = time.perf_counter()
     tp = phase_tp(attention, decode, serve, workload, tmesh, mono, moe_mono,
                   train)
     tp_timing = {"serving_tp2": phase_timing(attention, (1, 1024, 8, 2, 128)),
@@ -4744,8 +5203,8 @@ def main(argv) -> int:
     # expert and pipeline parallelism on gloo ranks sharing the card, after
     # every earlier phase so that those run as before
     t_ep = time.perf_counter()
-    phase_ep(attention, decode, serve, workload, tmesh, moe_mono, moe_train,
-             workdir)
+    ep_served = phase_ep(attention, decode, serve, workload, tmesh, moe_mono,
+                         moe_train, workdir)
     pp = phase_pp(attention, workload, tmesh, train, workdir)
     pp_step = pp["per"]
     pp_tiny = phase_dryrun_ep_pp(attention, workload, tmesh, workdir)
@@ -4772,9 +5231,11 @@ def main(argv) -> int:
     pp_fsdp = phase_pp_fsdp(attention, workload, tmesh, pp, workdir)
     zero_counts(attention)
     dryrun = phase_entry(attention, entry, workload, workdir)
-    print(json.dumps({"phases_32_34_s": time.perf_counter() - t_fsdp}))
+    print(json.dumps({"phases_32_34_s": time.perf_counter() - t_fsdp,
+                      "phases_20_34_s": time.perf_counter() - t_gloo}))
     # the compiled programs, after every earlier phase so that those run as
     # before
+    t_programs = time.perf_counter()
     zero_counts(attention)
     programs = phase_programs(attention, decode, serve, workload, mono,
                               exact_decode)
@@ -4793,6 +5254,13 @@ def main(argv) -> int:
     # that those run as before
     zero_counts(attention)
     runner = phase_runner(attention, bench, budget, smi)
+    # the engine, generate(tp=) and sample(tp=) over a mesh as chains of
+    # graphs, after every earlier phase so that those run as before
+    zero_counts(attention)
+    mesh_graphed = phase_mesh_programs(workload, tmesh, workdir, {
+        "tp": tp["two"][0]["llama_like_big"]["tokens"],
+        "tp_launches": [r["llama_like_big"]["launches"] for r in tp["two"]],
+        "ep": ep_served["tokens"]})
     xl_timing = runner["timing"]
     xl_timing["flash_bwd_dq"]["max_abs_err"] = xl_bwd_err[0]
     xl_timing["flash_bwd_dkdv"]["max_abs_err"] = xl_bwd_err[1]
@@ -4840,6 +5308,8 @@ def main(argv) -> int:
         return {"adamw_per_step": train_programs["adamw_per_step"][j],
                 "accum_per_step": train_programs["accum_per_step"][j]}
 
+    print(json.dumps({"phases_35_39_s": time.perf_counter() - t_programs,
+                      "script_s": time.perf_counter() - t_script}))
     source = "tpusched_torch/csrc/"
     replaces = "tpusched/jaxbridge/attention.py:"
     # flash_fwd's own fields are the serving path's, at its (1, 1024, 16, 4,
@@ -4863,7 +5333,8 @@ def main(argv) -> int:
          "pp_fsdp_launches": pp_fsdp_launches,
          "dryrun_launches": dryrun_launches[0],
          "graphed_launches": graphed_launches,
-         "graphed_train_launches": graphed_train(0), **xl["flash_fwd"]},
+         "graphed_train_launches": graphed_train(0),
+         "mesh_graphed_launches": mesh_graphed, **xl["flash_fwd"]},
         {"name": "flash_bwd_dkdv", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "218",
          "launches": train_launches[1], "max_abs_err": bwd_err[1],

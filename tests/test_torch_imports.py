@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no module of tpusched_torch (mesh.py
 included), and not chip_smoke.py, imports JAX, optax, orbax or anything of
 the tpusched package (the machine with the card has none of them); the
-programs (``program``), the serving, speculative, tensor-parallel, fsdp×sp, expert-parallel and
-pipelined paths, the checkpoints, the token stream, the budget, the
+programs (``program``, and their chains over a mesh), the serving,
+speculative, tensor-parallel, fsdp×sp, expert-parallel and pipelined
+paths, the checkpoints, the token stream, the budget, the
 goodput reporter and the runner of the reference's on-chip lines
 (``tpusched_torch.bench``) run with all of them refused."""
 from __future__ import annotations
@@ -229,7 +230,49 @@ RANKS = REFUSE + (
     "    out.append(float(step(shards, toks)[1]))\n"
     "    bad = sorted(m for m in sys.modules if m.split('.')[0] in"
     " ('tpusched', 'optax') or m.split('.')[0].startswith('jax'))\n"
-    "    return out, bad\n")
+    "    return out, bad\n"
+    "class Graph:\n"
+    "    def __init__(self, log): self.log = log\n"
+    "    def register_generator_state(self, gen): pass\n"
+    "    def capture_begin(self, pool=None): self.log.append('begin')\n"
+    "    def capture_end(self): self.log.append('end')\n"
+    "    def pool(self): return 'pool'\n"
+    "    def replay(self): self.log.append('replay')\n"
+    "class Recorder:\n"
+    "    def __init__(self): self.log = []\n"
+    "    def side_stream(self): return None\n"
+    "    def on(self, stream):\n"
+    "        import contextlib\n"
+    "        return contextlib.nullcontext()\n"
+    "    def prepare(self): pass\n"
+    "    def graph(self): return Graph(self.log)\n"
+    "    def join(self, stream): pass\n"
+    "def chain_rank(mesh):\n"
+    "    torch.set_num_threads(1)\n"
+    "    from tpusched_torch import decode, program\n"
+    "    cfg = wl.ModelConfig.tiny()\n"
+    "    p = wl.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+    "    eng = serve.ServeEngine(p, cfg, slots=2, max_seq=32,"
+    " prompt_bucket=8, mesh=mesh, device='cpu')\n"
+    "    tick = serve._build_decode_tick(eng._weights, eng.cache, cfg, 2,"
+    " (eng._tp, None, None), lambda body, inputs: program.Program(body,"
+    " inputs, graphed=True))\n"
+    "    real, program._cuda = program._cuda, Recorder()\n"
+    "    try:\n"
+    "        for _ in range(2):\n"
+    "            tick(tokens=np.array([1, 2]), pos=np.array([3, 4]))\n"
+    "        log = program._cuda.log\n"
+    "    finally:\n"
+    "        program._cuda = real\n"
+    "    shards = wl.shard_params(p, cfg, mesh)\n"
+    "    prompt = torch.arange(8).reshape(2, 4)\n"
+    "    toks = [decode.generate(shards, prompt, cfg, 3, tp=mesh.tp).tolist(),"
+    " decode.sample(shards, prompt, cfg, 3, torch.Generator().manual_seed(1),"
+    " 0.8, tp=mesh.tp).tolist()]\n"
+    "    bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+    " ('tpusched', 'optax') or m.split('.')[0].startswith('jax'))\n"
+    "    return len(tick.segments), tick.breaks_run, log.count('replay'),"
+    " toks, bad\n")
 
 
 def test_tp_paths_run_with_jax_unimportable(tmp_path):
@@ -251,6 +294,28 @@ def test_tp_paths_run_with_jax_unimportable(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().splitlines()[-1] == "sharded"
+
+
+def test_mesh_program_chains_run_with_jax_unimportable(tmp_path):
+    """As above, two gloo ranks capture a tiny tp = 2 decode tick as a
+    chain of graphs broken at its 6 collectives (a recorder standing in
+    for CUDA through ``program._cuda``) and call it twice, then run
+    ``generate(tp=)`` and ``sample(tp=)`` through their step programs; the
+    ranks agree and none has loaded JAX, optax or tpusched."""
+    (tmp_path / "refusing_ranks.py").write_text(RANKS)
+    prog = REFUSE + (
+        f"sys.path.insert(0, {str(tmp_path)!r})\n"
+        "import refusing_ranks\n"
+        "from tpusched_torch import mesh\n"
+        "out = mesh.launch(refusing_ranks.chain_rank, {'tp': 2},"
+        f" backend='gloo', device='cpu', workdir={str(tmp_path)!r})\n"
+        "assert out[0] == out[1], out\n"
+        "assert out[0][:3] == (7, 12, 14) and out[0][4] == [], out\n"
+        "print('chained')\n")
+    r = subprocess.run([sys.executable, "-c", prog], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().splitlines()[-1] == "chained"
 
 
 def test_fsdp_sp_paths_run_with_jax_unimportable(tmp_path):

@@ -9,6 +9,8 @@ parent test process. Each program returns numpy arrays and Python values.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 
 import numpy as np
@@ -421,4 +423,229 @@ def generate_rank(m: tmesh.Mesh, cases: dict) -> dict:
         out[name] = decode.sample(shards, torch.from_numpy(prompt).long(),
                                   cfg, steps, gen, temperature,
                                   tp=m.tp).tolist()
+    return out
+
+
+class _RecordedGraph:
+    """A CUDA graph's stand-in: its capture calls and replays, logged."""
+
+    def __init__(self, log: list, index: int):
+        self.log, self.index = log, index
+
+    def register_generator_state(self, gen) -> None:
+        self.log.append(("register", self.index))
+
+    def capture_begin(self, pool=None) -> None:
+        self.log.append(("begin", self.index, pool))
+
+    def capture_end(self) -> None:
+        self.log.append(("end", self.index))
+
+    def pool(self):
+        return ("pool of", self.index)
+
+    def replay(self) -> None:
+        self.log.append(("replay", self.index))
+
+
+class CaptureRecorder:
+    """Stands in for ``program._cuda`` on the CPU: graphs that log their
+    capture calls and replays and run nothing, no stream, no device
+    work. The body still runs for real in its warm-up and in its capture
+    (with its collectives cut out), and the breaks run on every call."""
+
+    def __init__(self):
+        self.log: list = []
+        self.graphs = 0
+
+    def side_stream(self):
+        return None
+
+    def on(self, stream):
+        return contextlib.nullcontext()
+
+    def prepare(self) -> None:
+        self.log.append(("prepare",))
+
+    def graph(self) -> _RecordedGraph:
+        self.graphs += 1
+        return _RecordedGraph(self.log, self.graphs - 1)
+
+    def join(self, stream) -> None:
+        pass
+
+
+def collectives_of(fn) -> list:
+    """The kinds of the collectives one call of ``fn`` makes through the
+    mesh, in order; each runs as it comes."""
+    kinds = []
+
+    class Counter:
+        name = "counter"
+
+        def cut(self, call):
+            kinds.append(call.kind)
+            call()
+
+    with tmesh.capturing(Counter()):
+        fn()
+    return kinds
+
+
+def _chain_plan(prog, values: dict, calls: int = 2) -> dict:
+    """``prog`` (built graphed) called ``calls`` times with ``values``
+    under a :class:`CaptureRecorder`: its breaks' kinds, its segments, the
+    collectives its warm-up ran, the breaks its replays ran and the
+    recorder's log, in which each
+    collective that runs (in the warm-up, or as a break between replays)
+    is logged as ("run", kind)."""
+    from tpusched_torch import program
+    recorder, real = CaptureRecorder(), program._cuda
+    run = tmesh.Collective.__call__
+
+    def logged(call):
+        recorder.log.append(("run", call.kind))
+        run(call)
+
+    program._cuda, tmesh.Collective.__call__ = recorder, logged
+    try:
+        for _ in range(calls):
+            prog(**values)
+    finally:
+        program._cuda, tmesh.Collective.__call__ = real, run
+    return {"breaks": [b.kind for b in prog.breaks],
+            "segments": len(prog.segments),
+            "warmup_collectives": prog.warmup_collectives,
+            "breaks_run": prog.breaks_run,
+            "log": recorder.log}
+
+
+SERVE_KW = dict(slots=2, max_seq=64, prompt_bucket=16)
+
+
+def _engine_programs(mesh: tmesh.Mesh, cfg, params, program) -> dict:
+    """The tiny engines' programs on ``mesh``, each built by the engine's
+    own builders with ``program`` (``Program`` with ``graphed`` and
+    ``pool`` bound), and the values of one call of each: the decode tick,
+    the slot prefill, the chunk, and the greedy round's draft tick and
+    verify span (spec_k 3, a self-draft)."""
+    from tpusched_torch import serve
+    spec = ServeEngine(params, cfg, mesh=mesh, device="cpu",
+                       draft_params=params, draft_cfg=cfg, spec_k=3,
+                       **SERVE_KW)
+    chunked = ServeEngine(params, cfg, mesh=mesh, device="cpu",
+                          chunk_prefill=5, **SERVE_KW)
+    axes = (spec._tp, spec._ep, spec._fsdp)
+    slots, k = spec.slots, spec.spec_k
+    prompt = np.arange(16) % cfg.vocab
+    pos = np.array([3, 5])
+    return {
+        "decode": (serve._build_decode_tick(
+            spec._weights, spec.cache, cfg, slots, axes, program),
+            dict(tokens=np.array([1, 2]), pos=pos)),
+        "prefill": (serve._build_prefill_slot(
+            spec._weights, spec.cache, cfg, 16, axes, program),
+            dict(prompt=prompt, slot=1, true_len=9)),
+        "chunk": (serve._build_prefill_chunk(
+            chunked._weights, chunked.cache, cfg, 5, axes, program),
+            dict(chunk=prompt[:5], slot=0, off=5, last_row=2)),
+        "draft": (serve._build_draft_tick(
+            spec._draft_weights, spec.draft_cache, cfg, slots, k, axes,
+            program), dict(feed2=np.array([[1, 2], [3, 4]]), pos=pos)),
+        "verify": (serve._build_verify_span(
+            spec._weights, spec.cache, cfg, slots, k, axes, program),
+            dict(scored=np.arange(2 * (k + 1)).reshape(2, k + 1), pos=pos)),
+    }
+
+
+def _decode_steps(m: tmesh.Mesh, cfg, params, graphed: bool) -> dict:
+    """``_greedy_step`` and ``_sampled_step`` over this rank's tp shards of
+    ``params``, built with ``graphed``, and the values of one call."""
+    shards = wl.cast_params_for_compute(wl.shard_params(params, cfg, m), cfg)
+    out = {}
+    for name in ("greedy_step", "sampled_step"):
+        cache = decode.init_kv_cache(cfg, 2, 24, "cpu", m.tp)
+        tok = torch.zeros(2, dtype=torch.long)
+        pos = torch.full((), 8, dtype=torch.long)
+        buf = torch.zeros((2, 9), dtype=torch.long)
+        if name == "greedy_step":
+            prog = decode._greedy_step(shards, cache, tok, pos, buf, 8, cfg,
+                                       m.tp, graphed=graphed)
+        else:
+            prog = decode._sampled_step(
+                shards, cache, tok, pos, buf, 8, cfg,
+                torch.Generator().manual_seed(3), (0.8, 0, 1.0),
+                graphed=graphed, tp=m.tp)
+        out[name] = (prog, {})
+    return out
+
+
+def mesh_program_rank(m: tmesh.Mesh, cases: dict) -> dict:
+    """The programs over meshes of this launch's two ranks. Each case
+    ``mesh name -> (axis sizes, cfg, numpy tree)``: per program of a tiny
+    engine (and, on tp, ``decode``'s two steps) the kinds of the
+    collectives one body call makes (``counts``), and the plan of the same
+    program built graphed and called twice under a
+    :class:`CaptureRecorder` (``plans``). Then ``generate`` and ``sample``
+    over tp = 2 (every rank's generator seeded 7), their tokens and the
+    program calls they made (``decode``), and the capture of a body that
+    shifts along tp (``shift``)."""
+    from tpusched_torch import program
+    torch.set_num_threads(1)
+    meshes = {tuple(m.shape.items()): m}
+    out = {}
+    for name, (sizes, cfg, tree) in cases.items():
+        mesh = _mesh_of(meshes, sizes)
+        params = interop.params_from_numpy(tree, cfg, "cpu")
+        bodies = _engine_programs(
+            mesh, cfg, params, functools.partial(program.Program,
+                                                 graphed=False))
+        graphs = _engine_programs(
+            mesh, cfg, params, functools.partial(
+                program.Program, graphed=True, pool=("engine pool",)))
+        if "tp" in sizes:
+            bodies.update(_decode_steps(mesh, cfg, params, False))
+            graphs.update(_decode_steps(mesh, cfg, params, True))
+        out[name] = {
+            "counts": {p: collectives_of(prog.body)
+                       for p, (prog, _) in bodies.items()},
+            "plans": {p: _chain_plan(prog, values)
+                      for p, (prog, values) in graphs.items()}}
+    cfg, tree = cases["tp"][1:]
+    params = wl.shard_params(interop.params_from_numpy(tree, cfg, "cpu"),
+                             cfg, m)
+    prompt = torch.arange(12).reshape(2, 6) % cfg.vocab
+    calls, real = [], program.Program.__call__
+
+    def counted(self, **values):
+        calls.append(self.name)
+        return real(self, **values)
+
+    program.Program.__call__ = counted
+    try:
+        greedy = decode.generate(params, prompt, cfg, 5, tp=m.tp)
+        sampled = decode.sample(params, prompt, cfg, 5,
+                                torch.Generator().manual_seed(7), 0.8,
+                                top_k=20, tp=m.tp)
+    finally:
+        program.Program.__call__ = real
+    out["decode"] = {"generate": greedy.tolist(), "sample": sampled.tolist(),
+                     "calls": calls}
+    x = torch.full((3,), float(m.rank))
+
+    def shifting_body():
+        return tmesh.shift([x], m.tp)[0]
+
+    shifting = program.Program(shifting_body, {}, graphed=True)
+    recorder, real_cuda = CaptureRecorder(), program._cuda
+    program._cuda = recorder
+    try:
+        shifting()
+        out["shift"] = None
+    except RuntimeError as e:
+        out["shift"] = str(e)
+    finally:
+        program._cuda = real_cuda
+    out["shift_capture"] = {"log": recorder.log,
+                            "segments": len(shifting.segments)}
     return out

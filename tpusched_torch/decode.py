@@ -323,14 +323,16 @@ def sample_token(logits: torch.Tensor,
 
 def _greedy_step(params: Params, cache: KVCache, tok: torch.Tensor,
                  pos: torch.Tensor, out: torch.Tensor, s0: int,
-                 cfg: ModelConfig, tp: Optional[Axis] = None) -> Program:
+                 cfg: ModelConfig, tp: Optional[Axis] = None,
+                 graphed: Optional[bool] = None) -> Program:
     """One greedy decode step as a :class:`Program` over device state: feed
     ``tok`` (b,) at row ``pos`` (0-d), write the argmax into ``tok`` and
     into column ``pos - s0 + 1`` of ``out`` (b, steps + 1), then advance
     ``pos``, all on the device: replayed once a token, the counterpart of
     the reference's ``lax.scan`` body. ``tok`` and ``pos`` are its inputs.
-    Captured on the card, called as it is on the CPU or under ``tp`` (whose
-    collectives a graph cannot hold under gloo)."""
+    Captured on the card unless ``graphed`` is False, under ``tp`` as a
+    chain broken at each of its collectives; called as it is on the
+    CPU."""
     def body():
         logits, _ = decode_step(params, cache, tok, pos, cfg, tp)
         nxt = torch.argmax(logits, dim=-1)
@@ -338,15 +340,17 @@ def _greedy_step(params: Params, cache: KVCache, tok: torch.Tensor,
         out.index_copy_(1, (pos - (s0 - 1)).reshape(1), nxt[:, None])
         pos.add_(1)
 
-    return Program(body, {"tok": tok, "pos": pos},
-                   graphed=tok.device.type == "cuda" and tp is None)
+    if graphed is None:
+        graphed = tok.device.type == "cuda"
+    return Program(body, {"tok": tok, "pos": pos}, graphed=graphed)
 
 
 def _sampled_step(params: Params, cache: KVCache, tok: torch.Tensor,
                   pos: torch.Tensor, out: torch.Tensor, s0: int,
                   cfg: ModelConfig, generator: torch.Generator,
                   sampling: Tuple[float, int, float],
-                  graphed: Optional[bool] = None) -> Program:
+                  graphed: Optional[bool] = None,
+                  tp: Optional[Axis] = None) -> Program:
     """One sampled decode step as a :class:`Program`, :func:`_greedy_step`'s
     sibling: feed ``tok`` at row ``pos``, draw the next token with
     ``generator`` (:func:`sample_token`, ``sampling`` = temperature, top_k,
@@ -354,10 +358,12 @@ def _sampled_step(params: Params, cache: KVCache, tok: torch.Tensor,
     advance ``pos``, all on the device. The generator is registered with
     the graph, so each replay draws the next numbers of its stream; the
     first call's warm-up is the first step (``advances``), so nothing
-    rewinds. Captured on the card unless ``graphed`` is False."""
+    rewinds. Under ``tp`` the token is tp rank 0's draw, broadcast inside
+    the step (a break of its chain). Captured on the card unless
+    ``graphed`` is False."""
     def body():
-        logits, _ = decode_step(params, cache, tok, pos, cfg)
-        nxt = sample_token(logits, generator, *sampling)
+        logits, _ = decode_step(params, cache, tok, pos, cfg, tp)
+        nxt = broadcast(sample_token(logits, generator, *sampling), tp)
         tok.copy_(nxt)
         out.index_copy_(1, (pos - (s0 - 1)).reshape(1), nxt[:, None])
         pos.add_(1)
@@ -430,37 +436,27 @@ def sample(params: Params, prompt: torch.Tensor, cfg: ModelConfig,
     replays one captured step (:func:`_greedy_step`) per token, with the
     token, the position and the output kept on the card;
     sampling (temperature > 0, a ``torch.Generator``) likewise replays
-    :func:`_sampled_step`, the draw inside it. Under ``tp`` sampling runs
-    its steps eagerly, each draw rank 0's, broadcast."""
+    :func:`_sampled_step`, the draw inside it. Under ``tp`` each step is a
+    chain of graphs broken at its collectives, the draw's broadcast
+    among them: the counterpart of the reference's scan over a mesh."""
     b, s0 = prompt.shape
     if temperature == 0.0:
         return Generation(params, cfg, b, s0, steps, prompt.device,
                           tp)(prompt)
     params = cast_params_for_compute(params, cfg)
     cache = init_kv_cache(cfg, b, s0 + steps, device=prompt.device, tp=tp)
-
-    def draw(logits):
-        return broadcast(sample_token(logits, generator, temperature, top_k,
-                                      top_p), tp)
-
+    sampling = (temperature, top_k, top_p)
     logits, cache = prefill(params, cache, prompt, cfg, tp)
-    tok = draw(logits[:, s0 - 1])
-    if tp is None:
-        out = torch.empty((b, steps + 1), dtype=torch.long,
-                          device=prompt.device)
-        out[:, 0] = tok
-        pos = torch.full((), s0, dtype=torch.long, device=prompt.device)
-        step = _sampled_step(params, cache, tok.clone(), pos, out, s0, cfg,
-                             generator, (temperature, top_k, top_p))
-        for _ in range(steps):
-            step()
-        return out
-    toks = [tok]
-    for t in range(steps):
-        logits, cache = decode_step(params, cache, tok, s0 + t, cfg, tp)
-        tok = draw(logits)
-        toks.append(tok)
-    return torch.stack(toks, dim=1)
+    tok = broadcast(sample_token(logits[:, s0 - 1], generator, *sampling),
+                    tp)
+    out = torch.empty((b, steps + 1), dtype=torch.long, device=prompt.device)
+    out[:, 0] = tok
+    pos = torch.full((), s0, dtype=torch.long, device=prompt.device)
+    step = _sampled_step(params, cache, tok.clone(), pos, out, s0, cfg,
+                         generator, sampling, tp=tp)
+    for _ in range(steps):
+        step()
+    return out
 
 
 def generate(params: Params, prompt: torch.Tensor, cfg: ModelConfig,

@@ -16,6 +16,14 @@ between two ranks of an axis (:func:`send`, :func:`recv`). A collective on
 an axis of size 1, or on no axis (``None``), is the identity, so one code
 path serves the sharded and the unsharded model.
 
+Every ``torch.distributed`` call of :func:`all_reduce`, :func:`all_gather`
+and :func:`broadcast`, the autograd functions' included, passes through
+one hook. While a program captures its chain of CUDA graphs
+(``program.Program``, inside :func:`capturing`) the hook hands the call,
+as a :class:`Collective`, to the chain, which breaks there; at any other
+time it runs the call. :func:`shift`, :func:`send` and :func:`recv`, which
+no program makes, raise during a capture.
+
 Ranks are laid out row-major over the axes in the order given, as the
 reference reshapes its device list: the last axis (``tp``) varies fastest,
 so a tp group is a run of adjacent ranks.
@@ -26,6 +34,7 @@ since this package never imports ``tpusched``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -339,6 +348,67 @@ def slice_assignment(pods) -> "list[tuple[tuple[int, ...], str]]":
 # -- collectives on an axis ------------------------------------------------------
 
 
+@dataclasses.dataclass
+class Collective:
+    """One ``torch.distributed`` call as a body made it: its kind
+    (``"all_reduce"``, ``"all_gather"`` or ``"broadcast"``), the call, and
+    the tensor and keyword arguments it was given. Calling it runs the
+    collective on that tensor, in place."""
+    kind: str
+    fn: Callable
+    tensor: torch.Tensor
+    kwargs: dict
+
+    def __call__(self) -> None:
+        self.fn(self.tensor, **self.kwargs)
+
+
+# the chain being captured (:func:`capturing`), else None: one a process,
+# as a CUDA capture in the global mode holds the whole process
+_chain = None
+# the collectives the hook has run in this process (a replay's breaks,
+# which run without it, not included)
+COLLECTIVES_RUN = 0
+
+
+@contextlib.contextmanager
+def capturing(chain):
+    """Until the block ends, hand every collective of :func:`all_reduce`,
+    :func:`all_gather` and :func:`broadcast` to ``chain.cut`` instead of
+    running it, and make :func:`shift`, :func:`send` and :func:`recv`
+    raise, naming ``chain.name``."""
+    global _chain
+    if _chain is not None:
+        raise RuntimeError(f"capturing {chain.name!r} inside the capture of "
+                           f"{_chain.name!r}")
+    _chain = chain
+    try:
+        yield
+    finally:
+        _chain = None
+
+
+def _collective(kind: str, fn: Callable, tensor: torch.Tensor,
+                **kwargs) -> None:
+    """The one hook: ``fn(tensor, **kwargs)`` now, or a break of the chain
+    being captured."""
+    global COLLECTIVES_RUN
+    call = Collective(kind, fn, tensor, kwargs)
+    if _chain is None:
+        COLLECTIVES_RUN += 1
+        call()
+    else:
+        _chain.cut(call)
+
+
+def _refuse_in_capture(what: str) -> None:
+    if _chain is not None:
+        raise RuntimeError(
+            f"mesh.{what} during the capture of program {_chain.name!r}: a "
+            f"captured program's collectives are all_reduce, all_gather and "
+            f"broadcast")
+
+
 def _live(axis: Optional[Axis]) -> bool:
     if axis is None or axis.size == 1:
         return False
@@ -358,8 +428,9 @@ def all_reduce(x: torch.Tensor, axis: Optional[Axis],
         return x
     wide = x.is_floating_point() and x.element_size() < 4
     out = x.float() if wide else x.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
-                    else dist.ReduceOp.SUM, group=axis.group)
+    _collective("all_reduce", dist.all_reduce, out,
+                op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                group=axis.group)
     return out.to(x.dtype) if wide else out
 
 
@@ -377,7 +448,7 @@ def all_gather(x: torch.Tensor, axis: Optional[Axis],
     shape[dim] = n * axis.size
     buf = x.new_zeros(shape)
     buf.narrow(dim, axis.index * n, n).copy_(x)
-    dist.all_reduce(buf, group=axis.group)
+    _collective("all_gather", dist.all_reduce, buf, group=axis.group)
     return buf
 
 
@@ -386,7 +457,8 @@ def broadcast(x: torch.Tensor, axis: Optional[Axis],
     """``x`` of the rank at ``index`` along ``axis``, written into ``x`` in
     place on every rank of the axis."""
     if _live(axis):
-        dist.broadcast(x, src=axis.ranks[index], group=axis.group)
+        _collective("broadcast", dist.broadcast, x, src=axis.ranks[index],
+                    group=axis.group)
     return x
 
 
@@ -417,6 +489,7 @@ def shift(tensors: Sequence[torch.Tensor], axis: Optional[Axis],
     times them)."""
     if not _live(axis):
         return list(tensors)
+    _refuse_in_capture("shift")
     n = axis.size
     dst = axis.ranks[(axis.index + step) % n]
     src = axis.ranks[(axis.index - step) % n]
@@ -442,6 +515,7 @@ def send(x: torch.Tensor, axis: Axis, index: int):
     returns a handle whose ``wait()`` ends the send (hold it until then).
     Under gloo a CUDA tensor goes through a host copy, as in
     :func:`shift`."""
+    _refuse_in_capture("send")
     if dist.get_backend(axis.group) == "nccl":
         buf = x.detach().contiguous()
     else:
@@ -453,6 +527,7 @@ def recv(axis: Axis, index: int, shape, dtype: torch.dtype,
          device) -> torch.Tensor:
     """A tensor of ``shape`` and ``dtype`` on ``device``, received from the
     rank at ``index`` along ``axis`` (blocking)."""
+    _refuse_in_capture("recv")
     nccl = dist.get_backend(axis.group) == "nccl"
     buf = torch.empty(shape, dtype=dtype, device=device if nccl else "cpu")
     dist.recv(buf, axis.ranks[index], group=axis.group)

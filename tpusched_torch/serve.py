@@ -43,15 +43,18 @@ prompt bucket, ``_build_prefill_chunk``, ``_build_prefix_kv`` a prefix
 length and ``_build_prefix_insert`` a registered prefix,
 ``_build_draft_tick`` and ``_build_verify_span``, and the sampled round's
 draft ingest, one-token draft step and verify span): a body over static
-buffers with the arena written in place (:mod:`.program`). On the card an
-engine with no mesh captures each as a CUDA graph, at ``warmup()`` or at
-first use, and replays it on every tick, admission, chunk, registration
-and round; the cursors it takes stay on the card through the step. A
-sampled round is three programs, not one: its draws are made on the host
-in float64 (``decode.keyed_categorical``), so the draft step is replayed
-k - 1 times with a draw between replays. On the CPU, and on an engine
-over a mesh, whose collectives stage through the host under gloo, the
-bodies run as they are.
+buffers with the arena written in place (:mod:`.program`). On the card
+every engine captures each, at ``warmup()`` or at first use, and replays
+it on every tick, admission, chunk, registration and round; the cursors
+it takes stay on the card through the step. Over a mesh a program is a
+chain of CUDA graphs broken at each collective its body makes (tp's and
+ep's sums and gathers, fsdp's weight gathers), each collective run
+between two replays on the tensor the capture recorded; the host
+decisions still pass through ``_agree``, outside every program. A sampled
+round is three programs, not one: its draws are made on the host in
+float64 (``decode.keyed_categorical``), so the draft step is replayed
+k - 1 times with a draw between replays. On the CPU the bodies run as
+they are.
 
 Pad keys land at positions >= the prompt's true length, which the causal
 cursor masks until the decode step overwrites them. Idle slots decode
@@ -280,9 +283,9 @@ class ServeEngine:
     (axes in slice, dp, fsdp, sp, pp, ep and tp; see the module docstring)
     it runs on ``mesh.device`` and takes the full weights from anywhere.
 
-    Every step is a program (see the module docstring): captured as a
-    CUDA graph on the card unless the engine has a mesh, whose collectives
-    stage through the host, and then run as it is, as on the CPU."""
+    Every step is a program (see the module docstring): captured on the
+    card, as one CUDA graph or, over a mesh, a chain of them broken at
+    each collective; run as it is on the CPU."""
 
     def __init__(self, params: Params, cfg: ModelConfig, *,
                  slots: int = 8, max_seq: int = 1024,
@@ -404,9 +407,10 @@ class ServeEngine:
         self._draft_weights = (cast_params_for_compute(draft_params,
                                                        draft_cfg)
                                if draft_params is not None else None)
-        # graphs on the card, bodies elsewhere and over a mesh; chip_smoke.py
-        # sets it False on a card engine to drain through the bodies
-        self._graphs = self.device.type == "cuda" and mesh is None
+        # graphs on the card, over a mesh too (chains broken at each
+        # collective), bodies on the CPU; chip_smoke.py sets it False on a
+        # card engine to drain through the bodies
+        self._graphs = self.device.type == "cuda"
         self._programs: Dict[tuple, Program] = {}
         self._pool = None
         self.slots = slots
