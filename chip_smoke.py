@@ -206,7 +206,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``dryrun_multichip(6)`` with every rank a gloo rank on the card: the
     reference's seven and five lines, each OK; at 8 the dense block's
     ring-flash K1 = K2 = K3 = L·(1 + sp index) a rank. Phases 32-34 run
-    gloo through the host too;
+    gloo through the host too. Every train step of phases 22 and 24-34
+    over a mesh runs as a chain of graphs (phase 40);
 35. the compiled programs (``tpusched_torch.program``): an engine with no
     mesh replays its decode tick, slot prefills and greedy round as CUDA
     graphs, and greedy ``generate`` one captured step a token, so phases 3,
@@ -314,17 +315,52 @@ Phases, in order; any failure raises and the script exits non-zero:
     segments are held to the collectives its warm-up ran + 1 (a program
     counts them; ``tests/test_torch_mesh_program.py`` pins each program's
     collectives on the CPU). Gloo through the host: these times say
-    nothing of NCCL or NVLink.
+    nothing of NCCL or NVLink;
+40. the mesh train steps and the GPipe step as chains of CUDA graphs
+    broken at each collective, the backward's (cut on autograd's device
+    thread), the ring hops and the hand-offs included, which the training
+    of phases 22, 24-28, 33 and 34 now also runs: one group a case, three
+    steps chained and three through the bodies (``step._programs.graphs =
+    False``) from the same initial shards at full width: phase 22's
+    ``llama_like_big`` AdamW on {"tp": 2}, phase 24's ring-flash AdamW on
+    {"fsdp": 2, "sp": 2}, phase 26's ``mixtral_like`` SGD on {"dp": 2,
+    "ep": 2}, phase 27's GPipe step on {"pp": 2} and tiny f32 accumulation
+    (2 microbatches) on {"dp": 2, "tp": 2}: losses and every shard after
+    each step bitwise equal, every program's segments its warm-up's
+    collectives + 1 (break kinds printed), K1/K2/K3 a step through the
+    replays equal to the bodies' (24/12/12 a rank at tp 2; 24/12/12 and
+    48/24/24 by sp index; 0 under ep; 24 each a stage under pp), cuts on
+    autograd's thread counted, step times each way and peak memory a
+    rank; last, on the tp 2 ranks a collective past the mesh's hook in a
+    capture's forward and on the tiny ranks one in its backward must make
+    the capture raise (``tests/test_torch_mesh_train_program.py`` pins
+    the breaks on the CPU).
 
-Each group of phases prints its seconds (``phases_20_22_s`` ...
-``phases_32_34_s``, ``phases_20_34_s``, ``phases_35_39_s``) and the
-script its own (``script_s``).
+Phases 20-34, 39 and 40 run together after phase 19. First, alone on the
+card, the work whose numbers a check or a table reads: the kernels timed
+at the ranks' and the ring's shapes, the one-process references of
+phases 23, 24, 26 and 27, the one-process card work of phases 29 and 30
+and phase 31's calibrate. Then every phase's rank groups run side by side
+(:func:`run_side_by_side`): each group is a ``tmesh.launch`` in a worker
+thread, started once the card's free memory covers its ranks' peaks (a
+table of each group's measured peak a rank) plus a CUDA context a rank
+and a margin; the phases' checks run in phase order as their groups end,
+so that phase 33 reads phase 27's results and phase 39 phases 20's and
+26's; phase 31's budget, which reads phase 20's peaks, after them. A
+``rank_groups`` line gives each group's ranks, start and end second, the
+groups it overlapped and its ranks' peak memory, and each line of gloo
+times names the groups that overlapped its own. Phases 35-38 follow,
+alone. Each part prints its seconds (``phases_s``, ``phases_12_16_s``,
+``phases_17_19_s``, ``phases_20_34_s`` with ``alone_s`` and
+``side_by_side_s``, ``phases_35_38_s``) and the script its own
+(``script_s``).
 
 The second-to-last line is the ``kernels`` JSON object (each kernel also
 with ``ring_launches`` from phase 24, ``ring_shape`` times,
 ``pp_launches`` from phases 27 and 28, ``ckpt_launches`` from phase 29,
 ``pp_fsdp_launches`` from phase 33, ``dryrun_launches`` from phase 34,
 ``graphed_train_launches`` from phase 37 and ``xl_shape`` from phase 38,
+``mesh_graphed_train_launches`` from phase 40,
 K1 ``mesh_graphed_launches`` from phase 39, ``handoff_launches``
 from phase 30, ``fsdp_serving_launches`` from phase 32 and
 ``graphed_launches`` from phases 13, 35 and 36), the last line the
@@ -338,6 +374,7 @@ DIR) and of this one in turns on the card (:func:`ab`) and runs no phase.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -345,6 +382,7 @@ import io
 import itertools
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -1892,6 +1930,332 @@ def phase_spec_parity(attention, decode, serve, spec_decode, workload,
 
 # what every time of phases 20-22 measures: one card holds every rank
 GLOO_NOTE = "gloo through the host, ranks sharing one card"
+
+
+# -- rank groups side by side (phases 20-34, 39 and 40) ----------------------
+#
+# Each of these phases spawns gloo rank groups on the card (``tmesh.launch``).
+# A phase is a generator: its main-process work runs in the main thread up to
+# a ``yield`` of the groups it needs (a tuple of :class:`Group`), which start
+# in worker threads as soon as the card's memory admits them, and the phase
+# resumes with them once they have all ended. :func:`run_side_by_side` primes
+# every phase in phase order, so that every group is queued at once, then
+# resumes the phases in phase order: a phase's checks that read an earlier
+# phase's results (33 reads 27's, 39 reads 20's, 26's and 32's) run after
+# that phase has ended, while the groups themselves depend on nothing but
+# phases 3-19. A group's admission figure is its ranks' peak memory reserved
+# a rank (GROUP_PEAK_GIB, each printed by that group in an earlier whole run's
+# ``rank_groups`` line) plus a CUDA context a rank.
+
+# GiB reserved at each rank's peak, by group label: the
+# ``peak_reserved_gib_per_rank`` of the ``rank_groups`` line of a whole run
+# (PR 18 call 8; NVIDIA H100 80GB HBM3, 700.00 W); phase 34's groups spawn
+# their ranks in ``entry`` and are not sampled: tiny f32, as 25's and 28's
+GROUP_PEAK_GIB = {
+    "20-22 tp 2": [7.83] * 2, "20-22 tp 4": [1.79] * 4,
+    "23 ring": [0.22, 0.28], "24 fsdp x sp": [13.82, 13.82, 13.82, 13.82],
+    "25 dryrun": [0.13] * 8, "26 ep train": [8.61] * 4,
+    "26 ep serve": [1.83, 1.59], "27 pp": [16.38, 20.63],
+    "28 dryrun ep pp": [0.20] * 8, "28 pp flash": [0.14] * 2,
+    "29 ckpt mesh": [0.27] * 4, "30 handoff": [1.68] * 2,
+    "32 fsdp serving": [6.02] * 2, "33 pp x fsdp": [13.57, 13.57, 19.47,
+                                                    19.47],
+    "34 dryrun 8": [0.2] * 8, "34 dryrun 6": [0.2] * 6,
+    "39 mesh programs": [5.24] * 2, "40 tp 2 adamw": [9.37] * 2,
+    "40 fsdp x sp adamw": [16.43, 16.50, 16.48, 16.50],
+    "40 dp x ep sgd": [11.58] * 4, "40 pp": [19.58, 26.31],
+    "40 tiny accum": [0.19] * 4}
+# the phases in the order their groups queue: first phase 40, whose fsdp x
+# sp group and phase 33's take the whole card and so run alone before the
+# others, then the longest (each group's seconds in the ``rank_groups``
+# line), so that the short ones fill the card and the cores around them;
+# the checks run in phase order
+GROUP_QUEUE_ORDER = ("40", "33", "39", "32", "20-22", "24", "34", "30",
+                     "27", "29", "26", "25", "28", "23")
+GROUP_MARGIN_GIB = 4.0       # the main process's checks between groups
+# a rank still running after this many seconds writes its threads' stacks
+# to stderr and exits, failing its group: no group runs near it alone, and
+# a hung rank would otherwise hold the script to the call's limit
+RANK_DEADLINE_S = 900
+# running ranks a CPU core, at most: a rank waiting on the card spins a core
+GROUP_MAX_RANKS = 1.5
+
+
+class LockedLines(io.TextIOBase):
+    """``sys.stdout`` for threads that print: each thread's text is kept
+    until its line ends, then written whole under one lock."""
+
+    def __init__(self, out):
+        import threading
+        self.out, self.lock = out, threading.Lock()
+        self.local = threading.local()
+
+    def write(self, text: str) -> int:
+        pending = getattr(self.local, "pending", "") + text
+        head, sep, tail = pending.rpartition("\n")
+        self.local.pending = tail
+        if sep:
+            with self.lock:
+                self.out.write(head + sep)
+                self.out.flush()
+        return len(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+    @property
+    def encoding(self):
+        return self.out.encoding
+
+
+def sampled_rank(mesh, fn, *args):
+    """``fn(mesh, *args)`` on one rank with the memory its caching
+    allocator reserves sampled every 20 ms: (its result, the peak GiB
+    reserved, the larger of the samples and the allocator's own peak).
+    Past RANK_DEADLINE_S the rank writes every thread's stack to stderr
+    and exits. The rank's host work is the gloo staging, whose copies and
+    sums its CPU threads would only contend for with the other groups'
+    ranks: one torch thread."""
+    import faulthandler
+    import threading
+    faulthandler.dump_traceback_later(RANK_DEADLINE_S, exit=True)
+    torch.set_num_threads(1)
+    peak, done = [0], threading.Event()
+
+    def sample():
+        while not done.wait(0.02):
+            peak[0] = max(peak[0], torch.cuda.memory_reserved())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    try:
+        out = fn(mesh, *args)
+    finally:
+        done.set()
+        sampler.join()
+    return out, max(peak[0], torch.cuda.max_memory_reserved()) / 2**30
+
+
+class Group:
+    """One rank group of a phase: ``ranks`` gloo ranks on the card that
+    ``call()`` runs (a ``tmesh.launch``, blocking) in a worker thread; its
+    start and end (seconds since the section began), result or exception,
+    and each rank's peak reserved GiB when it reports one."""
+
+    def __init__(self, label: str, ranks: int, call):
+        self.label, self.ranks, self.call = label, ranks, call
+        self.start = self.end = None
+        self.result = self.error = None
+        self.peaks = None
+        self.section = None
+
+    @property
+    def need_gib(self) -> float:
+        return (sum(GROUP_PEAK_GIB[self.label])
+                + self.ranks * self.section.context_gib)
+
+    def overlapped(self) -> list:
+        """The groups that were on the card while this one was."""
+        return [g.label for g in self.section.groups if g is not self
+                and g.start is not None and g.start < self.end
+                and (g.end is None or g.end > self.start)]
+
+    def note(self) -> dict:
+        """For a line that prints this group's gloo times: who shared the
+        card and the host with it."""
+        return {"overlapping_groups": self.overlapped(),
+                "overlap_note": "gloo times taken while other rank groups "
+                                "shared the card and the host's "
+                                f"{os.cpu_count()} cores"
+                if self.overlapped() else "no other rank group ran"}
+
+
+def spawn(label: str, fn, sizes: dict, *args) -> Group:
+    """A group of ``fn(mesh, *args)`` on every rank of ``sizes`` (gloo, the
+    card), each rank's memory sampled (:func:`sampled_rank`); its result
+    the ranks' results in rank order."""
+    workdir = pathlib.Path(__file__).resolve().parent / "build"
+    workdir.mkdir(exist_ok=True)
+
+    def call():
+        from tpusched_torch import mesh as tmesh
+        out = tmesh.launch(sampled_rank, sizes, fn, *args, backend="gloo",
+                           device="cuda", workdir=str(workdir))
+        group.peaks = [peak for _, peak in out]
+        return [r for r, _ in out]
+
+    group = Group(label, math.prod(sizes.values()), call)
+    return group
+
+
+class Section:
+    """The worker threads and the admission of the rank groups: a queued
+    group starts, in queue order, once the card's free memory
+    (``mem_get_info`` after ``empty_cache``) and the section's budget (the
+    free memory when it began, less GROUP_MARGIN_GIB) both cover its
+    ``need_gib`` beside the groups running, and the running ranks stay
+    within GROUP_MAX_RANKS a core."""
+
+    def __init__(self):
+        import threading
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        # this process's memory outside its allocator: the context, its
+        # loaded modules and libraries, as each rank will hold them
+        self.context_gib = (total - free - torch.cuda.memory_reserved()) \
+            / 2**30
+        self.budget_gib = free / 2**30 - GROUP_MARGIN_GIB
+        self.max_ranks = int(GROUP_MAX_RANKS * (os.cpu_count() or 1))
+        self.t0 = time.perf_counter()
+        self.groups: list = []
+        self.queue: list = []
+        self.cond = threading.Condition()
+        self.failed = None
+        self.closed = False
+        self.thread = threading.Thread(target=self._admit, daemon=True)
+        self.thread.start()
+
+    def submit(self, groups) -> None:
+        with self.cond:
+            for g in groups:
+                check(g.label in GROUP_PEAK_GIB, f"no admission figure for "
+                      f"rank group {g.label!r}")
+                g.section = self
+                self.groups.append(g)
+                self.queue.append(g)
+            self.cond.notify_all()
+
+    def _running(self) -> list:
+        return [g for g in self.groups
+                if g.start is not None and g.end is None]
+
+    def _admit(self) -> None:
+        try:
+            self._admit_loop()
+        except BaseException as e:         # raised in the main thread
+            with self.cond:
+                self.failed = e
+                self.cond.notify_all()
+
+    def _admit_loop(self) -> None:
+        import threading
+        while True:
+            with self.cond:
+                if self.closed:
+                    return
+                running = self._running()
+                held = sum(g.need_gib for g in running)
+                ranks = sum(g.ranks for g in running)
+                start = None
+                for g in self.queue:
+                    # alone, a group starts whatever it asks: it ran alone
+                    # before the groups ran side by side
+                    if not running or (
+                            held + g.need_gib <= self.budget_gib
+                            and ranks + g.ranks <= self.max_ranks):
+                        start = g
+                        break
+                if start is not None:
+                    torch.cuda.empty_cache()
+                    free = torch.cuda.mem_get_info()[0] / 2**30
+                    if free < start.need_gib + GROUP_MARGIN_GIB and running:
+                        start = None
+                if start is None:
+                    self.cond.wait(0.5)
+                    continue
+                self.queue.remove(start)
+                start.start = time.perf_counter() - self.t0
+            threading.Thread(target=self._run, args=(start,),
+                             daemon=True).start()
+
+    def _run(self, g: Group) -> None:
+        try:
+            g.result = g.call()
+        except BaseException as e:            # raised in the main thread
+            g.error = e
+        with self.cond:
+            g.end = time.perf_counter() - self.t0
+            self.cond.notify_all()
+        print(json.dumps({"rank_group_ended": g.label, "start_s": g.start,
+                          "end_s": g.end, "peak_reserved_gib_per_rank":
+                          g.peaks, "failed": g.error is not None}),
+              file=sys.stderr, flush=True)
+
+    def wait(self, groups) -> tuple:
+        """Block until every group of ``groups`` has ended; raise the first
+        one's exception, if any."""
+        with self.cond:
+            while any(g.end is None for g in groups) and self.failed is None:
+                self.cond.wait(0.5)
+        if self.failed is not None:
+            raise RuntimeError("the rank groups' admission failed") \
+                from self.failed
+        for g in groups:
+            if g.error is not None:
+                raise RuntimeError(f"rank group {g.label!r} failed") \
+                    from g.error
+        return tuple(groups)
+
+    def close(self, ok: bool) -> None:
+        """Stop admitting; after a failure, end every rank still running."""
+        import multiprocessing
+        with self.cond:
+            self.closed = True
+            self.cond.notify_all()
+        if not ok:
+            for child in multiprocessing.active_children():
+                child.terminate()
+
+    def line(self) -> dict:
+        return {"rank_groups": [
+            {"label": g.label, "ranks": g.ranks, "start_s": g.start,
+             "end_s": g.end, "overlapped": g.overlapped(),
+             "admitted_at_gib": g.need_gib,
+             "peak_reserved_gib_per_rank": g.peaks} for g in self.groups],
+            "cpu_count": os.cpu_count(), "context_gib": self.context_gib,
+            "budget_gib": self.budget_gib, "margin_gib": GROUP_MARGIN_GIB,
+            "max_ranks": self.max_ranks,
+            "section_s": time.perf_counter() - self.t0}
+
+
+def run_side_by_side(phases: dict, results: dict) -> dict:
+    """Every phase generator of ``phases`` (name -> generator, in phase
+    order) run to its end with its groups side by side on the card: each
+    primed in GROUP_QUEUE_ORDER (its work up to its first groups, which
+    are queued at once), then resumed in turn whenever its groups have
+    ended, in phase order. Fills ``results`` with each phase's return value and returns
+    the section's line (the ``rank_groups`` line). Any failure ends every
+    rank and is raised."""
+    section = Section()
+    waiting = {}
+    ok = False
+    try:
+        for name in sorted(phases, key=lambda n: (
+                GROUP_QUEUE_ORDER.index(n) if n in GROUP_QUEUE_ORDER
+                else len(GROUP_QUEUE_ORDER))):
+            _advance(section, name, phases[name], None, results, waiting)
+        for name, gen in phases.items():
+            while name in waiting:
+                groups = section.wait(waiting[name])
+                _advance(section, name, gen, groups, results, waiting)
+        ok = True
+    finally:
+        section.close(ok)
+    return section.line()
+
+
+def _advance(section, name, gen, groups, results, waiting) -> None:
+    """``gen`` resumed with ``groups`` (primed when None) up to its next
+    yield, whose groups are queued, or to its end."""
+    waiting.pop(name, None)
+    try:
+        wanted = gen.send(groups) if groups is not None else next(gen)
+    except StopIteration as stop:
+        results[name] = stop.value
+        return
+    waiting[name] = tuple(wanted)
+    section.submit(waiting[name])
 # phase 21's GQA variant of tiny: head_dim 32, 4 heads over 2 KV heads, so
 # each rank at tp = 2 runs the flash kernel on 2 heads over 1
 TINY_GQA = dict(d_model=128, n_heads=4, n_kv_heads=2, attn="flash")
@@ -1932,7 +2296,10 @@ def tp_serve(mesh, name):
 def all_reduce_ms(mesh) -> dict:
     """One rank's time of an f32 sum over the tp axis through the mesh's
     collective, a decode tick's size (64 KiB) and a 1024-row prefill's
-    (8 MiB), 5 calls after 1 warm, each ended by a synchronize."""
+    (8 MiB), 5 calls after 1 warm, each ended by a synchronize; then the
+    same sum's parts, each fenced, 5 times: the copy to the host, gloo's
+    sum of the host tensors and the copy back (``split``, ms each)."""
+    import torch.distributed as dist
     from tpusched_torch.mesh import all_reduce
     out = {}
     for label, n in (("64KiB", 1 << 14), ("8MiB", 1 << 21)):
@@ -1944,6 +2311,20 @@ def all_reduce_ms(mesh) -> dict:
             all_reduce(x, mesh.tp)
         torch.cuda.synchronize()
         out[label] = (time.perf_counter() - t0) / 5 * 1e3
+        parts = np.zeros(3)
+        for _ in range(5):
+            t = [time.perf_counter()]
+            host = x.to("cpu")
+            t.append(time.perf_counter())
+            dist.all_reduce(host, group=mesh.tp.group)
+            t.append(time.perf_counter())
+            x.copy_(host)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            parts += np.diff(t)
+        out[f"{label}_split"] = dict(zip(
+            ("to_host_ms", "gloo_host_sum_ms", "to_card_ms"),
+            (parts / 5 * 1e3).tolist()))
     return out
 
 
@@ -2112,23 +2493,18 @@ def ranks_agree(ranks, key, what):
               f"{what}: rank {r}'s completions differ from rank 0's")
 
 
-def phase_tp(attention, decode, serve, workload, tmesh, mono, moe_mono,
-             train):
-    """Phases 20-22 (module docstring): two spawns of gloo ranks sharing
+def phase_tp(attention, decode, serve, workload, mono, moe_mono, train):
+    """Phases 20-22 (module docstring): two groups of gloo ranks sharing
     the card, then the checks against phases 3, 6 and 8. Returns the
     per-rank launches for the kernels line."""
     t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    workdir = pathlib.Path(__file__).resolve().parent / "build"
-    workdir.mkdir(exist_ok=True)
-    two = tmesh.launch(tp2_rank, {"tp": 2}, backend="gloo", device="cuda",
-                       workdir=str(workdir))
-    four = tmesh.launch(tp4_rank, {"tp": 4}, backend="gloo", device="cuda",
-                        workdir=str(workdir))
+    two_g, four_g = yield (spawn("20-22 tp 2", tp2_rank, {"tp": 2}),
+                           spawn("20-22 tp 4", tp4_rank, {"tp": 4}))
+    two, four = two_g.result, four_g.result
     cfg = workload.ModelConfig.llama_like_big()
     params = None
     per_prefill = cfg.n_layers
-    for tp, ranks in ((2, two), (4, four)):
+    for tp, ranks, group in ((2, two, two_g), (4, four, four_g)):
         ranks_agree(ranks, "llama_like_big", f"llama_like_big at tp {tp}")
         runs = [r["llama_like_big"] for r in ranks]
         for run in runs:
@@ -2157,7 +2533,8 @@ def phase_tp(attention, decode, serve, workload, tmesh, mono, moe_mono,
             "unsharded_peak_mem_gib": mono["peak_mem_gib"],
             "drain_s_per_rank": [r["drain_s"] for r in runs],
             "all_reduce_ms_per_rank": [r["all_reduce_ms"] for r in ranks],
-            "segments": runs[0]["segments"], "drain_s_note": GLOO_NOTE}))
+            "segments": runs[0]["segments"], "drain_s_note": GLOO_NOTE,
+            **group.note()}))
     del params
     ranks_agree(two, "mixtral_like", "mixtral_like at tp 2")
     moe = [r["mixtral_like"] for r in two]
@@ -2185,7 +2562,8 @@ def phase_tp(attention, decode, serve, workload, tmesh, mono, moe_mono,
         "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in moe],
         "unsharded_peak_mem_gib": moe_mono["peak_mem_gib"],
         "drain_s_per_rank": [r["drain_s"] for r in moe],
-        "segments": moe[0]["segments"], "drain_s_note": GLOO_NOTE}))
+        "segments": moe[0]["segments"], "drain_s_note": GLOO_NOTE,
+        **two_g.note()}))
     for mode in two[0]["tiny"]:
         check(two[0]["tiny"][mode] == two[1]["tiny"][mode],
               f"tiny {mode}: the ranks disagree")
@@ -2212,7 +2590,7 @@ def phase_tp(attention, decode, serve, workload, tmesh, mono, moe_mono,
         "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in runs],
         "phase_6_peak_mem_gib": train["peak_mem_gib"],
         "step_s_per_rank": [r["step_s"] for r in runs],
-        "step_s_note": GLOO_NOTE}))
+        "step_s_note": GLOO_NOTE, **two_g.note()}))
     tiny = [r["tiny_train"] for r in four]
     check(all(t["losses"] == tiny[0]["losses"] for t in tiny),
           "tiny dp2xtp2: the ranks' losses differ")
@@ -2315,25 +2693,37 @@ def ring_rank(mesh):
     return out
 
 
-def phase_ring(attention, tmesh, workdir):
-    """Phase 23: the kernels in the ring's way. K2/K3 with the ring's lse
-    and D (:func:`ring_pair_backward`); then ring-flash on two gloo ranks
-    at RING_CHUNK, causal, against the plain version of the whole sequence
-    (out: worst 64-row tile 1e-2; dq, dk, dv: 2e-2), rank r launching K1,
-    K2 and K3 1 + r times each; then the masked-outlier input in f32:
-    gradients finite and within 3e-3 + 2e-3·|plain| of the plain
-    version's. Returns the pair's max abs errors."""
-    t0 = time.perf_counter()
-    pair_err = ring_pair_backward(attention)
-    torch.cuda.empty_cache()
-    ranks = tmesh.launch(ring_rank, {"sp": 2}, backend="gloo",
-                         device="cuda", workdir=str(workdir))
+def ring_plain(attention) -> dict:
+    """Phase 23's references, by RING_CASES name: the plain version's out,
+    dq, dk and dv of the whole sequence (run before the rank groups: the
+    whole (s, s) scores of 8192 positions take tens of GiB)."""
+    refs = {}
     for name, args in RING_CASES.items():
         q, k, v, do = ring_inputs(*args)
         out, lse = attention.flash_attention_plain(q, k, v, True)
-        ref = dict(zip(("dq", "dk", "dv"), attention.flash_backward_plain(
-            q, k, v, out, lse, do, True)), out=out)
-        del q, k, v, do, lse
+        refs[name] = dict(zip(("dq", "dk", "dv"),
+                              attention.flash_backward_plain(
+                                  q, k, v, out, lse, do, True)), out=out)
+        del q, k, v, do, lse, out
+        torch.cuda.empty_cache()
+    return refs
+
+
+def phase_ring(attention, pair_err, refs):
+    """Phase 23: the kernels in the ring's way. K2/K3 with the ring's lse
+    and D (:func:`ring_pair_backward`, ``pair_err``, run before the rank
+    groups); then ring-flash on two gloo ranks at RING_CHUNK, causal,
+    against the plain version of the whole sequence (``refs``,
+    :func:`ring_plain`; out: worst 64-row tile 1e-2; dq, dk, dv: 2e-2),
+    rank r launching K1, K2 and K3 1 + r times each; then the
+    masked-outlier input in f32: gradients finite and within 3e-3 +
+    2e-3·|plain| of the plain version's. Returns the pair's max abs
+    errors."""
+    t0 = time.perf_counter()
+    group, = yield (spawn("23 ring", ring_rank, {"sp": 2}),)
+    ranks = group.result
+    for name in RING_CASES:
+        ref = refs.pop(name)
         for r, rank in enumerate(ranks):
             got = rank[name]
             check(got["index"] == r and got["launches"] == (1 + r,) * 3,
@@ -2358,8 +2748,7 @@ def phase_ring(attention, tmesh, workdir):
                       f"{(x.float() - y.float()).abs().max().item():.3e}")
                 check(ok, f"ring-flash {name} {key} disagrees with the plain "
                       f"version on rank {r}")
-        del ref, out
-        torch.cuda.empty_cache()
+        del ref
     print(json.dumps({"ring_kernels": "phase 23", "chunk": list(RING_CHUNK),
                       "launches_per_rank": [r["chunk"]["launches"]
                                             for r in ranks],
@@ -2425,21 +2814,19 @@ def fsdp_sp_rank(mesh):
             **sp_big_steps(attention, optim, workload, cfg, mesh)}
 
 
-def phase_fsdp_sp(attention, optim, workload, tmesh, train, workdir):
+def phase_fsdp_sp(workload, train, ref):
     """Phase 24: full-width llama_like_big(seq=8192) on SP_MESH, four gloo
     ranks sharing the card, three AdamW steps with ring-flash attention,
     against the same weights and batch on one process with whole-sequence
-    flash attention (run first, then freed). Held: every step's loss
-    within 2e-2 of the one-process run's and falling; per rank and step K1
-    2·12·(1 + sp index), K2 = K3 = 12·(1 + sp index); every fsdp leaf a
-    rank holds half its whole size. Returns the launches per step by sp
-    index."""
+    flash attention (``ref``, :func:`sp_big_steps` run before the rank
+    groups). Held: every step's loss within 2e-2 of the one-process run's
+    and falling; per rank and step K1 2·12·(1 + sp index), K2 = K3 =
+    12·(1 + sp index); every fsdp leaf a rank holds half its whole size.
+    Returns the launches per step by sp index."""
     t0 = time.perf_counter()
     cfg = sp_big_cfg(workload)
-    ref = sp_big_steps(attention, optim, workload, cfg)
-    torch.cuda.empty_cache()
-    ranks = tmesh.launch(fsdp_sp_rank, SP_MESH, backend="gloo",
-                         device="cuda", workdir=str(workdir))
+    group, = yield (spawn("24 fsdp x sp", fsdp_sp_rank, SP_MESH),)
+    ranks = group.result
     layers = cfg.n_layers
     for r, run in enumerate(ranks):
         i = run["sp_index"]
@@ -2474,7 +2861,7 @@ def phase_fsdp_sp(attention, optim, workload, tmesh, train, workdir):
         "phase_6_peak_mem_gib": train["peak_mem_gib"],
         "step_s_per_rank": [r["step_s"] for r in ranks],
         "one_process_step_s": ref["step_s"], "step_s_note": GLOO_NOTE,
-        "phase_24_s": time.perf_counter() - t0}))
+        **group.note(), "phase_24_s": time.perf_counter() - t0}))
     return by_index
 
 
@@ -2508,7 +2895,7 @@ def dryrun_rank(mesh):
     return out
 
 
-def phase_dryrun(attention, workload, tmesh, workdir):
+def phase_dryrun(workload):
     """Phase 25: tiny f32 on the reference's dryrun mesh DRYRUN_MESH, eight
     gloo ranks: one SGD step with the ring and with ring-flash, each loss
     within 1e-5 relative of the whole model's with naive attention; K1
@@ -2520,8 +2907,8 @@ def phase_dryrun(attention, workload, tmesh, workdir):
     with torch.no_grad():
         whole = workload.loss_fn(seeded_params(workload, cfg),
                                  dryrun_tokens(cfg), cfg).item()
-    ranks = tmesh.launch(dryrun_rank, DRYRUN_MESH, backend="gloo",
-                         device="cuda", workdir=str(workdir))
+    group, = yield (spawn("25 dryrun", dryrun_rank, DRYRUN_MESH),)
+    ranks = group.result
     layers = cfg.n_layers
     for r, run in enumerate(ranks):
         i = run["sp_index"]
@@ -2602,21 +2989,20 @@ def ep_serve_rank(mesh):
     return {"mixtral_like": tp_serve(mesh, "mixtral_like")}
 
 
-def phase_ep(attention, decode, serve, workload, tmesh, moe_mono, moe_train,
-             workdir):
+def phase_ep(decode, serve, workload, moe_mono, moe_train, ref):
     """Phase 26: expert parallelism at full width, gloo ranks sharing the
-    card. Training: :func:`ep_steps` on one process, then on EP_MESH (four
-    ranks): losses within 2e-2 of the one process's and falling, a positive
-    aux, E/ep experts a rank, no flash launch (mixtral_like attends
-    naively). Serving: phase 8's traffic on EP_SERVE_MESH: the ranks agree,
-    every stream equals phase 8's or first differs at a near tie, no flash
-    launch."""
+    card. Training: :func:`ep_steps` on one process (``ref``, run before
+    the rank groups), then on EP_MESH (four ranks): losses within 2e-2 of
+    the one process's and falling, a positive aux, E/ep experts a rank, no
+    flash launch (mixtral_like attends naively). Serving: phase 8's
+    traffic on EP_SERVE_MESH: the ranks agree, every stream equals phase
+    8's or first differs at a near tie, no flash launch."""
     t0 = time.perf_counter()
     cfg = ep_cfg(workload)
-    ref = ep_steps(attention, workload)
-    torch.cuda.empty_cache()
-    ranks = tmesh.launch(ep_train_rank, EP_MESH, backend="gloo",
-                         device="cuda", workdir=str(workdir))
+    train_g, serve_g = yield (spawn("26 ep train", ep_train_rank, EP_MESH),
+                              spawn("26 ep serve", ep_serve_rank,
+                                    EP_SERVE_MESH))
+    ranks = train_g.result
     want_experts = cfg.n_experts // EP_MESH["ep"]
     for r, run in enumerate(ranks):
         check(run["launches"] == (0, 0, 0),
@@ -2648,10 +3034,9 @@ def phase_ep(attention, decode, serve, workload, tmesh, moe_mono, moe_train,
         "one_process_peak_mem_gib": ref["peak_mem_gib"],
         "phase_10_peak_mem_gib": moe_train["peak_mem_gib"],
         "step_s_per_rank": [r["step_s"] for r in ranks],
-        "one_process_step_s": ref["step_s"], "step_s_note": GLOO_NOTE}))
-    torch.cuda.empty_cache()
-    served = tmesh.launch(ep_serve_rank, EP_SERVE_MESH, backend="gloo",
-                          device="cuda", workdir=str(workdir))
+        "one_process_step_s": ref["step_s"], "step_s_note": GLOO_NOTE,
+        **train_g.note()}))
+    served = serve_g.result
     ranks_agree(served, "mixtral_like", "mixtral_like on ep 2")
     runs = [r["mixtral_like"] for r in served]
     check(all(r["launches"] == 0 for r in runs),
@@ -2680,7 +3065,7 @@ def phase_ep(attention, decode, serve, workload, tmesh, moe_mono, moe_train,
         "unsharded_peak_mem_gib": moe_mono["peak_mem_gib"],
         "drain_s_per_rank": [r["drain_s"] for r in runs],
         "segments": runs[0]["segments"], "drain_s_note": GLOO_NOTE,
-        "phase_26_s": time.perf_counter() - t0}))
+        **serve_g.note(), "phase_26_s": time.perf_counter() - t0}))
     return runs[0]
 
 
@@ -2733,21 +3118,28 @@ def pp_rank(mesh, lr=PP_LR, steps=3):
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
-def phase_pp(attention, workload, tmesh, train, workdir):
-    """Phase 27: the GPipe pipeline at full width, two gloo ranks (stages)
-    sharing the card: every stage launches K1, K2 and K3 (L/pp)·n_micro =
-    24 times a step; the first loss within 2e-2 of one process's loss_fn
-    on the same weights and batch, the losses falling and equal on both
-    stages. Returns the launches a stage a step, the losses and the peak
-    memory a stage."""
-    t0 = time.perf_counter()
+def pp_whole_loss(workload) -> float:
+    """Phase 27's reference: one process's loss_fn on its weights and
+    batch (run before the rank groups)."""
     cfg = pp_cfg(workload)
     with torch.no_grad():
         whole = workload.loss_fn(seeded_params(workload, cfg),
                                  pp_tokens(cfg), cfg).item()
     torch.cuda.empty_cache()
-    ranks = tmesh.launch(pp_rank, PP_MESH, backend="gloo", device="cuda",
-                         workdir=str(workdir))
+    return whole
+
+
+def phase_pp(workload, train, whole):
+    """Phase 27: the GPipe pipeline at full width, two gloo ranks (stages)
+    sharing the card: every stage launches K1, K2 and K3 (L/pp)·n_micro =
+    24 times a step; the first loss within 2e-2 of one process's loss_fn
+    on the same weights and batch (``whole``, :func:`pp_whole_loss`), the
+    losses falling and equal on both stages. Returns the launches a stage
+    a step, the losses and the peak memory a stage."""
+    t0 = time.perf_counter()
+    cfg = pp_cfg(workload)
+    group, = yield (spawn("27 pp", pp_rank, PP_MESH),)
+    ranks = group.result
     per = cfg.n_layers // PP_MESH["pp"] * PP_MICRO
     for run in ranks:
         check(all(c == (per, per, per) for c in run["launches"]),
@@ -2772,7 +3164,8 @@ def phase_pp(attention, workload, tmesh, train, workdir):
         "peak_mem_gib_per_stage": [r["peak_mem_gib"] for r in ranks],
         "phase_6_peak_mem_gib": train["peak_mem_gib"],
         "step_s_per_stage": [r["step_s"] for r in ranks],
-        "step_s_note": GLOO_NOTE, "phase_27_s": time.perf_counter() - t0}))
+        "step_s_note": GLOO_NOTE, **group.note(),
+        "phase_27_s": time.perf_counter() - t0}))
     return dict(per=per, losses=losses, peak_mem_gib_per_stage=[
         r["peak_mem_gib"] for r in ranks])
 
@@ -2822,7 +3215,8 @@ def pp_flash_rank(mesh):
     step of tiny f32 (4 layers) with flash and with naive attention on the
     same weights and batch (TF32 off); each run's loss, (K1, K2, K3)
     launches and gradients, read off the update (lr PP_FLASH_LR: the
-    update dwarfs the weights' rounding)."""
+    update dwarfs the weights' rounding; the step updates the shards in
+    place, so their values before it are kept)."""
     from tpusched_torch import attention, pipeline, workload
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2836,17 +3230,17 @@ def pp_flash_rank(mesh):
             pipeline.init_pipeline_params(
                 cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"),
             cfg, mesh)
+        before = [t.clone() for t in workload.tree_leaves(list(shards))]
         zero_counts(attention)
         new, loss = step(shards, dryrun_pp_tokens(cfg, 4))
         grads = [((p - n) / PP_FLASH_LR).cpu() for p, n in zip(
-            workload.tree_leaves(list(shards)),
-            workload.tree_leaves(list(new)))]
+            before, workload.tree_leaves(list(new)))]
         out[attn] = {"loss": loss.item(), "launches": bwd_counts(attention),
                      "grads": grads}
     return out
 
 
-def phase_dryrun_ep_pp(attention, workload, tmesh, workdir):
+def phase_dryrun_ep_pp(workload):
     """Phase 28: tiny f32 on the reference dryrun's MoE and pipeline meshes
     (eight gloo ranks), each loss within 1e-5 relative of the whole
     model's; the 0.5 capacity factor drops slots (the whole model's loss
@@ -2868,8 +3262,10 @@ def phase_dryrun_ep_pp(attention, workload, tmesh, workdir):
                                        dryrun_pp_tokens(cfg, 8), cfg).item()
     check(abs(whole["moe_cf0.5"] - whole["moe_cf100.0"]) > 1e-4,
           f"capacity factor 0.5 drops no slot: {whole}")
-    ranks = tmesh.launch(dryrun_moe_pp_rank, DRYRUN_MOE_MESH, backend="gloo",
-                         device="cuda", workdir=str(workdir))
+    moe_g, flash_g = yield (
+        spawn("28 dryrun ep pp", dryrun_moe_pp_rank, DRYRUN_MOE_MESH),
+        spawn("28 pp flash", pp_flash_rank, PP_MESH))
+    ranks = moe_g.result
     rels = {}
     for name in ("moe_cf1.25", "moe_cf0.5", "pp"):
         rels[name] = max(abs(r[name] - whole[name]) / abs(whole[name])
@@ -2877,8 +3273,7 @@ def phase_dryrun_ep_pp(attention, workload, tmesh, workdir):
         check(rels[name] <= 1e-5, f"dryrun {name}: losses "
               f"{[r[name] for r in ranks]} against the whole model's "
               f"{whole[name]} (rel {rels[name]:.3e}, tol 1e-5)")
-    stages = tmesh.launch(pp_flash_rank, PP_MESH, backend="gloo",
-                          device="cuda", workdir=str(workdir))
+    stages = flash_g.result
     per = PP_FLASH_LAYERS // PP_MESH["pp"] * PP_FLASH_MICRO
     worst = 0.0
     for run in stages:
@@ -2991,10 +3386,10 @@ def ckpt_mesh_rank(mesh, directory):
     return out
 
 
-def phase_checkpoint(attention, checkpoint, data, optim, workload, tmesh,
-                     train, workdir):
-    """Phase 29 (module docstring). Returns the trained params (for phase
-    30) and the kernels' launches a step."""
+def checkpoint_alone(attention, checkpoint, data, optim, workload, train):
+    """Phase 29's one-process part (module docstring), before the rank
+    groups. Returns the trained params (for phase 30), the kernels'
+    launches a step and its seconds."""
     t0 = time.perf_counter()
     cfg = workload.ModelConfig.llama_like_big(seq=4096)
     mu_dtype = torch.float32
@@ -3072,10 +3467,17 @@ def phase_checkpoint(attention, checkpoint, data, optim, workload, tmesh,
         "peak_mem_gib": train_peak, "resumed_peak_mem_gib": resumed_peak,
         "phase_6_peak_mem_gib": train["peak_mem_gib"]}))
     torch.cuda.empty_cache()
+    return params, want, time.perf_counter() - t0
+
+
+def phase_checkpoint(workload, alone_s):
+    """Phase 29's mesh changes (module docstring), after its one-process
+    part (:func:`checkpoint_alone`, ``alone_s`` seconds)."""
+    t0 = time.perf_counter() - alone_s
     directory = work_dir("ckpt-mesh-")
-    ranks = tmesh.launch(ckpt_mesh_rank, CKPT_MESHES["dense"][0],
-                         str(directory), backend="gloo", device="cuda",
-                         workdir=str(workdir))
+    group, = yield (spawn("29 ckpt mesh", ckpt_mesh_rank,
+                          CKPT_MESHES["dense"][0], str(directory)),)
+    ranks = group.result
     shutil.rmtree(directory)
     worst = {}
     for name in CKPT_MESHES:
@@ -3105,7 +3507,6 @@ def phase_checkpoint(attention, checkpoint, data, optim, workload, tmesh,
                          "worst_rel": worst[name]}
                   for name, (sa, sb, e) in CKPT_MESHES.items()},
         "phase_29_s": time.perf_counter() - t0}))
-    return params, want
 
 
 def handoff_rank(mesh, directory):
@@ -3147,10 +3548,11 @@ class ReportRecorder:
         self.reports.extend(reports)
 
 
-def phase_handoff(attention, checkpoint, decode, measure, serve, workload,
-                  tmesh, params, workdir):
-    """Phase 30 (module docstring). Returns K1's launches in the one-card
-    drain of the snapshot."""
+def handoff_alone(attention, checkpoint, measure, serve, workload, params):
+    """Phase 30's one-process part (module docstring), before the rank
+    groups: the export, the one-card drains of ``params`` and of the
+    snapshot, and the goodput reports. Returns what :func:`phase_handoff`
+    prints and checks."""
     t0 = time.perf_counter()
     cfg = workload.ModelConfig.llama_like_big()
     directory = work_dir("serving-")
@@ -3188,20 +3590,6 @@ def phase_handoff(attention, checkpoint, decode, measure, serve, workload,
                                                        in_memory[rid])]
     check(not differ, f"the snapshot's completions differ from the "
           f"in-memory params' for requests {differ}")
-    torch.cuda.empty_cache()
-    ranks = tmesh.launch(handoff_rank, HANDOFF_MESH, str(directory),
-                         backend="gloo", device="cuda", workdir=str(workdir))
-    ranks_agree(ranks, "llama_like_big", "the snapshot at tp 2")
-    runs = [r["llama_like_big"] for r in ranks]
-    check(all(r["sharded"] for r in runs),
-          "load_for_serving(mesh=) returned leaves not at their shard shape")
-    ties = {}
-    for rid, toks in runs[0]["tokens"].items():
-        tie = near_tie(decode, loaded, cfg, reqs[rid].prompt, got[rid], toks,
-                       "cuda")
-        if tie is not None:
-            ties[rid] = tie
-    shutil.rmtree(directory)
     # goodput: one report a harness on phase 13's traffic, monolithic
     prefix, suffixes, gens, arrivals = slo_traffic(cfg.vocab)
     slo_reqs = [serve.Request(rid=i, prompt=np.concatenate([prefix, s]),
@@ -3231,6 +3619,39 @@ def phase_handoff(attention, checkpoint, decode, measure, serve, workload,
         reports[name] = {"report": dataclasses.asdict(r), "ticks":
                          out["ticks"], "tokens_per_s": out["tokens_per_s"],
                          "ttft_s_p50": out.get("ttft_s_p50")}
+    torch.cuda.empty_cache()
+    return dict(directory=directory, loaded=loaded, got=got, reqs=reqs,
+                launches=launches, prefills=prefills, reports=reports,
+                snapshot_bytes=snapshot_bytes, export_s=export_s,
+                load_s=load_s, seconds=time.perf_counter() - t0)
+
+
+def phase_handoff(decode, workload, alone):
+    """Phase 30's sharded load on two gloo ranks after its one-process
+    part (``alone``, :func:`handoff_alone`). Returns K1's launches in the
+    one-card drain of the snapshot."""
+    t0 = time.perf_counter() - alone["seconds"]
+    cfg = workload.ModelConfig.llama_like_big()
+    directory, loaded, got = alone["directory"], alone["loaded"], alone["got"]
+    reqs, launches, prefills = (alone["reqs"], alone["launches"],
+                                alone["prefills"])
+    snapshot_bytes, export_s, load_s = (alone["snapshot_bytes"],
+                                        alone["export_s"], alone["load_s"])
+    reports = alone["reports"]
+    group, = yield (spawn("30 handoff", handoff_rank, HANDOFF_MESH,
+                          str(directory)),)
+    ranks = group.result
+    ranks_agree(ranks, "llama_like_big", "the snapshot at tp 2")
+    runs = [r["llama_like_big"] for r in ranks]
+    check(all(r["sharded"] for r in runs),
+          "load_for_serving(mesh=) returned leaves not at their shard shape")
+    ties = {}
+    for rid, toks in runs[0]["tokens"].items():
+        tie = near_tie(decode, loaded, cfg, reqs[rid].prompt, got[rid], toks,
+                       "cuda")
+        if tie is not None:
+            ties[rid] = tie
+    shutil.rmtree(directory)
     print(json.dumps({
         "handoff": "llama_like_big", "snapshot_bytes": snapshot_bytes,
         "snapshot_gib": snapshot_bytes / 2**30, "export_s": export_s,
@@ -3240,7 +3661,7 @@ def phase_handoff(attention, checkpoint, decode, measure, serve, workload,
                "load_s_per_rank": [r["load_s"] for r in runs],
                "flash_launches_per_rank": [r["launches"] for r in runs],
                "streams_equal_to_one_card": len(got) - len(ties),
-               "near_ties": ties},
+               "near_ties": ties, **group.note()},
         "goodput": reports, "phase_30_s": time.perf_counter() - t0}))
     return launches
 
@@ -3248,9 +3669,9 @@ def phase_handoff(attention, checkpoint, decode, measure, serve, workload,
 CALIBRATE_N = 4096           # phase 31's matmul size, calibrate's default
 
 
-def phase_budget(budget, measure, workload, mono, train, int8_peak, tp):
-    """Phase 31 (module docstring): calibrate, then the reference's HBM
-    model on the H100 beside the peaks this run measured."""
+def phase_calibrate(measure) -> float:
+    """Phase 31's card work (module docstring), before the rank groups:
+    calibrate and its chain. Returns its seconds."""
     t0 = time.perf_counter()
     tflops = measure.calibrate(n=CALIBRATE_N, device="cuda")
     peak = measure.device_peak_tflops()
@@ -3276,6 +3697,14 @@ def phase_budget(budget, measure, workload, mono, train, int8_peak, tp):
         "share_of_peak": tflops / 989, "chain_16_wall_s": chain_s,
         "chain_16_matmul_s": 16 * 2 * n**3 / (tflops * 1e12),
         "chain_busy_share": 16 * 2 * n**3 / (tflops * 1e12) / chain_s}}))
+    return time.perf_counter() - t0
+
+
+def phase_budget(budget, workload, mono, train, int8_peak, tp, calib_s):
+    """Phase 31's HBM model on the H100 beside the peaks this run measured
+    (phase 20's among them: after the rank groups); ``calib_s`` the
+    seconds of :func:`phase_calibrate`."""
+    t0 = time.perf_counter() - calib_s
     acc = "h100-80gb"
     train_cfg = workload.ModelConfig.llama_like_big(seq=4096)
     serve_cfg = workload.ModelConfig.llama_like_big()
@@ -3406,8 +3835,7 @@ def fsdp_serve_rank(mesh, directory):
     return out
 
 
-def phase_fsdp_serving(attention, checkpoint, decode, serve, workload, tmesh,
-                       mono, workdir):
+def phase_fsdp_serving(checkpoint, decode, serve, workload, mono):
     """Phase 32: full-width ``llama_like_big`` served over FSDP_SERVE_MESH,
     two gloo ranks sharing the card, :func:`fsdp_serve_requests` (one
     arena's worth, at phase 3's geometry): the ranks agree, K1 launches 12
@@ -3425,8 +3853,9 @@ def phase_fsdp_serving(attention, checkpoint, decode, serve, workload, tmesh,
     params = seeded_params(workload, cfg)
     checkpoint.export_for_serving(str(directory), params, cfg)
     torch.cuda.empty_cache()
-    ranks = tmesh.launch(fsdp_serve_rank, FSDP_SERVE_MESH, str(directory),
-                         backend="gloo", device="cuda", workdir=str(workdir))
+    group, = yield (spawn("32 fsdp serving", fsdp_serve_rank,
+                          FSDP_SERVE_MESH, str(directory)),)
+    ranks = group.result
     shutil.rmtree(directory)
     want = cfg.n_layers * (FSDP_SERVE_REQUESTS + len(SERVE_BUCKETS))
     lines = {}
@@ -3482,23 +3911,26 @@ def phase_fsdp_serving(attention, checkpoint, decode, serve, workload, tmesh,
         "snapshot_drain_s_per_rank": [r["drain_s"]
                                       for r in lines["snapshot"]],
         "segments": runs[0]["segments"],
-        "drain_s_note": GLOO_NOTE, "phase_32_s": time.perf_counter() - t0}))
+        "drain_s_note": GLOO_NOTE, **group.note(),
+        "phase_32_s": time.perf_counter() - t0}))
     return {"in_memory_per_rank": [r["launches"] for r in runs],
             "snapshot_per_rank": [r["launches"] for r in lines["snapshot"]]}
 
 
-def phase_pp_fsdp(attention, workload, tmesh, pp, workdir):
+def phase_pp_fsdp(workload, results):
     """Phase 33: phase 27's GPipe step at full width on PP_FSDP_MESH, four
     gloo ranks sharing the card: K1 = K2 = K3 = (L/pp)·n_micro = 24 a
     stage a step, every leaf the specs put over fsdp half its phase 27
     size (its stage's whole), the first loss within 1e-6 relative of phase
     27's (the gathered weights are the whole ones; predicted bitwise
-    equal), the ranks' losses equal. Returns the launches a stage a
-    step."""
+    equal), the ranks' losses equal. Phase 27's results are read from
+    ``results`` after the group, once its checks have run (they run
+    first, in phase order). Returns the launches a stage a step."""
     t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    ranks = tmesh.launch(pp_rank, PP_FSDP_MESH, PP_LR, PP_FSDP_STEPS,
-                         backend="gloo", device="cuda", workdir=str(workdir))
+    group, = yield (spawn("33 pp x fsdp", pp_rank, PP_FSDP_MESH, PP_LR,
+                          PP_FSDP_STEPS),)
+    ranks = group.result
+    pp = results["27"]
     cfg = pp_cfg(workload)
     per = cfg.n_layers // PP_FSDP_MESH["pp"] * PP_MICRO
     for run in ranks:
@@ -3530,11 +3962,12 @@ def phase_pp_fsdp(attention, workload, tmesh, pp, workdir):
             for r in ranks},
         "phase_27_peak_mem_gib_per_stage": pp["peak_mem_gib_per_stage"],
         "step_s_per_rank": [r["step_s"] for r in ranks],
-        "step_s_note": GLOO_NOTE, "phase_33_s": time.perf_counter() - t0}))
+        "step_s_note": GLOO_NOTE, **group.note(),
+        "phase_33_s": time.perf_counter() - t0}))
     return per
 
 
-def phase_entry(attention, entry, workload, workdir):
+def phase_entry(entry, workload, workdir):
     """Phase 34: ``entry()``'s forward on the card, (4, 128, 2048), within
     1e-5 relative (of its largest logit) of the same weights' forward on
     the CPU, TF32 off; then ``dryrun_multichip(8)`` and
@@ -3562,12 +3995,14 @@ def phase_entry(attention, entry, workload, workdir):
           f"entry forward {tuple(out.shape)} against the CPU's: rel {err}")
     print(f"entry forward: {tuple(out.shape)}")
     entry_s = time.perf_counter() - t0
-    results, seconds = {}, {}
-    for n in (8, 6):
-        t = time.perf_counter()
-        results[n] = entry.dryrun_multichip(n, backend="gloo",
-                                            workdir=str(workdir))
-        seconds[n] = time.perf_counter() - t
+    # dryrun_multichip spawns its own ranks (entry.run_blocks) and runs its
+    # references here, in the group's worker thread
+    groups = yield tuple(
+        Group(f"34 dryrun {n}", n, functools.partial(
+            entry.dryrun_multichip, n, backend="gloo", workdir=str(workdir)))
+        for n in (8, 6))
+    results = {n: g.result for n, g in zip((8, 6), groups)}
+    seconds = {n: g.end - g.start for n, g in zip((8, 6), groups)}
     eight, six = results[8], results[6]
     check(list(eight) == ["dense", "moe", "pipeline", "tp-serve",
                           "tp-speculative", "tp-int8kv", "handoff"],
@@ -3596,7 +4031,9 @@ def phase_entry(attention, entry, workload, workdir):
                             for name, block in res.items()}
                    for n, res in results.items()},
         "dense_launches_by_sp_index": by_sp, "backend": "gloo",
-        "dryrun_s": seconds, "phase_34_s": time.perf_counter() - t0}))
+        "dryrun_s": seconds, "dryrun_overlap": {
+            n: g.note() for n, g in zip((8, 6), groups)},
+        "phase_34_s": time.perf_counter() - t0}))
     return by_sp
 
 
@@ -4922,17 +5359,27 @@ def mesh_line(run: dict) -> dict:
             / run["tick_ms"], "trace_file": trace["file"]}
 
 
-def phase_mesh_programs(workload, tmesh, workdir, refs: dict) -> dict:
-    """Phase 39 (module docstring): one spawn of two gloo ranks sharing the
-    card, then the checks, against ``refs`` too where given: phase 20's
-    graphed drain of the same engine (``tp``: rank 0's streams;
+def mesh_refs(results: dict) -> dict:
+    """Phase 39's references from the results of phases 20 and 26."""
+    return {"tp": results["20-22"]["two"][0]["llama_like_big"]["tokens"],
+            "tp_launches": [r["llama_like_big"]["launches"]
+                            for r in results["20-22"]["two"]],
+            "ep": results["26"]["tokens"]}
+
+
+def phase_mesh_programs(workload, refs) -> dict:
+    """Phase 39 (module docstring): one group of two gloo ranks sharing
+    the card, then the checks, against ``refs()`` too where it gives them
+    (read after the group, once phases 20 and 26 have run their checks):
+    phase 20's graphed drain of the same engine (``tp``: rank 0's streams;
     ``tp_launches``: K1 a rank through its replays) and phase 26's
     (``ep``). Phase 32 holds fsdp's graphed drain against its bodies'
     itself. Returns K1's launches a rank for the kernels line."""
     t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    ranks = tmesh.launch(mesh_programs_rank, {"tp": 2}, backend="gloo",
-                         device="cuda", workdir=str(workdir))
+    group, = yield (spawn("39 mesh programs", mesh_programs_rank,
+                          {"tp": 2}),)
+    ranks = group.result
+    refs = refs()
     cfg = workload.ModelConfig.llama_like_big()
 
     def same(a, b):
@@ -5012,7 +5459,8 @@ def phase_mesh_programs(workload, tmesh, workdir, refs: dict) -> dict:
         "round_draft": "self: llama_like_big on the target's weights",
         "round_requests": len(rnd[0]["bodies"]["tokens"]),
         "round_streams_equal_plain_bodies": round_plain,
-        "note": GLOO_NOTE + "; says nothing of NCCL or NVLink"}
+        "note": GLOO_NOTE + "; says nothing of NCCL or NVLink",
+        **group.note()}
     print(json.dumps(line))
     print(json.dumps({
         "mesh_programs": "tiny f32 tp 2, mixtral_like ep 2",
@@ -5031,6 +5479,293 @@ def phase_mesh_programs(workload, tmesh, workdir, refs: dict) -> dict:
                                            for r in rnd],
             "tp2_round_bodies_per_rank": [r["bodies"]["flash_launches"]
                                           for r in rnd]}
+
+
+# -- phase 40: the mesh train steps and the GPipe step as chains ------------
+
+MESH_TRAIN_STEPS = 3
+TINY_ACCUM_MESH = {"dp": 2, "tp": 2}
+# name -> (mesh, group label), the group that takes the whole card first;
+# each case's model, batch and optimizer are an earlier phase's
+# (:func:`mesh_train_case`)
+MESH_TRAIN_CASES = {
+    "fsdp_sp_adamw": (SP_MESH, "40 fsdp x sp adamw"),
+    "tp2_adamw": ({"tp": 2}, "40 tp 2 adamw"),
+    "dp_ep_sgd": (EP_MESH, "40 dp x ep sgd"),
+    "pp_gpipe": (PP_MESH, "40 pp"),
+    "tiny_accum": (TINY_ACCUM_MESH, "40 tiny accum"),
+}
+
+
+def mesh_train_case(mesh, name):
+    """Phase 40's case ``name`` on this rank: (this rank's initial shards,
+    ``make(graphs, shards)`` -> (a call running one step and returning its
+    loss, the step), its (K1, K2, K3) launches a step)."""
+    from tpusched_torch import optim, pipeline, workload
+    if name == "pp_gpipe":          # phase 27's
+        cfg = pp_cfg(workload)
+        shards = tuple(pipeline.shard_pipeline_params(
+            pipeline.init_pipeline_params(
+                cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"),
+            cfg, mesh))
+        tokens = pp_tokens(cfg)
+        per = cfg.n_layers // mesh.shape["pp"] * PP_MICRO
+
+        def make(graphs, params):
+            step, _, _ = pipeline.make_pipeline_train_step(mesh, cfg,
+                                                           PP_MICRO, PP_LR)
+            step._programs.graphs = graphs
+            return (lambda: step(params, tokens)[1]), step
+        return shards, make, (per, per, per)
+    if name == "tp2_adamw":         # phase 22's (train_big)
+        cfg = workload.ModelConfig.llama_like_big(seq=4096)
+        tokens = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab, (1, cfg.seq)), device="cuda")
+        want = (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers)
+    elif name == "fsdp_sp_adamw":   # phase 24's
+        cfg = dataclasses.replace(sp_big_cfg(workload), attn="ringflash")
+        tokens = sp_big_tokens(cfg)
+        i = 1 + mesh.sp.index
+        want = (2 * cfg.n_layers * i, cfg.n_layers * i, cfg.n_layers * i)
+    elif name == "dp_ep_sgd":       # phase 26's
+        cfg = ep_cfg(workload)
+        tokens = torch.as_tensor(np.random.default_rng(26).integers(
+            0, cfg.vocab, (2, cfg.seq)), device="cuda")
+        want = (0, 0, 0)
+    else:                           # tiny f32, 2 microbatches a stack
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg = dataclasses.replace(workload.ModelConfig.tiny(), **TINY_GQA,
+                                  remat=True)
+        tokens = torch.as_tensor(np.random.default_rng(40).integers(
+            0, cfg.vocab, (2, 4, cfg.seq)), device="cuda")
+        want = (4 * cfg.n_layers, 2 * cfg.n_layers, 2 * cfg.n_layers)
+    shards = workload.shard_params(seeded_params(workload, cfg), cfg, mesh)
+    torch.cuda.empty_cache()
+
+    def make(graphs, params):
+        if name == "dp_ep_sgd":
+            step, _, _ = workload.make_sharded_train_step(mesh, cfg,
+                                                          lr=EP_LR)
+            step._programs.graphs = graphs
+            return (lambda: step(params, tokens)[1]), step
+        if name == "tiny_accum":
+            step, init, _, _ = workload.make_accum_train_step(
+                mesh, cfg, optim.adamw(1e-3), 2)
+        else:
+            step, init, _, _ = workload.make_optax_train_step(
+                mesh, cfg, optim.adamw(1e-4, mu_dtype=torch.float32))
+        step._programs.graphs = graphs
+        state = init(params)
+        return (lambda: step(params, state, tokens)[2]), step
+    return shards, make, want
+
+
+def step_programs(step) -> list:
+    """A train step's programs: the step program, or the accumulation's
+    micro-step and update (without the bias-correction buffers)."""
+    from tpusched_torch.program import Program
+    progs = step._programs.programs
+    return [p for p in (progs if isinstance(progs, tuple) else (progs,))
+            if isinstance(p, Program)]
+
+
+def mesh_train_run(attention, make, shards, graphs, snapshots=None):
+    """MESH_TRAIN_STEPS steps of ``make(graphs, copy of shards)``, each
+    fenced and timed, its (K1, K2, K3) launches counted; after each, the
+    shards held bitwise against ``snapshots`` (that step's, from the other
+    run) or kept as them. On the chained run, the cuts the capture took
+    on autograd's thread (the backward's) are counted."""
+    import threading
+    from tpusched_torch import program, workload
+    params = workload.tree_map(torch.clone, shards)
+    if isinstance(shards, tuple):
+        params = tuple(params)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    call, step = make(graphs, params)
+    cut, off_main = program._Chain.cut, []
+
+    def counted(chain, collective):
+        off_main.append(threading.current_thread()
+                        is not threading.main_thread())
+        cut(chain, collective)
+
+    program._Chain.cut = counted
+    losses, step_s, launches, equal, kept = [], [], [], [], []
+    try:
+        for i in range(MESH_TRAIN_STEPS):
+            zero_counts(attention)
+            t0 = time.perf_counter()
+            losses.append(call().item())              # the fence
+            step_s.append(time.perf_counter() - t0)
+            launches.append(bwd_counts(attention))
+            print(f"phase 40 rank {torch.distributed.get_rank()} "
+                  f"{'chained' if graphs else 'bodies'} step {i}: "
+                  f"{step_s[-1]:.3f} s", file=sys.stderr, flush=True)
+            leaves = workload.tree_leaves(params)
+            if snapshots is None:
+                kept.append([t.clone() for t in leaves])
+            else:
+                equal.append(all(torch.equal(a, b) for a, b in
+                                 zip(leaves, snapshots[i])))
+                snapshots[i] = None
+    finally:
+        program._Chain.cut = cut
+    out = {"losses": losses, "step_s": step_s, "launches": launches,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+    if graphs:
+        progs = step_programs(step)
+        out.update(
+            shards_equal=equal, cuts_on_autograd_thread=sum(off_main),
+            cuts=len(off_main),
+            segments=[chain_counts(p) for p in progs],
+            breaks_run=[p.breaks_run for p in progs],
+            break_kinds=[dict(collections.Counter(b.kind for b in p.breaks))
+                         for p in progs])
+    del call, step, params
+    torch.cuda.empty_cache()
+    return out, kept
+
+
+def bypass_fails(mesh, where: str) -> dict:
+    """A collective that goes straight to ``torch.distributed`` past the
+    mesh's hook inside a mesh train step's capture, in the forward (the
+    first collective the capture meets on the main thread) or in the
+    backward (the first it meets on autograd's thread): the capture must
+    raise. Tiny f32 SGD on ``mesh``; run last on its ranks, which all
+    bypass the same collective (it fails before any message)."""
+    import threading
+    from tpusched_torch import mesh as tm, workload
+    cfg = dataclasses.replace(workload.ModelConfig.tiny(), **TINY_GQA)
+    step, _, _ = workload.make_sharded_train_step(mesh, cfg)
+    params = workload.shard_params(seeded_params(workload, cfg), cfg, mesh)
+    tokens = dryrun_tokens(cfg)
+    real, hit = tm._collective, []
+
+    def bypass(kind, fn, tensor, **kwargs):
+        off_main = threading.current_thread() is not threading.main_thread()
+        if tm._chain is not None and not hit and (where == "forward"
+                                                   or off_main):
+            hit.append((kind, off_main))
+            fn(tensor, **kwargs)
+            return
+        real(kind, fn, tensor, **kwargs)
+
+    tm._collective = bypass
+    raised = None
+    try:
+        step(params, tokens)
+    except Exception as e:             # the capture's refusal, checked
+        raised = f"{type(e).__name__}: {str(e)[:240]}"
+    finally:
+        tm._collective = real
+    return {"where": where, "bypassed": hit, "raised": raised,
+            "chain_closed": tm._chain is None,
+            "segments": len(step._programs.programs.segments)}
+
+
+def mesh_train_rank(mesh, name):
+    """Phase 40's case ``name`` on one rank: three steps through the
+    bodies, then three chained from the same initial shards; the tp 2
+    ranks then bypass the hook in a capture's forward, the tiny ranks in
+    its backward."""
+    from tpusched_torch import attention
+    shards, make, want = mesh_train_case(mesh, name)
+    bodies, snapshots = mesh_train_run(attention, make, shards, False)
+    chained, _ = mesh_train_run(attention, make, shards, True, snapshots)
+    del shards
+    torch.cuda.empty_cache()
+    out = {"bodies": bodies, "chained": chained, "want": want,
+           "coord": dict(mesh.coord)}
+    if name == "tp2_adamw":
+        out["bypass"] = bypass_fails(mesh, "forward")
+    elif name == "tiny_accum":
+        out["bypass"] = bypass_fails(mesh, "backward")
+    return out
+
+
+def phase_mesh_train_programs():
+    """Phase 40 (module docstring): one group a case of MESH_TRAIN_CASES,
+    each rank's steps through the bodies and chained, then the checks.
+    Returns the launches for the kernels line."""
+    t0 = time.perf_counter()
+    groups = yield tuple(spawn(label, mesh_train_rank, sizes, name)
+                         for name, (sizes, label)
+                         in MESH_TRAIN_CASES.items())
+    launches = {}
+    for (name, (sizes, _)), group in zip(MESH_TRAIN_CASES.items(), groups):
+        for r, run in enumerate(group.result):
+            g, b = run["chained"], run["bodies"]
+            what = f"{name} rank {r}"
+            check(g["losses"] == b["losses"] and all(g["shards_equal"])
+                  and len(g["shards_equal"]) == MESH_TRAIN_STEPS,
+                  f"{what}: chained losses {g['losses']} against the "
+                  f"bodies' {b['losses']}, shards equal {g['shards_equal']}")
+            check(all(np.isfinite(b["losses"])), f"{what}: {b['losses']}")
+            check(all(c == run["want"] for c in g["launches"] + b["launches"]),
+                  f"{what}: (K1, K2, K3) a step chained {g['launches']}, "
+                  f"bodies {b['launches']}, wanted {run['want']}")
+            check_segments({str(i): c for i, c in enumerate(g["segments"])},
+                           what)
+            # the backward's cuts come from autograd's device thread; the
+            # pipeline's backward makes none (its hand-offs are between)
+            check(g["cuts"] > g["cuts_on_autograd_thread"] > 0
+                  or name == "pp_gpipe",
+                  f"{what}: {g['cuts_on_autograd_thread']} of {g['cuts']} "
+                  f"cuts on autograd's thread")
+            if "bypass" in run:
+                bp = run["bypass"]
+                check(bp["raised"] is not None and bp["bypassed"]
+                      and bp["chain_closed"] and bp["segments"] == 0,
+                      f"{what}: a collective past the hook in a capture's "
+                      f"{bp['where']} did not fail: {bp}")
+        ranks = group.result
+        key = {"tp2_adamw": "per_rank_per_step", "dp_ep_sgd":
+               "per_rank_per_step", "pp_gpipe": "per_stage_per_step",
+               "tiny_accum": "per_rank_per_step",
+               "fsdp_sp_adamw": "per_step_by_sp_index"}[name]
+        # a replayed step's
+        if name == "fsdp_sp_adamw":
+            launches[name] = {key: {r["coord"]["sp"]:
+                                    r["chained"]["launches"][-1]
+                                    for r in ranks}}
+        else:
+            launches[name] = {key: [r["chained"]["launches"][-1]
+                                    for r in ranks]}
+
+        def mean(xs):
+            return sum(xs[1:]) / len(xs[1:])
+        print(json.dumps({
+            "mesh_train_program": name, "mesh": sizes, "backend": "gloo",
+            "steps": MESH_TRAIN_STEPS,
+            "losses": ranks[0]["chained"]["losses"],
+            "chained_equal_bodies_bitwise": True,
+            "launches_per_step": launches[name],
+            "segments_warmup_collectives": [r["chained"]["segments"]
+                                            for r in ranks],
+            "break_kinds_rank_0": ranks[0]["chained"]["break_kinds"],
+            "breaks_run_rank_0": ranks[0]["chained"]["breaks_run"],
+            "cuts_on_autograd_thread_rank_0":
+                ranks[0]["chained"]["cuts_on_autograd_thread"],
+            "step_s_chained_per_rank": [r["chained"]["step_s"]
+                                        for r in ranks],
+            "step_s_bodies_per_rank": [r["bodies"]["step_s"] for r in ranks],
+            "replayed_step_ms_rank_0": {
+                "chained": 1e3 * mean(ranks[0]["chained"]["step_s"]),
+                "bodies": 1e3 * mean(ranks[0]["bodies"]["step_s"])},
+            "peak_mem_gib_per_rank": {k: [r[k]["peak_mem_gib"] for r in ranks]
+                                      for k in ("chained", "bodies")},
+            "peak_reserved_gib_per_rank": {
+                k: [r[k]["peak_reserved_gib"] for r in ranks]
+                for k in ("chained", "bodies")},
+            "bypass": [r.get("bypass") for r in ranks] if "bypass" in ranks[0]
+            else None,
+            "step_s_note": GLOO_NOTE, **group.note()}))
+    print(json.dumps({"phase_40_s": time.perf_counter() - t0}))
+    return launches
 
 
 def ab_turn(tree: str, other_root: str) -> None:
@@ -5127,7 +5862,8 @@ def main(argv) -> int:
     from tpusched_torch import (_build, attention, bench, budget,
                                 checkpoint, data, decode, entry, measure,
                                 optim, serve, spec_decode, workload)
-    from tpusched_torch import mesh as tmesh
+    # whole lines from every thread: the rank groups' threads print too
+    sys.stdout = LockedLines(sys.stdout)
 
     t_script = time.perf_counter()
     smi = phase_environment(_build)
@@ -5176,63 +5912,65 @@ def main(argv) -> int:
     print(json.dumps({"phases_s": time.perf_counter() - t_start,
                       "phases_12_16_s": t_12_16,
                       "phases_17_19_s": time.perf_counter() - t_spec}))
-    # tensor and data parallelism on gloo ranks sharing the card, after
-    # every earlier phase so that those run as before; then the kernels at
-    # the ranks' shapes, timed as in phase 7
+    # phases 20-34, 39 and 40, after every earlier phase so that those run
+    # as before. First, alone on the card, the work whose numbers a check
+    # or a table reads: the kernels timed at the ranks' and the ring's
+    # shapes (phase 7's way), the one-process references of phases 23, 24,
+    # 26 and 27, phases 29 and 30's one-process card work and phase 31's
+    # calibrate; then every phase's rank groups side by side
     t_gloo = time.perf_counter()
-    tp = phase_tp(attention, decode, serve, workload, tmesh, mono, moe_mono,
-                  train)
     tp_timing = {"serving_tp2": phase_timing(attention, (1, 1024, 8, 2, 128)),
                  "serving_tp4": phase_timing(attention, (1, 1024, 4, 1, 128))}
     rank_train = phase_training_timing(attention, (1, 4096, 8, 2, 128),
                                        "per-rank training shape at tp 2")
-    # fully-sharded and sequence-parallel training on gloo ranks sharing the
-    # card, after every earlier phase so that those run as before; then the
-    # kernels at the ring's non-causal pair shape, timed as in phase 7
-    t_sp = time.perf_counter()
-    workdir = pathlib.Path(__file__).resolve().parent / "build"
-    pair_err = phase_ring(attention, tmesh, workdir)
-    ring_launches = phase_fsdp_sp(attention, optim, workload, tmesh, train,
-                                  workdir)
-    phase_dryrun(attention, workload, tmesh, workdir)
+    pair_err = ring_pair_backward(attention)
     ring_timing = phase_training_timing(
         attention, RING_CHUNK, "ring shape, non-causal pairs", causal=False)
     ring_timing["flash_bwd_dq"]["max_abs_err"] = pair_err[0]
     ring_timing["flash_bwd_dkdv"]["max_abs_err"] = pair_err[1]
-    print(json.dumps({"phases_23_25_s": time.perf_counter() - t_sp}))
-    # expert and pipeline parallelism on gloo ranks sharing the card, after
-    # every earlier phase so that those run as before
-    t_ep = time.perf_counter()
-    ep_served = phase_ep(attention, decode, serve, workload, tmesh, moe_mono,
-                         moe_train, workdir)
-    pp = phase_pp(attention, workload, tmesh, train, workdir)
-    pp_step = pp["per"]
-    pp_tiny = phase_dryrun_ep_pp(attention, workload, tmesh, workdir)
-    print(json.dumps({"phases_26_28_s": time.perf_counter() - t_ep}))
-    # checkpoint and resume, the hand-off to serving, calibrate and the
-    # budget, after every earlier phase so that those run as before
-    t_ck = time.perf_counter()
-    trained, ckpt_per_step = phase_checkpoint(
-        attention, checkpoint, data, optim, workload, tmesh, train, workdir)
-    handoff_launches = phase_handoff(attention, checkpoint, decode, measure,
-                                     serve, workload, tmesh, trained, workdir)
+    ring_refs = ring_plain(attention)
+    sp_ref = sp_big_steps(attention, optim, workload, sp_big_cfg(workload))
+    torch.cuda.empty_cache()
+    ep_ref = ep_steps(attention, workload)
+    torch.cuda.empty_cache()
+    pp_whole = pp_whole_loss(workload)
+    trained, ckpt_per_step, ckpt_s = checkpoint_alone(
+        attention, checkpoint, data, optim, workload, train)
+    handoff = handoff_alone(attention, checkpoint, measure, serve, workload,
+                            trained)
     del trained
     torch.cuda.empty_cache()
-    phase_budget(budget, measure, workload, mono, train, int8_peak, tp)
-    print(json.dumps({"phases_29_31_s": time.perf_counter() - t_ck}))
-    # serving over fsdp, the pipeline over fsdp and the entry points, after
-    # every earlier phase so that those run as before; each phase's ranks
-    # count their own launches from zero
-    t_fsdp = time.perf_counter()
+    calib_s = phase_calibrate(measure)
+    alone_s = time.perf_counter() - t_gloo
+    workdir = pathlib.Path(__file__).resolve().parent / "build"
     zero_counts(attention)
-    fsdp_serving = phase_fsdp_serving(attention, checkpoint, decode, serve,
-                                      workload, tmesh, mono, workdir)
-    zero_counts(attention)
-    pp_fsdp = phase_pp_fsdp(attention, workload, tmesh, pp, workdir)
-    zero_counts(attention)
-    dryrun = phase_entry(attention, entry, workload, workdir)
-    print(json.dumps({"phases_32_34_s": time.perf_counter() - t_fsdp,
-                      "phases_20_34_s": time.perf_counter() - t_gloo}))
+    results = {}
+    phases = {
+        "20-22": phase_tp(attention, decode, serve, workload, mono, moe_mono,
+                          train),
+        "23": phase_ring(attention, pair_err, ring_refs),
+        "24": phase_fsdp_sp(workload, train, sp_ref),
+        "25": phase_dryrun(workload),
+        "26": phase_ep(decode, serve, workload, moe_mono, moe_train, ep_ref),
+        "27": phase_pp(workload, train, pp_whole),
+        "28": phase_dryrun_ep_pp(workload),
+        "29": phase_checkpoint(workload, ckpt_s),
+        "30": phase_handoff(decode, workload, handoff),
+        "32": phase_fsdp_serving(checkpoint, decode, serve, workload, mono),
+        "33": phase_pp_fsdp(workload, results),
+        "34": phase_entry(entry, workload, workdir),
+        "39": phase_mesh_programs(workload, lambda: mesh_refs(results)),
+        "40": phase_mesh_train_programs()}
+    groups_line = run_side_by_side(phases, results)
+    del handoff
+    tp = results["20-22"]
+    phase_budget(budget, workload, mono, train, int8_peak, tp, calib_s)
+    print(json.dumps(groups_line))
+    print(json.dumps({"phases_20_34_s": time.perf_counter() - t_gloo,
+                      "alone_s": alone_s,
+                      "side_by_side_s": groups_line["section_s"],
+                      "note": "phases 20-34, 39 and 40: the card work timed "
+                              "alone, then the rank groups side by side"}))
     # the compiled programs, after every earlier phase so that those run as
     # before
     t_programs = time.perf_counter()
@@ -5254,13 +5992,7 @@ def main(argv) -> int:
     # that those run as before
     zero_counts(attention)
     runner = phase_runner(attention, bench, budget, smi)
-    # the engine, generate(tp=) and sample(tp=) over a mesh as chains of
-    # graphs, after every earlier phase so that those run as before
-    zero_counts(attention)
-    mesh_graphed = phase_mesh_programs(workload, tmesh, workdir, {
-        "tp": tp["two"][0]["llama_like_big"]["tokens"],
-        "tp_launches": [r["llama_like_big"]["launches"] for r in tp["two"]],
-        "ep": ep_served["tokens"]})
+    mesh_graphed = results["39"]
     xl_timing = runner["timing"]
     xl_timing["flash_bwd_dq"]["max_abs_err"] = xl_bwd_err[0]
     xl_timing["flash_bwd_dkdv"]["max_abs_err"] = xl_bwd_err[1]
@@ -5282,8 +6014,16 @@ def main(argv) -> int:
         "prefills": streams["graphed"]["prefills"],
         "speculative_replays": programs["speculative"]["graphed"][
             "flash_launches"]}
+    dryrun, pp_fsdp = results["34"], results["33"]
+    fsdp_serving, handoff_launches = results["32"], results["30"]
+    ring_launches, pp_step, pp_tiny = (results["24"], results["27"]["per"],
+                                       results["28"])
     dryrun_launches = [{"dense_per_rank_by_sp_index": {
         i: c[j] for i, c in sorted(dryrun.items())}} for j in range(3)]
+    mesh_train = [{name: {k: {i: c[j] for i, c in by.items()}
+                          if isinstance(by, dict) else [c[j] for c in by]
+                          for k, by in v.items()}
+                   for name, v in results["40"].items()} for j in range(3)]
     pp_fsdp_launches = {"llama_like_big_per_stage_per_step": pp_fsdp}
     ckpt = {name: {"ckpt_launches": {"per_step": ckpt_per_step[j],
                                      "steps": 6}}
@@ -5308,7 +6048,7 @@ def main(argv) -> int:
         return {"adamw_per_step": train_programs["adamw_per_step"][j],
                 "accum_per_step": train_programs["accum_per_step"][j]}
 
-    print(json.dumps({"phases_35_39_s": time.perf_counter() - t_programs,
+    print(json.dumps({"phases_35_38_s": time.perf_counter() - t_programs,
                       "script_s": time.perf_counter() - t_script}))
     source = "tpusched_torch/csrc/"
     replaces = "tpusched/jaxbridge/attention.py:"
@@ -5334,7 +6074,8 @@ def main(argv) -> int:
          "dryrun_launches": dryrun_launches[0],
          "graphed_launches": graphed_launches,
          "graphed_train_launches": graphed_train(0),
-         "mesh_graphed_launches": mesh_graphed, **xl["flash_fwd"]},
+         "mesh_graphed_launches": mesh_graphed,
+         "mesh_graphed_train_launches": mesh_train[0], **xl["flash_fwd"]},
         {"name": "flash_bwd_dkdv", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "218",
          "launches": train_launches[1], "max_abs_err": bwd_err[1],
@@ -5344,7 +6085,9 @@ def main(argv) -> int:
          **ring["flash_bwd_dkdv"], "pp_launches": pp_launches,
          **ckpt["flash_bwd_dkdv"], "pp_fsdp_launches": pp_fsdp_launches,
          "dryrun_launches": dryrun_launches[1],
-         "graphed_train_launches": graphed_train(1), **xl["flash_bwd_dkdv"]},
+         "graphed_train_launches": graphed_train(1),
+         "mesh_graphed_train_launches": mesh_train[1],
+         **xl["flash_bwd_dkdv"]},
         {"name": "flash_bwd_dq", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "265",
          "launches": train_launches[2], "max_abs_err": bwd_err[0],
@@ -5354,7 +6097,9 @@ def main(argv) -> int:
          **ring["flash_bwd_dq"], "pp_launches": pp_launches,
          **ckpt["flash_bwd_dq"], "pp_fsdp_launches": pp_fsdp_launches,
          "dryrun_launches": dryrun_launches[2],
-         "graphed_train_launches": graphed_train(2), **xl["flash_bwd_dq"]}]}))
+         "graphed_train_launches": graphed_train(2),
+         "mesh_graphed_train_launches": mesh_train[2],
+         **xl["flash_bwd_dq"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

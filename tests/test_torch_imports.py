@@ -234,7 +234,8 @@ RANKS = REFUSE + (
     "class Graph:\n"
     "    def __init__(self, log): self.log = log\n"
     "    def register_generator_state(self, gen): pass\n"
-    "    def capture_begin(self, pool=None): self.log.append('begin')\n"
+    "    def capture_begin(self, pool=None, capture_error_mode=None):"
+    " self.log.append('begin')\n"
     "    def capture_end(self): self.log.append('end')\n"
     "    def pool(self): return 'pool'\n"
     "    def replay(self): self.log.append('replay')\n"
@@ -272,7 +273,31 @@ RANKS = REFUSE + (
     "    bad = sorted(m for m in sys.modules if m.split('.')[0] in"
     " ('tpusched', 'optax') or m.split('.')[0].startswith('jax'))\n"
     "    return len(tick.segments), tick.breaks_run, log.count('replay'),"
-    " toks, bad\n")
+    " toks, bad\n"
+    "def train_chain_rank(mesh):\n"
+    "    torch.set_num_threads(1)\n"
+    "    import dataclasses\n"
+    "    from tpusched_torch import pipeline, program\n"
+    "    cfg = dataclasses.replace(wl.ModelConfig.tiny(), n_layers=4)\n"
+    "    p = wl.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+    "    step, _, _ = pipeline.make_pipeline_train_step(mesh, cfg, 2)\n"
+    "    build = step._programs.build\n"
+    "    step._programs.build = lambda *a, graphed: build(*a, graphed=True)\n"
+    "    whole = (pipeline.stack_layers(p), p['embed'], p['out'], p['ln_f'])\n"
+    "    shards = pipeline.shard_pipeline_params(whole, cfg, mesh)\n"
+    "    toks = torch.arange(4 * cfg.seq).reshape(4, cfg.seq) % cfg.vocab\n"
+    "    real, program._cuda = program._cuda, Recorder()\n"
+    "    try:\n"
+    "        for _ in range(2):\n"
+    "            step(shards, toks)\n"
+    "        log = program._cuda.log\n"
+    "    finally:\n"
+    "        program._cuda = real\n"
+    "    prog = step._programs.programs\n"
+    "    bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+    " ('tpusched', 'optax') or m.split('.')[0].startswith('jax'))\n"
+    "    return (mesh.pp.index, [b.kind for b in prog.breaks],"
+    " len(prog.segments), prog.breaks_run, log.count('replay'), bad)\n")
 
 
 def test_tp_paths_run_with_jax_unimportable(tmp_path):
@@ -316,6 +341,29 @@ def test_mesh_program_chains_run_with_jax_unimportable(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip().splitlines()[-1] == "chained"
+
+
+def test_mesh_train_chain_runs_with_jax_unimportable(tmp_path):
+    """As above, two gloo ranks capture the GPipe step on {"pp": 2} as a
+    chain of graphs (a recorder standing in for CUDA) broken at its
+    hand-offs, the sends' waits and its two collectives, and call it
+    twice; none has loaded JAX, optax or tpusched."""
+    (tmp_path / "refusing_ranks.py").write_text(RANKS)
+    prog = REFUSE + (
+        f"sys.path.insert(0, {str(tmp_path)!r})\n"
+        "import refusing_ranks\n"
+        "from tpusched_torch import mesh\n"
+        "out = mesh.launch(refusing_ranks.train_chain_rank, {'pp': 2},"
+        f" backend='gloo', device='cpu', workdir={str(tmp_path)!r})\n"
+        "tail = ['wait', 'wait', 'all_reduce', 'broadcast']\n"
+        "assert out[0][1] == ['send', 'send', 'recv', 'recv'] + tail, out\n"
+        "assert out[1][1] == ['recv', 'recv', 'send', 'send'] + tail, out\n"
+        "assert all(o[2:] == (9, 8, 9, []) for o in out), out\n"
+        "print('trained')\n")
+    r = subprocess.run([sys.executable, "-c", prog], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip().splitlines()[-1] == "trained"
 
 
 def test_fsdp_sp_paths_run_with_jax_unimportable(tmp_path):

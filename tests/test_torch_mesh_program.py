@@ -14,8 +14,9 @@ tiny engine's programs on {"tp": 2}, {"ep": 2} (4 experts) and
   with the body's kinds, N breaks and N + 1 segments, each segment begun
   and ended in turn in one pool, and every call replays the segments in
   order with a break between two;
-- ``shift`` during a capture raises, naming the program, and the capture
-  is left closed;
+- ``shift`` during a capture is a break: a shifting body is two segments
+  whose hop runs between the replays, and ``send``, its ``wait``, ``recv``
+  and ``shift`` each hand the chain one break of their kind;
 - ``generate(tp=)`` and ``sample(tp=)`` replay one step program a token and
   equal the unsharded calls token for token (sampled: every rank's
   generator seeded alike, rank 0's draws broadcast).
@@ -111,6 +112,7 @@ def test_chain_breaks_at_each_collective_in_body_order(ranks, mesh_name,
         n = len(kinds)
         assert plan["breaks"] == kinds
         assert plan["segments"] == plan["warmup_collectives"] + 1 == n + 1
+        assert plan["modes"] == ["relaxed"] * (n + 1)
         log = [e for e in plan["log"] if e[0] != "register"]
         assert log[:n + 1] == [("run", k) for k in kinds] + [("prepare",)]
         captures = log[n + 1:n + 1 + 2 * (n + 1)]
@@ -143,27 +145,62 @@ def test_generator_registered_with_every_segment(ranks):
 
 
 def test_shift_during_a_capture_raises_naming_the_program(ranks):
-    for r in ranks:
-        assert "shifting_body" in r["shift"] and "mesh.shift" in r["shift"]
-        # the capture was left closed, and the program holds no segment
-        log = r["shift_capture"]["log"]
-        assert log == [("prepare",), ("begin", 0, None), ("end", 0)]
-        assert r["shift_capture"]["segments"] == 0
+    """The ring hop is a break like any other collective: a body that
+    shifts along tp is captured as two segments broken at one ``shift``
+    (relaxed mode, as every segment), whose hop runs between the replays on
+    every call (none in the capture): each rank receives its neighbour's
+    values, where the capture left its receive buffer unfilled. (The hop
+    raised during a capture before the hand-offs became breaks.)"""
+    for r, rank in enumerate(ranks):
+        cap = rank["shift_capture"]
+        assert cap["breaks"] == ["shift"] and cap["segments"] == 2
+        assert cap["breaks_run"] == 2
+        assert cap["modes"] == ["relaxed", "relaxed"]
+        assert cap["log"] == [("prepare",), ("begin", 0, None), ("end", 0),
+                              ("begin", 1, ("pool of", 0)), ("end", 1),
+                              ("replay", 0), ("replay", 1),
+                              ("replay", 0), ("replay", 1)]
+        other = float(1 - r)
+        assert cap["received"] == [other] * 3
+        # the recorder runs no kernel: the output is the capture's own run
+        # of the body, on the receive buffer before any hop filled it
+        assert cap["outputs"][0] == cap["outputs"][1]
 
 
 @pytest.mark.parametrize("what", ["send", "recv", "shift"])
 def test_point_to_point_refused_inside_capturing(what):
-    """``send``, ``recv`` and ``shift`` on a live axis raise inside
-    ``mesh.capturing`` before any message, naming the capture."""
+    """``send`` (and its ``wait``), ``recv`` and ``shift`` on a live axis
+    cut the chain inside ``mesh.capturing``: each hands the chain one
+    break of its kind and posts no message (the axis's group is no process
+    group: any message would raise), its receive buffer made where the
+    call was. (They raised inside a capture before the hand-offs became
+    breaks.)"""
     axis = tmesh.Axis("pp", 2, 0, object(), (0, 1))
-    calls = {"send": lambda: tmesh.send(torch.zeros(2), axis, 1),
-             "recv": lambda: tmesh.recv(axis, 1, (2,), torch.float32, "cpu"),
-             "shift": lambda: tmesh.shift([torch.zeros(2)], axis)}
-    chain = types.SimpleNamespace(name="probe", cut=None)
+    breaks = []
+    chain = types.SimpleNamespace(name="probe", cut=breaks.append)
+    x = torch.arange(2.0)
     with tmesh.capturing(chain):
-        with pytest.raises(RuntimeError, match=f"mesh.{what}.*'probe'"):
-            calls[what]()
+        if what == "send":
+            sent = tmesh.send(x, axis, 1)
+            sent.wait()
+            got = [("send", sent, {}), ("wait", sent, {})]
+        elif what == "recv":
+            buf = tmesh.recv(axis, 1, (2,), torch.float32, "cpu")
+            got = [("recv", buf, {"src": 1, "group": axis.group})]
+        else:
+            out = tmesh.shift([x], axis)
+            got = [("shift", ([x], out), {"dst": 1, "src": 1,
+                                          "group": axis.group})]
     assert tmesh._chain is None
+    assert [(b.kind, b.kwargs) for b in breaks] == [(k, kw)
+                                                   for k, _, kw in got]
+    for brk, (_, tensor, _) in zip(breaks, got):
+        if what == "shift":
+            (sends, recvs), (want_sends, want_recvs) = brk.tensor, tensor
+            assert torch.equal(sends[0], want_sends[0])
+            assert recvs[0] is want_recvs[0]
+        else:
+            assert brk.tensor is tensor
 
 
 def test_capturing_refuses_a_second_chain():

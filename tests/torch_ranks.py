@@ -19,6 +19,7 @@ import torch
 from tpusched_torch import attention, checkpoint, decode, interop
 from tpusched_torch import mesh as tmesh
 from tpusched_torch import optim, pipeline, workload as wl
+from tpusched_torch import program as tprogram
 from tpusched_torch.data import TokenBatcher
 from tpusched_torch.serve import Request, ServeEngine
 
@@ -427,16 +428,18 @@ def generate_rank(m: tmesh.Mesh, cases: dict) -> dict:
 
 
 class _RecordedGraph:
-    """A CUDA graph's stand-in: its capture calls and replays, logged."""
+    """A CUDA graph's stand-in: its capture calls and replays, logged, and
+    the capture mode each segment began in (``modes``)."""
 
-    def __init__(self, log: list, index: int):
-        self.log, self.index = log, index
+    def __init__(self, log: list, index: int, modes: list):
+        self.log, self.index, self.modes = log, index, modes
 
     def register_generator_state(self, gen) -> None:
         self.log.append(("register", self.index))
 
-    def capture_begin(self, pool=None) -> None:
+    def capture_begin(self, pool=None, capture_error_mode="global") -> None:
         self.log.append(("begin", self.index, pool))
+        self.modes.append(capture_error_mode)
 
     def capture_end(self) -> None:
         self.log.append(("end", self.index))
@@ -456,6 +459,7 @@ class CaptureRecorder:
 
     def __init__(self):
         self.log: list = []
+        self.modes: list = []
         self.graphs = 0
 
     def side_stream(self):
@@ -469,7 +473,7 @@ class CaptureRecorder:
 
     def graph(self) -> _RecordedGraph:
         self.graphs += 1
-        return _RecordedGraph(self.log, self.graphs - 1)
+        return _RecordedGraph(self.log, self.graphs - 1, self.modes)
 
     def join(self, stream) -> None:
         pass
@@ -495,8 +499,8 @@ def collectives_of(fn) -> list:
 def _chain_plan(prog, values: dict, calls: int = 2) -> dict:
     """``prog`` (built graphed) called ``calls`` times with ``values``
     under a :class:`CaptureRecorder`: its breaks' kinds, its segments, the
-    collectives its warm-up ran, the breaks its replays ran and the
-    recorder's log, in which each
+    collectives its warm-up ran, the breaks its replays ran, the capture
+    mode of each segment and the recorder's log, in which each
     collective that runs (in the warm-up, or as a break between replays)
     is logged as ("run", kind)."""
     from tpusched_torch import program
@@ -517,7 +521,7 @@ def _chain_plan(prog, values: dict, calls: int = 2) -> dict:
             "segments": len(prog.segments),
             "warmup_collectives": prog.warmup_collectives,
             "breaks_run": prog.breaks_run,
-            "log": recorder.log}
+            "log": recorder.log, "modes": recorder.modes}
 
 
 SERVE_KW = dict(slots=2, max_seq=64, prompt_bucket=16)
@@ -588,8 +592,8 @@ def mesh_program_rank(m: tmesh.Mesh, cases: dict) -> dict:
     program built graphed and called twice under a
     :class:`CaptureRecorder` (``plans``). Then ``generate`` and ``sample``
     over tp = 2 (every rank's generator seeded 7), their tokens and the
-    program calls they made (``decode``), and the capture of a body that
-    shifts along tp (``shift``)."""
+    program calls they made (``decode``), and the chain of a body that
+    shifts along tp, called twice (``shift_capture``)."""
     from tpusched_torch import program
     torch.set_num_threads(1)
     meshes = {tuple(m.shape.items()): m}
@@ -634,18 +638,108 @@ def mesh_program_rank(m: tmesh.Mesh, cases: dict) -> dict:
     x = torch.full((3,), float(m.rank))
 
     def shifting_body():
-        return tmesh.shift([x], m.tp)[0]
+        return tmesh.shift([x], m.tp)[0] * 2
 
     shifting = program.Program(shifting_body, {}, graphed=True)
     recorder, real_cuda = CaptureRecorder(), program._cuda
     program._cuda = recorder
     try:
-        shifting()
-        out["shift"] = None
-    except RuntimeError as e:
-        out["shift"] = str(e)
+        got = [shifting().tolist() for _ in range(2)]
     finally:
         program._cuda = real_cuda
-    out["shift_capture"] = {"log": recorder.log,
-                            "segments": len(shifting.segments)}
+    out["shift_capture"] = {"log": recorder.log, "modes": recorder.modes,
+                            "breaks": [b.kind for b in shifting.breaks],
+                            "segments": len(shifting.segments),
+                            "breaks_run": shifting.breaks_run,
+                            "received":
+                                shifting.breaks[0].tensor[1][0].tolist(),
+                            "outputs": got}
+    return out
+
+
+
+def _mesh_train_step(m: tmesh.Mesh, kind: str, cfg, tree):
+    """The port's train step of ``kind`` ("sgd", "adamw", "accum" or
+    "pipeline") on ``m`` over this rank's shards of ``tree``: (a call
+    taking the global tokens and returning the loss, the step, the
+    shards, the optimizer state or None)."""
+    if kind == "pipeline":
+        step, _, _ = pipeline.make_pipeline_train_step(m, cfg, 2, 1e-2)
+        params = pipeline.shard_pipeline_params(
+            interop.pipeline_params_from_numpy(tree, cfg, "cpu"), cfg, m)
+        return (lambda toks: step(params, toks)[1]), step, params, None
+    params = wl.shard_params(interop.params_from_numpy(tree, cfg, "cpu"),
+                             cfg, m)
+    if kind == "sgd":
+        step, _, _ = wl.make_sharded_train_step(m, cfg, lr=1e-2)
+        return (lambda toks: step(params, toks)[1]), step, params, None
+    tx = optim.adamw(1e-3)
+    if kind == "adamw":
+        step, init, _, _ = wl.make_optax_train_step(m, cfg, tx)
+    else:
+        step, init, _, _ = wl.make_accum_train_step(m, cfg, tx, 2)
+    state = init(params)
+    return (lambda toks: step(params, state, toks)[2]), step, params, state
+
+
+def _step_programs(step) -> dict:
+    """A train step's programs by name: the one step program, or the
+    accumulation's micro-step and update."""
+    progs = step._programs.programs
+    if isinstance(progs, tprogram.Program):
+        return {"step": progs}
+    if len(progs) == 3:
+        return {"micro": progs[0], "update": progs[1]}
+    return {"step": progs[0]}
+
+
+def mesh_train_program_rank(m: tmesh.Mesh, cases: dict) -> dict:
+    """The mesh train steps as chains, over meshes of this launch's ranks.
+    Each case ``name -> (axis sizes, kind, cfg, numpy tree, global token
+    batches)``: the losses of the step called as it is (its bodies, as on
+    the CPU), the kinds of the collectives one call of each of its
+    programs' bodies makes, in order (``counts``), and, from the same
+    shards, the plan of each program built graphed (``Program(graphed=
+    True)``: a :class:`CaptureRecorder` stands in for CUDA) over the same
+    batches: its breaks, segments, the collectives of its warm-up, the
+    breaks run, the capture modes and the log, in which each collective
+    that runs (in a warm-up, or as a break between replays) is
+    ``("run", kind)``."""
+    torch.set_num_threads(1)
+    meshes = {tuple(m.shape.items()): m}
+    out = {}
+    for name, (sizes, kind, cfg, tree, batches) in cases.items():
+        mesh = _mesh_of(meshes, sizes)
+        call, step, params, state = _mesh_train_step(mesh, kind, cfg, tree)
+        losses = [float(call(torch.from_numpy(t).long())) for t in batches]
+        tree_now = step._programs.tree
+        tree_now.params, tree_now.state = params, state
+        counts = {n: collectives_of(prog.body)
+                  for n, prog in _step_programs(step).items()}
+        tree_now.params = tree_now.state = None
+        call, step, _, _ = _mesh_train_step(mesh, kind, cfg, tree)
+        build = step._programs.build
+        step._programs.build = (
+            lambda *args, graphed, build=build: build(*args, graphed=True))
+        recorder, real = CaptureRecorder(), tprogram._cuda
+        run = tmesh.Collective.__call__
+
+        def logged(c, run=run, recorder=recorder):
+            recorder.log.append(("run", c.kind))
+            run(c)
+
+        tprogram._cuda, tmesh.Collective.__call__ = recorder, logged
+        try:
+            for t in batches:
+                call(torch.from_numpy(t).long())
+        finally:
+            tprogram._cuda, tmesh.Collective.__call__ = real, run
+        plans = {n: {"breaks": [b.kind for b in prog.breaks],
+                     "segments": len(prog.segments),
+                     "warmup_collectives": prog.warmup_collectives,
+                     "breaks_run": prog.breaks_run}
+                 for n, prog in _step_programs(step).items()}
+        out[name] = {"losses": losses, "counts": counts, "plans": plans,
+                     "log": recorder.log, "modes": recorder.modes,
+                     "index": {a: mesh.coord[a] for a in sizes}}
     return out

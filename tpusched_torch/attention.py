@@ -416,7 +416,9 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     are masked to the finite ``NEG_INF``, so every exp() argument stays
     finite and an all-masked row keeps l = 1. GQA is folded into the
     einsums: K/V ride the ring kv_heads-sized. Gradients flow through
-    autograd, the hops' included (:func:`mesh.ring_shift`)."""
+    autograd, the hops' included (:func:`mesh.ring_shift`). Each hop is one
+    call of the mesh's hook, so a captured train step breaks its chain
+    there (``program``)."""
     n, my = (axis.size, axis.index) if axis is not None else (1, 0)
     b, s_loc, h, d = q.shape
     kv = k.shape[2]

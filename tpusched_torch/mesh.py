@@ -16,13 +16,17 @@ between two ranks of an axis (:func:`send`, :func:`recv`). A collective on
 an axis of size 1, or on no axis (``None``), is the identity, so one code
 path serves the sharded and the unsharded model.
 
-Every ``torch.distributed`` call of :func:`all_reduce`, :func:`all_gather`
-and :func:`broadcast`, the autograd functions' included, passes through
-one hook. While a program captures its chain of CUDA graphs
-(``program.Program``, inside :func:`capturing`) the hook hands the call,
-as a :class:`Collective`, to the chain, which breaks there; at any other
-time it runs the call. :func:`shift`, :func:`send` and :func:`recv`, which
-no program makes, raise during a capture.
+Every ``torch.distributed`` call of :func:`all_reduce`, :func:`all_gather`,
+:func:`broadcast`, the ring hop (:func:`shift`) and the hand-offs
+(:func:`send`, :func:`recv` and the wait that ends a send), the autograd
+functions' included, passes through one hook. While a program captures its
+chain of CUDA graphs (``program.Program``, inside :func:`capturing`) the
+hook hands the call, as a :class:`Collective`, to the chain, which breaks
+there; at any other time it runs the call. The hook may be reached from
+autograd's device thread, in a backward. A call writes its results into
+tensors made before it (the hop's and the receive's are allocated where
+the body makes the call: during a capture, in the chain's pool), so a
+break can run it again between replays on the same addresses.
 
 Ranks are laid out row-major over the axes in the order given, as the
 reference reshapes its device list: the last axis (``tp``) varies fastest,
@@ -41,7 +45,7 @@ import math
 import os
 import pickle
 import tempfile
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -348,15 +352,17 @@ def slice_assignment(pods) -> "list[tuple[tuple[int, ...], str]]":
 # -- collectives on an axis ------------------------------------------------------
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)
 class Collective:
     """One ``torch.distributed`` call as a body made it: its kind
-    (``"all_reduce"``, ``"all_gather"`` or ``"broadcast"``), the call, and
-    the tensor and keyword arguments it was given. Calling it runs the
-    collective on that tensor, in place."""
+    (``"all_reduce"``, ``"all_gather"``, ``"broadcast"``, ``"shift"``,
+    ``"send"``, ``"recv"`` or ``"wait"``), the call, and what it acts on
+    (a tensor, the hop's send and receive tensors, or a send's
+    :class:`_Sent`) with its keyword arguments. Calling it runs the
+    collective, in place."""
     kind: str
     fn: Callable
-    tensor: torch.Tensor
+    tensor: Any
     kwargs: dict
 
     def __call__(self) -> None:
@@ -364,7 +370,7 @@ class Collective:
 
 
 # the chain being captured (:func:`capturing`), else None: one a process,
-# as a CUDA capture in the global mode holds the whole process
+# not a thread's, since a backward reaches the hook from autograd's thread
 _chain = None
 # the collectives the hook has run in this process (a replay's breaks,
 # which run without it, not included)
@@ -373,10 +379,8 @@ COLLECTIVES_RUN = 0
 
 @contextlib.contextmanager
 def capturing(chain):
-    """Until the block ends, hand every collective of :func:`all_reduce`,
-    :func:`all_gather` and :func:`broadcast` to ``chain.cut`` instead of
-    running it, and make :func:`shift`, :func:`send` and :func:`recv`
-    raise, naming ``chain.name``."""
+    """Until the block ends, hand every collective that passes through the
+    hook to ``chain.cut`` instead of running it."""
     global _chain
     if _chain is not None:
         raise RuntimeError(f"capturing {chain.name!r} inside the capture of "
@@ -388,8 +392,7 @@ def capturing(chain):
         _chain = None
 
 
-def _collective(kind: str, fn: Callable, tensor: torch.Tensor,
-                **kwargs) -> None:
+def _collective(kind: str, fn: Callable, tensor, **kwargs) -> None:
     """The one hook: ``fn(tensor, **kwargs)`` now, or a break of the chain
     being captured."""
     global COLLECTIVES_RUN
@@ -401,12 +404,53 @@ def _collective(kind: str, fn: Callable, tensor: torch.Tensor,
         _chain.cut(call)
 
 
-def _refuse_in_capture(what: str) -> None:
-    if _chain is not None:
-        raise RuntimeError(
-            f"mesh.{what} during the capture of program {_chain.name!r}: a "
-            f"captured program's collectives are all_reduce, all_gather and "
-            f"broadcast")
+def _nccl(group) -> bool:
+    return dist.get_backend(group) == "nccl"
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself on the CPU, else a host buffer of its shape: gloo's
+    point-to-point ops read and write host memory only."""
+    return t if t.device.type == "cpu" else torch.empty(
+        t.shape, dtype=t.dtype, device="cpu")
+
+
+@torch.no_grad()
+def _hop(bufs, dst: int, src: int, group) -> None:
+    """The ring hop's call: ``sends`` to ``dst`` and ``recvs`` filled from
+    ``src``, every send and receive posted before any is waited on, so no
+    rank blocks in a send while its neighbour blocks in one too: under
+    NCCL in one ``batch_isend_irecv``, under gloo staged through host
+    copies."""
+    sends, recvs = bufs
+    if _nccl(group):
+        ops = ([dist.P2POp(dist.isend, t, dst, group) for t in sends]
+               + [dist.P2POp(dist.irecv, r, src, group) for r in recvs])
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return
+    hosts = [_host(r) for r in recvs]
+    works = ([dist.isend(t.to("cpu"), dst, group=group) for t in sends]
+             + [dist.irecv(h, src, group=group) for h in hosts])
+    for work in works:
+        work.wait()
+    for r, h in zip(recvs, hosts):
+        if h is not r:
+            r.copy_(h)
+
+
+@torch.no_grad()
+def _recv_into(buf: torch.Tensor, src: int, group) -> None:
+    """A receive's call: ``buf`` filled from ``src`` (blocking), through a
+    host copy under gloo. ``buf`` may be a leaf that requires grad (the
+    pipeline's received activations)."""
+    if _nccl(group):
+        dist.recv(buf, src, group=group)
+        return
+    host = _host(buf)
+    dist.recv(host, src, group=group)
+    if host is not buf:
+        buf.copy_(host)
 
 
 def _live(axis: Optional[Axis]) -> bool:
@@ -480,67 +524,65 @@ def shift(tensors: Sequence[torch.Tensor], axis: Optional[Axis],
     """One ring hop of each tensor along ``axis``, as new tensors: this
     rank's go to index + ``step`` and the ones of index − ``step`` come
     back (mod the axis size), ``lax.ppermute`` with ``perm = [(i, (i +
-    step) % n)]``. Every send and receive is posted before any is waited
-    on, so no rank blocks in a send while its neighbour blocks in one too:
-    under NCCL in one ``batch_isend_irecv``. Gloo's point-to-point ops
+    step) % n)]``. One call of the hook (:func:`_hop`): every send and
+    receive is posted before any is waited on. Gloo's point-to-point ops
     read and write host memory only, so under gloo a CUDA tensor's hop is
     staged through a host copy (one device-to-host and one host-to-device
-    copy of its bytes, where an all-gather would move the axis size
-    times them)."""
+    copy of its bytes, where an all-gather would move the axis size times
+    them)."""
     if not _live(axis):
         return list(tensors)
-    _refuse_in_capture("shift")
     n = axis.size
-    dst = axis.ranks[(axis.index + step) % n]
-    src = axis.ranks[(axis.index - step) % n]
-    if dist.get_backend(axis.group) == "nccl":
-        sends = [t.contiguous() for t in tensors]
-        recvs = [torch.empty_like(t) for t in sends]
-        ops = ([dist.P2POp(dist.isend, t, dst, axis.group) for t in sends]
-               + [dist.P2POp(dist.irecv, r, src, axis.group) for r in recvs])
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-        return recvs
-    sends = [t.detach().to("cpu").contiguous() for t in tensors]
+    sends = [t.detach().contiguous() for t in tensors]
     recvs = [torch.empty_like(t) for t in sends]
-    works = ([dist.isend(t, dst, group=axis.group) for t in sends]
-             + [dist.irecv(r, src, group=axis.group) for r in recvs])
-    for work in works:
-        work.wait()
-    return [r.to(t.device) for r, t in zip(recvs, tensors)]
+    _collective("shift", _hop, (sends, recvs),
+                dst=axis.ranks[(axis.index + step) % n],
+                src=axis.ranks[(axis.index - step) % n], group=axis.group)
+    return recvs
 
 
-def send(x: torch.Tensor, axis: Axis, index: int):
+def send(x: torch.Tensor, axis: Axis, index: int) -> "_Sent":
     """Post ``x`` to the rank at ``index`` along ``axis`` without waiting;
     returns a handle whose ``wait()`` ends the send (hold it until then).
     Under gloo a CUDA tensor goes through a host copy, as in
     :func:`shift`."""
-    _refuse_in_capture("send")
-    if dist.get_backend(axis.group) == "nccl":
-        buf = x.detach().contiguous()
-    else:
-        buf = x.detach().to("cpu").contiguous()
-    return _Sent(dist.isend(buf, axis.ranks[index], group=axis.group), buf)
+    sent = _Sent(x.detach().contiguous(), axis.ranks[index], axis.group)
+    _collective("send", _Sent.post, sent)
+    return sent
 
 
 def recv(axis: Axis, index: int, shape, dtype: torch.dtype,
          device) -> torch.Tensor:
     """A tensor of ``shape`` and ``dtype`` on ``device``, received from the
     rank at ``index`` along ``axis`` (blocking)."""
-    _refuse_in_capture("recv")
-    nccl = dist.get_backend(axis.group) == "nccl"
-    buf = torch.empty(shape, dtype=dtype, device=device if nccl else "cpu")
-    dist.recv(buf, axis.ranks[index], group=axis.group)
-    return buf.to(device)
+    buf = torch.empty(shape, dtype=dtype, device=device)
+    _collective("recv", _recv_into, buf, src=axis.ranks[index],
+                group=axis.group)
+    return buf
 
 
-@dataclasses.dataclass
 class _Sent:
-    work: dist.Work
-    buf: torch.Tensor          # kept alive until the send ends
+    """A posted send: the tensor and its destination, and, from the post
+    (a break's run) to the wait, the send's ``Work`` and the buffer it
+    reads."""
+
+    def __init__(self, tensor: torch.Tensor, dst: int, group):
+        self.tensor, self.dst, self.group = tensor, dst, group
+        self.work: Optional[dist.Work] = None
+        self.buf: Optional[torch.Tensor] = None
+
+    def post(self) -> None:
+        self.buf = (self.tensor if _nccl(self.group)
+                    else self.tensor.detach().to("cpu"))
+        self.work = dist.isend(self.buf, self.dst, group=self.group)
 
     def wait(self) -> None:
+        """End the send: one call of the hook, so a capture breaks here."""
+        _collective("wait", _Sent.finish, self)
+
+    def finish(self) -> None:
         self.work.wait()
+        self.work = self.buf = None
 
 
 class _CopyTo(torch.autograd.Function):

@@ -35,6 +35,14 @@ The reference's semantics are kept, each pinned by a test:
   every stage applies the same update; every gradient is averaged over dp;
 - the returned loss is the last stage's on every rank.
 
+The step is a program (:mod:`.program`) over the static global batch and
+the stage's shards, which it updates in place: on the card captured at
+its first call as a chain of CUDA graphs broken at each hand-off (a send,
+a receive, a send's wait) and collective, whose breaks run between the
+replays in the order the schedule posts them; on the CPU its body runs as
+it is. It is rebound for other tensors as the flat steps are
+(``workload._BoundPrograms``).
+
 Under fsdp a stage gathers each of its layers' leaves, and ``embed`` and
 ``out``, once a step, before the first microbatch: a microbatch's backward
 holds the weights its forward used, so a gather a use would hold n_micro
@@ -52,11 +60,13 @@ import torch
 
 from .mesh import Mesh, broadcast, gather_last, local_chunk, recv, send
 from .mesh import all_reduce
-from .workload import (ExpertAxes, ModelConfig, Params, _block, _gather_fsdp,
-                       _nll, _resolve_attn_fn, _rmsnorm,
-                       cast_params_for_compute, embed, gather_leaf,
-                       init_params, moe_act_spec, param_specs, shard_leaf,
-                       tree_leaves, tree_map, unembed)
+from .program import Program
+from .workload import (ExpertAxes, ModelConfig, Params, _block,
+                       _BoundPrograms, _gather_fsdp, _nll, _resolve_attn_fn,
+                       _rmsnorm, _tokens_buffer, cast_params_for_compute,
+                       embed, gather_leaf, init_params, moe_act_spec,
+                       param_specs, shard_leaf, tree_leaves, tree_map,
+                       unembed)
 
 # (stacked layers, embed, out, ln_f)
 PipelineParams = Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor,
@@ -127,29 +137,29 @@ def check_pipeline_mesh(mesh: Mesh, cfg: ModelConfig) -> None:
                          f"{ep}")
 
 
-def make_pipeline_train_step(mesh: Mesh, cfg: ModelConfig, n_micro: int,
-                             lr: float = 1e-3):
-    """SGD through the GPipe schedule (module docstring) on ``mesh`` (pp,
-    with any of slice, dp, fsdp, sp, ep and tp). Returns ``(step,
-    param_specs, token_spec)`` where ``step((stacked, embed, out, ln_f),
-    tokens) -> (new_params, loss)`` takes this rank's shards
-    (:func:`shard_pipeline_params`) and the GLOBAL batch (B, S), which
-    must split into ``n_micro`` microbatches."""
-    check_pipeline_mesh(mesh, cfg)
+def _gpipe_program(b, mesh: Mesh, cfg: ModelConfig, n_micro: int,
+                   lr: float, tokens: torch.Tensor, *, graphed: bool):
+    """The GPipe step (module docstring) as a program over the tree ``b``
+    (``b.params``, this rank's (stacked, embed, out, ln_f) while a call
+    runs, :class:`workload._BoundPrograms`): ``tokens`` (the global batch)
+    in, the last stage's loss out, ``b.params`` updated in place
+    (``p -= lr·g``). Its body is the whole schedule: the forward over the
+    microbatches, the two backwards, the hand-offs and the update; each
+    hand-off (a send, a receive, a send's wait) is a break of the chain on
+    the card, posted in the order the schedule makes it."""
     pp, dp, tp, fsdp = mesh.pp, mesh.axis("dp"), mesh.tp, mesh.fsdp
     stage, last = pp.index, pp.size - 1
     attn_fn = _resolve_attn_fn(cfg)
-    specs = pipeline_param_specs(cfg, mesh)
+    buf = _tokens_buffer(tokens, tree_leaves(b.params)[0])
+    rows_b, s = tokens.shape
+    rows = dp if dp is not None and (rows_b // n_micro) % dp.size == 0 \
+        else None
+    moe = ExpertAxes(moe_act_spec(cfg, mesh), rows)
 
-    def step(params: PipelineParams, tokens: torch.Tensor):
-        b, s = tokens.shape
-        if b % n_micro:
-            raise ValueError(f"batch {b} does not split into n_micro="
-                             f"{n_micro} microbatches")
-        rows = dp if dp is not None and (b // n_micro) % dp.size == 0 \
-            else None
-        moe = ExpertAxes(moe_act_spec(cfg, mesh), rows)
-        micro = local_chunk(tokens.reshape(n_micro, b // n_micro, s), rows, 1)
+    def body():
+        params = b.params
+        micro = local_chunk(buf.reshape(n_micro, rows_b // n_micro, s), rows,
+                            1)
         masters = [t.detach().requires_grad_(True) for t in
                    tree_leaves(params)]
         it = iter(masters)
@@ -228,10 +238,43 @@ def make_pipeline_train_step(mesh: Mesh, cfg: ModelConfig, n_micro: int,
                                    for g in grads[:n_stacked]] + [shared])
         flat = all_reduce(flat, dp) / (dp.size if dp is not None else 1)
         sizes = [1] + [g.numel() for g in grads]
-        parts = iter(torch.split(flat, sizes)[1:])
-        new = [m.detach() - lr * next(parts).reshape(m.shape).to(m.dtype)
-               for m in masters]
-        it = iter(new)
-        return tuple(tree_map(lambda _: next(it), params)), flat[0]
+        parts = torch.split(flat, sizes)
+        with torch.no_grad():
+            for p, part in zip(tree_leaves(params), parts[1:]):
+                p.sub_(lr * part.reshape(p.shape).to(p.dtype))
+        return parts[0][0].clone()
 
-    return step, specs, ((("dp",) if dp is not None else None), None)
+    return Program(body, {"tokens": buf}, graphed=graphed, advances=True)
+
+
+def make_pipeline_train_step(mesh: Mesh, cfg: ModelConfig, n_micro: int,
+                             lr: float = 1e-3):
+    """SGD through the GPipe schedule (module docstring) on ``mesh`` (pp,
+    with any of slice, dp, fsdp, sp, ep and tp). Returns ``(step,
+    param_specs, token_spec)`` where ``step((stacked, embed, out, ln_f),
+    tokens) -> (params, loss)`` takes this rank's shards
+    (:func:`shard_pipeline_params`) and the GLOBAL batch (B, S), which
+    must split into ``n_micro`` microbatches, and updates the shards IN
+    PLACE, returning the same tree, as the flat steps do. The step is a
+    program (:func:`_gpipe_program`): on the card captured at its first
+    call as a chain of graphs broken at each collective and hand-off, and
+    replayed after that; its body called as it is on the CPU. A call with
+    other tensors, or another batch shape, builds it anew for them, as
+    ``workload.make_sharded_train_step``'s does."""
+    check_pipeline_mesh(mesh, cfg)
+    specs = pipeline_param_specs(cfg, mesh)
+    programs = _BoundPrograms(
+        lambda b, tokens, graphed: _gpipe_program(
+            b, mesh, cfg, n_micro, lr, tokens, graphed=graphed))
+
+    def step(params: PipelineParams, tokens: torch.Tensor):
+        if tokens.shape[0] % n_micro:
+            raise ValueError(f"batch {tokens.shape[0]} does not split into "
+                             f"n_micro={n_micro} microbatches")
+        with programs.bound(params, None, (tokens.shape, tokens.dtype),
+                            tokens) as prog:
+            return params, prog(tokens=tokens).clone()
+
+    step._programs = programs
+    return (step, specs,
+            ((("dp",) if mesh.axis("dp") is not None else None), None))

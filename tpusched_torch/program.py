@@ -15,21 +15,27 @@ On a CUDA device the body is captured once as a chain of
 on a side stream (they build the kernels, load their libraries, set their
 attributes and run the collectives), then the capture on that stream.
 Each collective the body makes through :mod:`.mesh` (``all_reduce``,
-``all_gather``, ``broadcast``) ends the segment being captured, is kept
-as a break (the ``torch.distributed`` call, its tensor and its
-arguments), and begins the next segment; a body with no collective is one
-segment. No collective runs during the capture: every rank records the
-same breaks without a message, so the ranks stay in step. Each call
-copies the new inputs into the buffers (through pinned host memory,
-``non_blocking``), replays segment 0, runs break 0 on the same tensor,
-replays segment 1, and so on. No collective is ever inside a graph, so
-the chain holds under gloo, whose collectives stage through the host, as
-under NCCL. A body that cannot be captured raises, and under gloo so does a
-collective that bypasses the mesh during a capture (CUDA refuses its host
-copy); nothing falls back. All segments of a program share one memory
-pool, and programs that pass one pool (``torch.cuda.graph_pool_handle()``)
-share it too, and must then run one at a time on one stream, as a serving
-engine's do.
+``all_gather``, ``broadcast``, the ring hop ``shift`` and the hand-offs
+``send``, ``recv`` and a send's ``wait``) ends the segment being
+captured, is kept as a break (the ``torch.distributed`` call, its tensors
+and its arguments), and begins the next segment; a body with no
+collective is one segment. No collective runs during the capture: every
+rank records the same breaks without a message, so the ranks stay in
+step. A train step's backward reaches the hook from autograd's device
+thread, so a segment the main thread began may end there and the next
+begin there: every segment is captured in CUDA's relaxed mode, the one in
+which a capture may end on another thread than the one that began it.
+Each call copies the new inputs into the buffers (through pinned host
+memory, ``non_blocking``), replays segment 0, runs break 0 on the same
+tensors, replays segment 1, and so on, the breaks in the body's order. No
+collective is ever inside a graph, so the chain holds under gloo, whose
+collectives stage through the host, as under NCCL. A body that cannot be
+captured raises, and under gloo so does a collective that bypasses the
+mesh during a capture (the capture stream refuses its host copy's wait,
+in any mode); nothing falls back. All segments of a program share one
+memory pool, and programs that pass one pool
+(``torch.cuda.graph_pool_handle()``) share it too, and must then run one
+at a time on one stream, as a serving engine's do.
 
 Elsewhere (``graphed=False``: the CPU) each call runs the body on the same
 buffers, its collectives run where it makes them, and its output is
@@ -148,7 +154,10 @@ class _Chain:
         graph = _cuda.graph()
         for gen in self.generators:
             graph.register_generator_state(gen)
-        graph.capture_begin(*(() if self.pool is None else (self.pool,)))
+        # relaxed: a cut in a backward ends this segment on autograd's
+        # device thread, which CUDA refuses in the global mode
+        graph.capture_begin(*(() if self.pool is None else (self.pool,)),
+                            capture_error_mode="relaxed")
         self.segments.append(graph)
         self.open = True
 
@@ -237,8 +246,9 @@ class Program:
         ran = _counts()
         self.warmup_collectives = mesh.COLLECTIVES_RUN - collectives
         _set_counts(before)
-        # no cyclic collection while capturing: one could destroy another
-        # program's graph, which the capture refuses
+        # no cyclic collection while capturing (autograd's thread
+        # included: the switch is the interpreter's): one could destroy
+        # another program's graph in the middle of this capture
         collecting = gc.isenabled()
         gc.disable()
         try:

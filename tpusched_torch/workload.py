@@ -11,8 +11,10 @@ work. Training: ``loss_fn``, ``value_and_grad`` (autograd over the dict's
 tensors), ``sgd_train_step``, and ``make_optax_train_step``/
 ``make_accum_train_step`` around an optimizer from ``optim``. The three
 step builders return programs (:mod:`.program`) that update params and
-state in place: captured as CUDA graphs at their first call on one card,
-their bodies called as they are over a mesh and on the CPU.
+state in place: captured at their first call on the card, as one CUDA
+graph on one card and as a chain of graphs broken at each collective over
+a mesh (the backward's and the remat recompute's included), their bodies
+called as they are on the CPU.
 
 Parallelism (``mesh``): ``param_specs`` gives each leaf the reference's
 partition spec, ``shard_params`` cuts this rank's slice, and the forward,
@@ -901,14 +903,14 @@ class _BoundPrograms:
     step's graph for the collector, which could free it in the middle of
     another capture.
 
-    Without a mesh, on the card, the programs are captured as CUDA graphs;
-    over a mesh (whose collectives stage through the host under gloo) and
-    on the CPU their bodies are called as they are. ``graphs = False``, set
+    On the card the programs are captured: on one card each as one CUDA
+    graph, over a mesh each as a chain of graphs broken at its collectives,
+    the backward's and the remat recompute's included (``program``); on
+    the CPU their bodies are called as they are. ``graphs = False``, set
     before the first call, calls the bodies on the card too: a private
     hook for comparing the two (``step._programs``)."""
 
-    def __init__(self, mesh: Optional[Mesh], build: Callable):
-        self.mesh = mesh
+    def __init__(self, build: Callable):
         self.build = build
         self.graphs = True
         self.tree = types.SimpleNamespace(params=None, state=None)
@@ -931,8 +933,7 @@ class _BoundPrograms:
                     or len(held) != len(self._refs)
                     or any(r() is not t for r, t in zip(self._refs, held))):
                 self.programs, self._refs = None, ()
-                graphed = (self.graphs and self.mesh is None
-                           and held[0].device.type == "cuda")
+                graphed = self.graphs and held[0].device.type == "cuda"
                 self.programs = self.build(self.tree, *args, graphed=graphed)
                 self._refs = tuple(weakref.ref(t) for t in held)
                 self._key = key
@@ -1044,13 +1045,14 @@ def make_sharded_train_step(mesh: Optional[Mesh], cfg: ModelConfig,
 
     The step is a program (:func:`_sgd_program`) that updates ``params`` IN
     PLACE and returns the same tree, as the reference's step donates them:
-    captured as a CUDA graph at its first call on one card, and replayed
-    after that; its body called as it is over a mesh and on the CPU. A call
-    with other tensors builds it anew for them (:class:`_BoundPrograms`)."""
+    on the card captured at its first call, as a CUDA graph on one card
+    and as a chain of graphs broken at each collective over a mesh, and
+    replayed after that; its body called as it is on the CPU. A call with
+    other tensors builds it anew for them (:class:`_BoundPrograms`)."""
     ts = TrainShardings(mesh, cfg)
     programs = _BoundPrograms(
-        mesh, lambda b, tokens, graphed: _sgd_program(b, ts, tokens, lr,
-                                                      graphed=graphed))
+        lambda b, tokens, graphed: _sgd_program(b, ts, tokens, lr,
+                                                graphed=graphed))
 
     def step(params, tokens):
         with programs.bound(params, None, (tokens.shape, tokens.dtype),
@@ -1073,8 +1075,8 @@ def make_optax_train_step(mesh: Optional[Mesh], cfg: ModelConfig, tx):
     the count and the bias corrections) runs before every call."""
     ts = TrainShardings(mesh, cfg)
     programs = _BoundPrograms(
-        mesh, lambda b, tokens, graphed: _adamw_program(b, ts, tx, tokens,
-                                                        graphed=graphed))
+        lambda b, tokens, graphed: _adamw_program(b, ts, tx, tokens,
+                                                  graphed=graphed))
 
     def step(params, opt_state, tokens):
         with programs.bound(params, opt_state, (tokens.shape, tokens.dtype),
@@ -1102,7 +1104,7 @@ def make_accum_train_step(mesh: Optional[Mesh], cfg: ModelConfig, tx,
     ``accum_steps`` microbatches, and a longer stack builds them anew."""
     ts = TrainShardings(mesh, cfg)
     programs = _BoundPrograms(
-        mesh, lambda b, micro, slots, graphed: _accum_programs(
+        lambda b, micro, slots, graphed: _accum_programs(
             b, ts, tx, micro, slots, graphed=graphed))
 
     def step(params, opt_state, token_stack):
