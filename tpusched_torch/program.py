@@ -57,6 +57,15 @@ program counts the launches its capture recorded, over all its segments,
 leaves the counters as they were before its warm-up calls, and adds the
 recorded launches on every replay: the counts stay those of the kernels
 that ran for the program's results.
+
+A program counts its ``captures`` and its ``replays``: the calls that ran
+its step without capturing it (replaying its graphs, or where it is not
+graphed calling its body), so an advancing program's first call counts a
+capture and no replay. Its calls, warm-up and capture are spans of
+:mod:`.tracing` (``program.stage``, ``program.replay``,
+``program.warmup``, ``program.capture``, labelled with its name); the
+device-timed phases its capture records fire at every replay, which arms
+them to be read.
 """
 from __future__ import annotations
 
@@ -67,7 +76,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import attention, mesh
+from . import attention, mesh, tracing
 
 _COUNTERS = ("FLASH_FWD_LAUNCHES", "FLASH_BWD_DKDV_LAUNCHES",
              "FLASH_BWD_DQ_LAUNCHES")
@@ -194,8 +203,9 @@ class Program:
     ``segments`` the captured graphs, ``breaks`` the collectives between
     them (``len(breaks) == len(segments) - 1``), ``warmup_collectives``
     the collectives its warm-up call ran (a capture that recorded them all
-    has one segment more) and ``breaks_run`` the breaks its replays have
-    run, summed over calls."""
+    has one segment more), ``breaks_run`` the breaks its replays have
+    run, summed over calls, and ``replays`` and ``captures`` its calls
+    that ran the step without capturing it and its captures."""
 
     def __init__(self, body: Callable[[], Optional[torch.Tensor]],
                  inputs: Dict[str, torch.Tensor], *, graphed: bool,
@@ -213,7 +223,11 @@ class Program:
         self.breaks: List[mesh.Collective] = []
         self.warmup_collectives = 0
         self.breaks_run = 0
+        self.replays = 0
+        self.captures = 0
         self._launches = (0,) * len(_COUNTERS)
+        self._timed = None
+        tracing.track(self)
 
     @property
     def graph(self):
@@ -241,8 +255,12 @@ class Program:
         step."""
         before, collectives = _counts(), mesh.COLLECTIVES_RUN
         side = _cuda.side_stream()
-        with _cuda.on(side):
-            warm = self.body()
+        sid = tracing.begin("program.warmup", label=self.name)
+        try:
+            with _cuda.on(side):
+                warm = self.body()
+        finally:
+            tracing.end(sid)
         ran = _counts()
         self.warmup_collectives = mesh.COLLECTIVES_RUN - collectives
         _set_counts(before)
@@ -251,9 +269,10 @@ class Program:
         # another program's graph in the middle of this capture
         collecting = gc.isenabled()
         gc.disable()
+        sid = tracing.begin("program.capture", label=self.name)
         try:
             _cuda.prepare()
-            with _cuda.on(side):
+            with _cuda.on(side), tracing.capture() as timed:
                 chain = _Chain(self.name, self.pool, self.generators)
                 try:
                     with mesh.capturing(chain):
@@ -261,6 +280,7 @@ class Program:
                 finally:
                     chain.end()
         finally:
+            tracing.end(sid)
             if collecting:
                 gc.enable()
         self._launches = tuple(a - b for a, b in zip(_counts(), before))
@@ -274,27 +294,51 @@ class Program:
         _cuda.join(side)
         self.outputs = outputs
         self.segments, self.breaks = chain.segments, chain.breaks
+        self.captures += 1
+        self._timed = tracing.Timed(timed) if timed else None
 
     def __call__(self, **values) -> Optional[torch.Tensor]:
         """Copy ``values`` (by input name) into the buffers, run, and return
         the static output."""
-        for name, value in values.items():
-            _copy_in(self.inputs[name], value)
+        sid = tracing.begin("program.stage", label=self.name)
+        try:
+            for name, value in values.items():
+                _copy_in(self.inputs[name], value)
+            if sid >= 0:
+                tracing.note(sid, 0, sum(self.inputs[n].nbytes
+                                         for n in values))
+        finally:
+            tracing.end(sid)
+        if self.graphed and not self.segments:
+            self._capture()
+            if self.advances:
+                return self.outputs
+        sid = tracing.begin("program.replay", label=self.name)
+        try:
+            self._replay()
+        finally:
+            tracing.end(sid)
+        return self.outputs
+
+    def _replay(self) -> None:
+        """The step: the body's call where the program is not graphed, else
+        its segments replayed with the breaks between them."""
         if not self.graphed:
             out = self.body()
             if self.outputs is None:
                 self.outputs = out
             else:
                 self.outputs.copy_(out)
-            return self.outputs
-        if not self.segments:
-            self._capture()
-            if self.advances:
-                return self.outputs
+            self.replays += 1
+            return
+        if self._timed is not None:
+            tracing.launching(self._timed)
         self.segments[0].replay()
         for brk, segment in zip(self.breaks, self.segments[1:]):
             brk()
             segment.replay()
         self.breaks_run += len(self.breaks)
+        self.replays += 1
         _set_counts(tuple(c + n for c, n in zip(_counts(), self._launches)))
-        return self.outputs
+        if self._timed is not None:
+            tracing.replayed(self._timed)

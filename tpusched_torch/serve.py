@@ -75,6 +75,7 @@ from .decode import (KVCache, _adjusted_span_program, _keyed_proposals,
                      decode_step, draft_rollout, fold_in, init_kv_cache,
                      keyed_categorical, keyed_draw, prefill,
                      probs_from_adjusted, sample_token, score_span)
+from . import tracing
 from .mesh import MODEL_AXES, broadcast
 from .program import Program
 from .spec_decode import accept_span, round_uniforms
@@ -450,7 +451,8 @@ class ServeEngine:
         self.slot_prefix = np.zeros(slots, dtype=np.int64)  # tenant prefix len
         self.generated: List[List[int]] = [[] for _ in range(slots)]
         self.admitted_at = np.zeros(slots, dtype=np.int64)
-        self.queue: List[Tuple[Request, Optional[dict]]] = []
+        # (request, its prefix entry, when it was queued on the host clock)
+        self.queue: List[Tuple[Request, Optional[dict], int]] = []
         self.completions: List[Completion] = []
         self.tick_count = 0
         self.decode_tokens = 0          # real (non-idle) tokens decoded
@@ -492,7 +494,7 @@ class ServeEngine:
         if self.request_keyed:
             # the rid IS the request's randomness: two in flight would
             # emit fully correlated streams
-            in_flight = ({r.rid for r, _ in self.queue}
+            in_flight = ({r.rid for r, *_ in self.queue}
                          | {r.rid for r in self.req if r is not None})
             if req.rid in in_flight:
                 raise ValueError(
@@ -542,7 +544,7 @@ class ServeEngine:
                     f"{self.max_seq}")
         # the resolved prefix entry rides with the request: registering the
         # id again later leaves a queued request as it was validated
-        self.queue.append((req, entry))
+        self.queue.append((req, entry, tracing.now()))
 
     @torch.no_grad()
     def warmup(self) -> None:
@@ -666,7 +668,8 @@ class ServeEngine:
         for slot in range(self.slots):
             if self.req[slot] is not None or not self.queue:
                 continue
-            req, prefix = self.queue.pop(0)
+            req, prefix, queued_at = self.queue.pop(0)
+            tracing.record("serve.queued", queued_at, tracing.now(), req.rid)
             self.req[slot] = req
             self.admitted_at[slot] = self.tick_count
             if self.chunk_prefill is not None:
@@ -686,10 +689,13 @@ class ServeEngine:
             bucket = next(b for b in self.prompt_buckets if b >= true_len)
             padded = np.zeros(bucket, dtype=np.int64)
             padded[:true_len] = req.prompt
+            sid = tracing.begin("serve.admit", req.rid, slot, bucket,
+                                true_len)
             first_logits = self._program(("prefill", bucket, False))(
                 prompt=padded, slot=slot, true_len=true_len)
             self.prefills += 1
             tok = self._first_token(req.rid, first_logits, true_len, slot)
+            tracing.end(sid)
             self.slot_prefix[slot] = 0
             self.pos[slot] = true_len
             self.prev_tok[slot] = int(req.prompt[-1])
@@ -752,17 +758,22 @@ class ServeEngine:
 
     def _first_token(self, rid: int, logits_row: torch.Tensor, row: int,
                      slot: int) -> int:
-        """A slot's first generated token, which occupies absolute ``row``.
-        A request-keyed draw binds the tenant's key to the slot here."""
+        """A slot's first generated token, which occupies absolute ``row``,
+        drawn inside a ``serve.sample`` span. A request-keyed draw binds the
+        tenant's key to the slot here."""
+        sid = tracing.begin("serve.sample")
         if self.request_keyed:
             self.slot_key[slot] = fold_in(self._key, rid)
             keys, rows = (torch.full((1,), x, dtype=torch.long,
                                      device=self.device)
                           for x in (as_int64(self.slot_key[slot]), row))
-            return int(self._agree(keyed_draw(adjusted_logits(
+            tok = int(self._agree(keyed_draw(adjusted_logits(
                 logits_row[None, :], self.temperature, self.top_k,
                 self.top_p), keys, rows))[0])
-        return int(self._sample(logits_row[None, :])[0])
+        else:
+            tok = int(self._sample(logits_row[None, :])[0])
+        tracing.end(sid)
+        return tok
 
     def _maybe_finish(self, slot: int) -> None:
         req = self.req[slot]
@@ -899,7 +910,18 @@ class ServeEngine:
         prefill by one chunk, then one decode step over the arena, or, with
         a draft, one speculative round (which emits 1 to spec_k + 1 tokens
         a slot). Returns the number of active (decoding) slots, 0 for an
-        idle tick."""
+        idle tick. The whole tick is a ``serve.tick`` span; each admission,
+        the decode program's stage and replay, the tokens' read-back and
+        draw, and the booking are spans inside it."""
+        sid = tracing.begin("serve.tick", self.tick_count)
+        try:
+            active = self._tick()
+            tracing.note(sid, 1, active)
+        finally:
+            tracing.end(sid)
+        return active
+
+    def _tick(self) -> int:
         self._admit()
         if self.chunk_prefill is not None:
             self._advance_prefills()
@@ -919,19 +941,28 @@ class ServeEngine:
             # the tick draws on the device: the token drawn now occupies
             # row pos + 1 of its slot, the row the solo position-keyed
             # sampler keys; an idle slot's draw is discarded
-            toks = self._agree(self._program(("decode",))(
+            out = self._program(("decode",))(
                 tokens=self.next_tok, pos=self.pos,
-                keys=[as_int64(k) for k in self.slot_key])).cpu().numpy()
+                keys=[as_int64(k) for k in self.slot_key])
+            sid = tracing.begin("serve.sample")
+            toks = self._agree(out).cpu().numpy()
         else:
-            toks = self._sample(self._program(("decode",))(
-                tokens=self.next_tok, pos=self.pos))
+            logits = self._program(("decode",))(tokens=self.next_tok,
+                                                pos=self.pos)
+            sid = tracing.begin("serve.sample")
+            toks = self._sample(logits)
+        tracing.end(sid)
         self.tick_count += 1
+        sid = tracing.begin("serve.book")
+        done = len(self.completions)
         for s in active:
             self.pos[s] += 1
             self.next_tok[s] = toks[s]
             self.generated[s].append(int(toks[s]))
             self.decode_tokens += 1
             self._maybe_finish(s)
+        tracing.note(sid, 0, len(self.completions) - done)
+        tracing.end(sid)
         return len(active)
 
     def run_until_drained(self, max_ticks: int = 100_000,

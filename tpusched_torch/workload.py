@@ -38,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import itertools
 import math
 import numbers
 import types
@@ -49,7 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from . import attention
+from . import attention, tracing
 from .program import Program
 from .mesh import (BATCH_AXES, DATA_AXES_BUT_FSDP, Axis, Mesh, all_reduce,
                    copy_to, gather, gather_last, local_chunk, reduce_from,
@@ -665,12 +666,18 @@ def value_and_grad(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     structure and dtypes; ``params`` themselves are left untouched. Under
     tp the grads are this rank's shards' and every replicated leaf's full
     gradient; under fsdp a sharded leaf's gradient is summed over fsdp
-    (the reduce-scatter); under sp every grad is this rank's share."""
+    (the reduce-scatter); under sp every grad is this rank's share. The
+    forward and the backward (with remat, its recomputed forward too) are
+    the device-timed phases ``train.forward`` and ``train.backward``."""
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     it = iter(leaves)
+    phase = tracing.device_begin("train.forward", leaves[0])
     loss = loss_fn(tree_map(lambda _: next(it), params), tokens, cfg, attn_fn,
                    tp, sp, fsdp, moe)
+    tracing.device_end(phase)
+    phase = tracing.device_begin("train.backward", leaves[0])
     grads = iter(torch.autograd.grad(loss, leaves))
+    tracing.device_end(phase)
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
 
@@ -958,9 +965,11 @@ def _sgd_program(b, ts: TrainShardings, tokens: torch.Tensor, lr: float, *,
 
     def body():
         loss, grads = ts.mean(*ts(b.params, ts.local(buf)))
+        phase = tracing.device_begin("train.optimizer", buf)
         with torch.no_grad():
             for p, g in zip(tree_leaves(b.params), tree_leaves(grads)):
                 p.sub_(lr * g.to(p.dtype))
+        tracing.device_end(phase)
         return loss
 
     return Program(body, {"tokens": buf}, graphed=graphed, advances=True)
@@ -978,8 +987,10 @@ def _adamw_program(b, ts: TrainShardings, tx,
 
     def body():
         loss, grads = ts.mean(*ts(b.params, ts.local(buf)))
+        phase = tracing.device_begin("train.optimizer", buf)
         tx.apply_(tree_map(lambda p, g: g.to(p.dtype), b.params, grads),
                   b.state, b.params, corr)
+        tracing.device_end(phase)
         return loss
 
     return (Program(body, {"tokens": buf}, graphed=graphed, advances=True),
@@ -1018,8 +1029,10 @@ def _accum_programs(b, ts: TrainShardings, tx,
         it = iter(acc)
         loss, grads = ts.mean(losses.sum() / n,
                               tree_map(lambda _: next(it) / n, b.params))
+        phase = tracing.device_begin("train.optimizer", n)
         tx.apply_(tree_map(lambda p, g: g.to(p.dtype), b.params, grads),
                   b.state, b.params, corr)
+        tracing.device_end(phase)
         with torch.no_grad():
             for a in acc:
                 a.zero_()
@@ -1054,10 +1067,17 @@ def make_sharded_train_step(mesh: Optional[Mesh], cfg: ModelConfig,
         lambda b, tokens, graphed: _sgd_program(b, ts, tokens, lr,
                                                 graphed=graphed))
 
+    count = itertools.count(1)
+
     def step(params, tokens):
-        with programs.bound(params, None, (tokens.shape, tokens.dtype),
-                            tokens) as prog:
-            return params, prog(tokens=tokens).clone()
+        tracing.poll()
+        sid = tracing.begin("train.step", next(count))
+        try:
+            with programs.bound(params, None, (tokens.shape, tokens.dtype),
+                                tokens) as prog:
+                return params, prog(tokens=tokens).clone()
+        finally:
+            tracing.end(sid)
 
     step._programs = programs
     return (step, *_specs_or_none(mesh, cfg))
@@ -1072,17 +1092,27 @@ def make_optax_train_step(mesh: Optional[Mesh], cfg: ModelConfig, tx):
     optimizer state mirrors each (AdamW is elementwise). The step is a
     program (:func:`_adamw_program`), captured and rebound as
     :func:`make_sharded_train_step`'s, whose host part (``tx.advance_``:
-    the count and the bias corrections) runs before every call."""
+    the count and the bias corrections) runs before every call. Each call
+    of every train step is a ``train.step`` span, and the body's forward,
+    backward and update the device-timed phases of :mod:`.tracing`."""
     ts = TrainShardings(mesh, cfg)
     programs = _BoundPrograms(
         lambda b, tokens, graphed: _adamw_program(b, ts, tx, tokens,
                                                   graphed=graphed))
 
+    count = itertools.count(1)
+
     def step(params, opt_state, tokens):
-        with programs.bound(params, opt_state, (tokens.shape, tokens.dtype),
-                            tokens) as (prog, corr):
-            tx.advance_(opt_state, corr)
-            return params, opt_state, prog(tokens=tokens).clone()
+        tracing.poll()
+        sid = tracing.begin("train.step", next(count))
+        try:
+            with programs.bound(params, opt_state,
+                                (tokens.shape, tokens.dtype),
+                                tokens) as (prog, corr):
+                tx.advance_(opt_state, corr)
+                return params, opt_state, prog(tokens=tokens).clone()
+        finally:
+            tracing.end(sid)
 
     step._programs = programs
     return (step, tx.init, *_specs_or_none(mesh, cfg))
@@ -1101,23 +1131,33 @@ def make_accum_train_step(mesh: Optional[Mesh], cfg: ModelConfig, tx,
     (:func:`_accum_programs`), the micro-step called a microbatch and the
     update once a stack, captured and rebound as
     :func:`make_sharded_train_step`'s; their loss buffer holds
-    ``accum_steps`` microbatches, and a longer stack builds them anew."""
+    ``accum_steps`` microbatches, and a longer stack builds them anew.
+    Captured, the micro-step replays again before its last replay has run
+    on the card, so of its device-timed phases only the last microbatch's
+    are read; the others count as unread (:mod:`.tracing`)."""
     ts = TrainShardings(mesh, cfg)
     programs = _BoundPrograms(
         lambda b, micro, slots, graphed: _accum_programs(
             b, ts, tx, micro, slots, graphed=graphed))
 
+    count = itertools.count(1)
+
     def step(params, opt_state, token_stack):
-        n_micro = token_stack.shape[0]
-        slots = max(accum_steps, n_micro)
-        micro = token_stack[0]
-        with programs.bound(params, opt_state,
-                            (micro.shape, micro.dtype, slots), micro,
-                            slots) as (micro_step, update, corr):
-            for i in range(n_micro):
-                micro_step(tokens=token_stack[i], index=i)
-            tx.advance_(opt_state, corr)
-            return params, opt_state, update(n=n_micro).clone()
+        tracing.poll()
+        sid = tracing.begin("train.step", next(count))
+        try:
+            n_micro = token_stack.shape[0]
+            slots = max(accum_steps, n_micro)
+            micro = token_stack[0]
+            with programs.bound(params, opt_state,
+                                (micro.shape, micro.dtype, slots), micro,
+                                slots) as (micro_step, update, corr):
+                for i in range(n_micro):
+                    micro_step(tokens=token_stack[i], index=i)
+                tx.advance_(opt_state, corr)
+                return params, opt_state, update(n=n_micro).clone()
+        finally:
+            tracing.end(sid)
 
     step._programs = programs
 
