@@ -15,7 +15,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    for more registers than its launch holds;
 2. every kernel against its plain PyTorch version on the card: the flash
    forward (K1), then the backward's dK/dV (K2) and dQ (K3) kernels, whose
-   gradients must also come out bitwise equal when run twice;
+   gradients must also come out bitwise equal when run twice; then K4,
+   single-token attention over the arena, at the serving cells' arenas and
+   the tp ranks' (cursors 0, max_seq - 1, parked past the arena, random),
+   its worst error against the plain version in f32 at most 1.25x the
+   plain version's own in bf16, bitwise equal inside a CUDA graph, two
+   launches a call, timed over 50 launches in a graph beside its bound,
+   the plain version, today's einsum and SDPA (``phase_decode_attention``);
 3. the serving path: ``llama_like_big`` at full width and depth (random
    bf16 weights from a seeded generator) served by ``ServeEngine`` and by
    ``measure_serving`` over 16 seeded requests, with the flash kernel's
@@ -502,7 +508,8 @@ def ptxas_usage(logs) -> dict:
     through setmaxnreg (:data:`HOPPER_KERNELS`)."""
     usage, name = {}, None
     for line in "\n".join(logs.values()).splitlines():
-        m = re.search(r"\d(flash_\w+?)(?:ILi(\d+)E|E)", line)
+        m = re.search(r"\d((?:flash|decode_attn)_\w+?)(?:ILi(\d+)E|E)",
+                      line)
         if "Compiling entry function" in line and m:
             name = m[1] + (f"<{m[2]}>" if m[2] else "")
             usage[name] = [None, None]
@@ -706,6 +713,144 @@ def phase_backward_vs_plain(attention):
     return main_err, xl_err
 
 
+# (b, max_seq, kv, n_rep): mistral-7b's and mixtral-8x7b's arenas (hd 128),
+# a tp-2 and a tp-4 rank's, and one group of 20 heads (two blocks of 16)
+DECODE_ARENAS = [(64, 4096, 8, 4), (48, 4096, 8, 4), (64, 4096, 4, 4),
+                 (64, 4096, 2, 4), (6, 1000, 1, 20)]
+DECODE_TOL = 1.25    # K4's worst error over the bf16 plain version's
+
+
+def decode_cursors(gen, b, max_seq):
+    """Random cursors with the edges: row 0 alone, the arena's last row, an
+    idle slot parked past the arena, and the 64- and 512-row boundaries."""
+    pos = torch.randint(0, max_seq, (b,), generator=gen, device="cuda")
+    edges = [0, max_seq - 1, max_seq + 5, 63, 64, 511, 512, 513]
+    pos[:len(edges)] = torch.tensor(edges[:b], device="cuda")
+    return pos
+
+
+def decode_operands(gen, b, max_seq, kv, n_rep, dtype, q_pad=0):
+    q = torch.randn((b, 1, kv * n_rep, 128 + q_pad), generator=gen,
+                    device="cuda").to(dtype)[..., :128]
+    ck, cv = (torch.randn((b, max_seq, kv, 128), generator=gen,
+                          device="cuda").to(dtype) for _ in range(2))
+    return q, ck, cv
+
+
+def phase_decode_attention(attention, decode) -> dict:
+    """K4 against its plain version at the cells' arena shapes: the worst
+    element error against the plain version run in f32 at most
+    ``DECODE_TOL`` times the plain version's own in bf16 (both round O to
+    bf16; the einsum's error beside them); two runs and a CUDA graph's
+    replay bitwise equal; two launches a call. Then timed at mistral-7b's
+    arena over 50 launches inside a CUDA graph, with random cursors and
+    with every slot full. Returns the timings."""
+    usage = {k: u for k, u in ptxas_usage(
+        attention._build.build_logs()).items() if k.startswith("decode_attn")}
+    check(len(usage) == 4 and all(u[1] == 0 for u in usage.values()),
+          f"K4's kernels (split and combine, bf16 and fp16) spill or are "
+          f"missing: {usage}")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf16 = torch.bfloat16
+    cases = [(shape, bf16, "vector", 0) for shape in DECODE_ARENAS] + [
+        ((64, 4096, 8, 4), bf16, "0-d", 0),
+        ((16, 2048, 8, 4), torch.float16, "vector", 0),
+        ((16, 2048, 8, 4), bf16, "vector", 8),        # a strided q
+        ((8, 700, 8, 1), bf16, "vector", 0)]
+    for (b, max_seq, kv, n_rep), dtype, form, q_pad in cases:
+        q, ck, cv = decode_operands(gen, b, max_seq, kv, n_rep, dtype, q_pad)
+        pos = decode_cursors(gen, b, max_seq)
+        if form == "0-d":
+            pos = pos[1]
+        before = attention.DECODE_ATTN_LAUNCHES
+        out = attention.decode_attention(q, ck, cv, pos, n_rep)
+        again = attention.decode_attention(q, ck, cv, pos, n_rep)
+        torch.cuda.synchronize()
+        check(attention.DECODE_ATTN_LAUNCHES - before == 4,
+              "K4 launches two kernels a call")
+        check(torch.equal(out, again), "K4 is not bitwise repeatable")
+        ref = attention.decode_attention_plain(q.float(), ck.float(),
+                                               cv.float(), pos, n_rep)
+        plain = attention.decode_attention_plain(q, ck, cv, pos, n_rep)
+        einsum = decode._einsum_attention(q, ck, cv, pos, n_rep)
+        err = (out.float() - ref).abs().max().item()
+        plain_err = (plain.float() - ref).abs().max().item()
+        einsum_err = (einsum.float() - ref).abs().max().item()
+        line = {"decode_attn_vs_plain": [b, max_seq, kv, n_rep, 128],
+                "dtype": str(dtype)[6:], "pos": form, "q_pad": q_pad,
+                "chunk": attention.decode_chunk(b, max_seq, kv, n_rep),
+                "max_abs_err": err, "plain_bf16_err": plain_err,
+                "einsum_err": einsum_err, "ratio": err / plain_err,
+                "max_abs_ref": ref.abs().max().item()}
+        print(json.dumps(line))
+        check(out.shape == q.shape and out.dtype == dtype, "K4 output")
+        check(bool(torch.isfinite(out).all()), "K4 output not finite")
+        check(err <= DECODE_TOL * plain_err,
+              f"K4 disagrees with its plain version: {line}")
+        del q, ck, cv, out, again, ref, plain, einsum
+    # inside a graph: the cursor read on the device, replay == eager
+    b, max_seq, kv, n_rep = DECODE_ARENAS[0]
+    q, ck, cv = decode_operands(gen, b, max_seq, kv, n_rep, bf16)
+    pos = decode_cursors(gen, b, max_seq)
+    eager = attention.decode_attention(q, ck, cv, pos, n_rep)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        attention.decode_attention(q, ck, cv, pos, n_rep)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = attention.decode_attention(q, ck, cv, pos, n_rep)
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(captured, eager), "K4 replayed != K4 eager")
+    pos.copy_(decode_cursors(gen, b, max_seq))       # new cursors, same graph
+    graph.replay()
+    eager = attention.decode_attention(q, ck, cv, pos, n_rep)
+    torch.cuda.synchronize()
+    check(torch.equal(captured, eager),
+          "K4 replayed at new cursors != K4 eager")
+    del graph, captured, eager
+    timings = {}
+    for label, full in (("random", False), ("full", True)):
+        if full:
+            pos.fill_(max_seq - 1)
+        else:
+            pos.copy_(decode_cursors(gen, b, max_seq))
+        counted = attention.DECODE_ATTN_LAUNCHES
+        graph_ms = graph_launch_ms(
+            lambda: attention.decode_attention(q, ck, cv, pos, n_rep),
+            launches=50, replays=4)
+        attention.DECODE_ATTN_LAUNCHES = counted    # timing is not counted
+        plain_ms = cuda_ms(lambda: attention.decode_attention_plain(
+            q, ck, cv, pos, n_rep), iters=5)
+        einsum_ms = cuda_ms(lambda: decode._einsum_attention(
+            q, ck, cv, pos, n_rep), iters=10)
+        qt = q.transpose(1, 2)
+        kt, vt = ck.transpose(1, 2), cv.transpose(1, 2)
+        mask = (torch.arange(max_seq, device="cuda")[None, :]
+                <= pos.clamp(max=max_seq - 1)[:, None])[:, None, None, :]
+        try:
+            library_ms = cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=10)
+        except RuntimeError as e:              # a yardstick, never the port's
+            library_ms = f"refused: {e}"[:200]
+        rows = int((pos.clamp(max=max_seq - 1) + 1).sum().item())
+        live_kv = rows * kv * 128 * 2 * ck.element_size()
+        nbytes = live_kv + 2 * q.numel() * q.element_size()
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        timings[label] = dict(
+            shape=[b, max_seq, kv, n_rep, 128], live_rows=rows,
+            live_kv_bytes=live_kv, bytes=nbytes, bound_ms=bound_ms,
+            graph_ms=graph_ms, plain_ms=plain_ms, einsum_ms=einsum_ms,
+            library_ms=library_ms,
+            live_kv_hbm_share=live_kv / (graph_ms * 1e-3) / PEAK_BYTES_PER_S)
+        print(json.dumps({"timing": "decode_attn", "cursors": label,
+                          **timings[label]}))
+    return timings
+
+
 def grad_rel_err(got, ref) -> float:
     """Worst relative L2 error over the leaves of two gradient trees."""
     return max(((a.float() - b.float()).norm() / b.float().norm()).item()
@@ -801,6 +946,7 @@ def phase_serving(attention, serve, workload, name="llama_like_big"):
 
     # the main path as a user drives it: engine, warmup, submit, drain
     attention.FLASH_FWD_LAUNCHES = 0
+    attention.DECODE_ATTN_LAUNCHES = 0
     eng = serve.ServeEngine(params, cfg, device="cuda", **geometry)
     eng.warmup()
     for r in reqs:
@@ -813,6 +959,13 @@ def phase_serving(attention, serve, workload, name="llama_like_big"):
     check(launches == per_prefill * eng.prefills,
           f"{name}: {launches} flash launches for {eng.prefills} prefills "
           f"of {cfg.n_layers} layers with attn={cfg.attn}")
+    # K4: two launches a layer of every decode tick, counted through the
+    # decode program's replays
+    decode_ticks = eng._programs[("decode",)].replays
+    decode_launches = attention.DECODE_ATTN_LAUNCHES
+    check(decode_ticks > 0 and decode_launches == 2 * cfg.n_layers
+          * decode_ticks, f"{name}: {decode_launches} K4 launches for "
+          f"{decode_ticks} decode ticks of {cfg.n_layers} layers")
     check_completions(done, reqs, cfg.vocab, name)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     prefills = eng.prefills
@@ -833,13 +986,15 @@ def phase_serving(attention, serve, workload, name="llama_like_big"):
         "serving": name, **moe, "requests": len(reqs),
         "slots": geometry["slots"], "max_seq": geometry["max_seq"],
         "buckets": list(SERVE_BUCKETS), "prefills": prefills,
-        "flash_launches": launches, "tokens": stats["tokens"],
+        "flash_launches": launches, "decode_attn_launches": decode_launches,
+        "decode_ticks": decode_ticks, "tokens": stats["tokens"],
         "tokens_per_s": stats["tokens_per_s"],
         "occupancy": stats["occupancy"], "ticks": stats["ticks"],
         "max_tick_gap_s": stats["max_tick_gap_s"],
         "elapsed_s": stats["elapsed_s"], "peak_mem_gib": peak_gib}))
     return dict(launches=launches, stats=stats, peak_mem_gib=peak_gib,
-                tokens={c.rid: c.tokens for c in done})
+                tokens={c.rid: c.tokens for c in done},
+                decode_launches=decode_launches, decode_ticks=decode_ticks)
 
 
 def phase_parity(attention, decode, serve, workload, attn="flash",
@@ -5869,6 +6024,7 @@ def main(argv) -> int:
     smi = phase_environment(_build)
     max_abs_err = phase_kernel_vs_plain(attention)
     bwd_err, xl_bwd_err = phase_backward_vs_plain(attention)
+    decode_timing = phase_decode_attention(attention, decode)
     t_start = time.perf_counter()
     mono = phase_serving(attention, serve, workload)
     phase_parity(attention, decode, serve, workload)
@@ -6076,6 +6232,13 @@ def main(argv) -> int:
          "graphed_train_launches": graphed_train(0),
          "mesh_graphed_launches": mesh_graphed,
          "mesh_graphed_train_launches": mesh_train[0], **xl["flash_fwd"]},
+        {"name": "decode_attn", "route": "cuda",
+         "source": source + "decode_attn.cu",
+         "replaces": "no Pallas kernel: the einsums of "
+                     "tpusched/jaxbridge/decode.py:83-102",
+         "serving_launches": {"decode_attn_launches": mono[
+             "decode_launches"], "decode_ticks": mono["decode_ticks"]},
+         **decode_timing},
         {"name": "flash_bwd_dkdv", "route": "cuda",
          "source": source + "flash_bwd.cu", "replaces": replaces + "218",
          "launches": train_launches[1], "max_abs_err": bwd_err[1],

@@ -47,6 +47,11 @@ SIGNATURES = {
              _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
              ctypes.c_float, _I, _I, _P], _I),
     },
+    "decode_attn": {
+        "tpusched_decode_attn": (
+            [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             _L, _L, _L, _L, _L, _L, _L, _L, ctypes.c_float, _I, _P], _I),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -18,6 +18,12 @@ Counterpart of ``tpusched/jaxbridge/attention.py``:
   flash kernels on every (resident Q, visiting K/V) chunk pair and merges
   the partials by their logsumexps (:func:`_combine_partials`), and its
   backward is a second ring.
+- :func:`decode_attention` is one query token a slot against the serving
+  arena up to each slot's cursor: on CUDA tensors the hand-written kernel
+  ``csrc/decode_attn.cu`` (K4, which replaces no Pallas kernel), on CPU
+  tensors its plain version :func:`decode_attention_plain`.
+  :func:`decode_kernel_takes` is the shape test by which the decode step
+  routes to it.
 
 GQA everywhere: k/v may carry h/n_rep heads, and no path expands them.
 """
@@ -41,6 +47,8 @@ FLASH_FWD_LAUNCHES = 0
 # and of the backward kernels, K2 (dK, dV) and K3 (dQ)
 FLASH_BWD_DKDV_LAUNCHES = 0
 FLASH_BWD_DQ_LAUNCHES = 0
+# and of K4's two kernels (the split and the combine), two a call
+DECODE_ATTN_LAUNCHES = 0
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (32, 64, 128)
@@ -400,6 +408,172 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
     """Alias of :func:`flash_attention`, the name the model resolves."""
     return flash_attention(q, k, v, causal)
+
+
+# -- single-token attention over the serving arena (K4) ---------------------
+
+_DECODE_DTYPES = {torch.bfloat16: 1, torch.float16: 2}
+_DECODE_HEAD_DIMS = (128,)
+# K4 streams a block's rows in steps of 64 (csrc/decode_attn.cu: STEP)
+DECODE_STEP = 64
+# blocks the grid should hold when every slot is full: eight waves of the
+# H100's 132 SMs at K4's two blocks an SM
+_DECODE_MIN_BLOCKS = 8 * 2 * 132
+
+
+def decode_kernel_takes(device: torch.device, s_q: int, dtype: torch.dtype,
+                        head_dim: int) -> bool:
+    """Whether cached attention of ``s_q`` query rows over a cache of
+    ``dtype`` and ``head_dim`` on ``device`` goes through K4: one query
+    token, on the card, in bf16 or fp16, at a head dim the kernel is built
+    for. Everything else keeps the einsum."""
+    return (device.type == "cuda" and s_q == 1 and dtype in _DECODE_DTYPES
+            and head_dim in _DECODE_HEAD_DIMS)
+
+
+def decode_chunk(b: int, max_seq: int, kv: int, n_rep: int) -> int:
+    """Rows of one slot a K4 block reads: 512 for a GQA group of up to 4
+    (a chunk's f32 partials, 2·n_rep·hd·4 bytes written and read back, are
+    then at most 1/64 of its chunk·hd·4 bytes of K and V), doubled per
+    doubling of the group beyond 4; halved, down to one 64-row step, while
+    a full arena would give the grid fewer than ``_DECODE_MIN_BLOCKS``
+    blocks (a short arena or few slots or heads, as at tp 4 or in
+    ``generate``)."""
+    chunk = 512
+    while chunk < 128 * n_rep:
+        chunk *= 2
+    groups = -(-n_rep // 16)
+    while chunk > DECODE_STEP and (b * kv * groups * -(-max_seq // chunk)
+                                   < _DECODE_MIN_BLOCKS):
+        chunk //= 2
+    return chunk
+
+
+def _pos_vector(pos, b: int, device: torch.device) -> torch.Tensor:
+    """The cursor as int64 (1,) or (b,) on ``device``; an int is filled in
+    on the device, so a CUDA graph can record it."""
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), int(pos), dtype=torch.long, device=device)
+    pos = pos.reshape(-1)
+    if pos.numel() not in (1, b):
+        raise ValueError(f"pos must be 0-d or ({b},), got {pos.numel()} "
+                         f"cursors")
+    if pos.device != device:
+        raise ValueError(f"pos is on {pos.device}, q on {device}")
+    return pos.long().contiguous()
+
+
+def _check_decode_query(q: torch.Tensor, ck: torch.Tensor,
+                        n_rep: int) -> None:
+    if q.shape[1] != 1 or q.shape[2] != ck.shape[2] * n_rep:
+        raise ValueError(f"decode attention takes one query token of "
+                         f"kv·n_rep = {ck.shape[2] * n_rep} heads, got q "
+                         f"{tuple(q.shape)}")
+
+
+def decode_attention_plain(q: torch.Tensor, ck: torch.Tensor,
+                           cv: torch.Tensor, pos, n_rep: int,
+                           chunk: Optional[int] = None) -> torch.Tensor:
+    """K4's plain version, its chunked arithmetic in float32: q (b, 1, h,
+    hd) against ck, cv (b, max_seq, kv, hd), slot i attending rows 0 ..
+    min(pos[i], max_seq − 1) (a negative cursor attends row 0). Each chunk
+    of ``chunk`` rows (default :func:`decode_chunk`'s) gives a partial (o
+    normalised, lse), P rounded to q's dtype before the product with V as
+    the kernel rounds it; chunks past the cursor give nothing; the
+    partials merge by their lse. Returns (b, 1, h, hd) in q's dtype."""
+    _check_decode_query(q, ck, n_rep)
+    b, _, h, hd = q.shape
+    max_seq, kv = ck.shape[1], ck.shape[2]
+    chunk = chunk or decode_chunk(b, max_seq, kv, n_rep)
+    live = _pos_vector(pos, b, q.device).clamp(0, max_seq - 1) + 1
+    qf = q.float().reshape(b, kv, n_rep, hd) * (1.0 / math.sqrt(hd))
+    outs, lses = [], []
+    for r0 in range(0, max_seq, chunk):
+        rows = torch.arange(r0, min(r0 + chunk, max_seq), device=q.device)
+        k, v = ck[:, r0:r0 + chunk].float(), cv[:, r0:r0 + chunk].float()
+        s = torch.einsum("bgrd,bkgd->bgrk", qf, k)
+        s = s.masked_fill((rows >= live[:, None])[:, None, None, :],
+                          -math.inf)
+        m = s.amax(dim=-1, keepdim=True)
+        m = torch.where(m == -math.inf, 0.0, m)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        pv = torch.einsum("bgrk,bkgd->bgrd", p.to(q.dtype).float(), v)
+        outs.append(pv / torch.where(l == 0.0, 1.0, l))
+        lses.append(torch.where(l == 0.0, -math.inf, m + torch.log(l)))
+    o, lse = torch.stack(outs), torch.stack(lses)
+    w = torch.exp(lse - lse.amax(dim=0))       # a chunk past the cursor: 0
+    out = (w * o).sum(dim=0) / w.sum(dim=0)
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def _decode_attention_cuda(q: torch.Tensor, ck: torch.Tensor,
+                           cv: torch.Tensor, pos, n_rep: int) -> torch.Tensor:
+    global DECODE_ATTN_LAUNCHES
+    _check_decode_query(q, ck, n_rep)
+    b, _, h, hd = q.shape
+    max_seq, kv = ck.shape[1], ck.shape[2]
+    for name, t in (("ck", ck), ("cv", cv)):
+        if t.shape != (b, max_seq, kv, hd):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{(b, max_seq, kv, hd)}")
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}, q is "
+                             f"{q.dtype} on {q.device}")
+        # 16-byte cp.async copies of every row
+        if t.stride(3) != 1 or t.data_ptr() % 16 or any(
+                t.stride(i) % 8 for i in range(3)):
+            raise ValueError(f"{name}: K4 reads 16-byte aligned rows with "
+                             f"a contiguous head dim")
+    if q.dtype not in _DECODE_DTYPES:
+        raise ValueError(f"decode kernel takes {list(_DECODE_DTYPES)}, got "
+                         f"{q.dtype}")
+    if hd not in _DECODE_HEAD_DIMS:
+        raise ValueError(f"decode kernel takes head_dim in "
+                         f"{_DECODE_HEAD_DIMS}, got {hd}")
+    if q.stride(3) != 1 or q.data_ptr() % 4 or q.stride(0) % 2 or \
+            q.stride(2) % 2:
+        raise ValueError("q: K4 reads 4-byte aligned pairs along a "
+                         "contiguous head dim")
+    pos = _pos_vector(pos, b, q.device)
+    chunk = decode_chunk(b, max_seq, kv, n_rep)
+    n_chunks = -(-max_seq // chunk)
+    out = torch.empty((b, 1, h, hd), dtype=q.dtype, device=q.device)
+    o_part = torch.empty((b, n_chunks, h, hd), dtype=torch.float32,
+                         device=q.device)
+    lse_part = torch.empty((b, n_chunks, h), dtype=torch.float32,
+                           device=q.device)
+    lib = _build.load("decode_attn")
+    with torch.cuda.device(q.device):
+        err = lib.tpusched_decode_attn(
+            q.data_ptr(), ck.data_ptr(), cv.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), o_part.data_ptr(), lse_part.data_ptr(),
+            b, max_seq, h, kv, hd, chunk, int(pos.numel() > 1),
+            q.stride(0), q.stride(2), *_strides(ck, cv),
+            ctypes.c_float(1.0 / math.sqrt(hd)), _DECODE_DTYPES[q.dtype],
+            _stream(q.device))
+    if err:
+        raise RuntimeError(f"decode_attn kernel launch failed: CUDA error "
+                           f"{err}")
+    DECODE_ATTN_LAUNCHES += 2
+    return out
+
+
+def decode_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                     pos, n_rep: int) -> torch.Tensor:
+    """One query token a slot, q (b, 1, kv·n_rep, hd), against the arena
+    entry ck, cv (b, max_seq, kv, hd) read in place through its strides,
+    slot i attending rows 0 .. min(pos[i], max_seq − 1); ``pos`` is 0-d or
+    (b,) int64 on the device (or an int), read there, never on the host.
+    Scale 1/√hd, softmax in f32, (b, 1, h, hd) in q's dtype. A CUDA tensor
+    goes through K4 (``csrc/decode_attn.cu``) or raises; a CPU tensor
+    through the plain version."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, ck, cv, pos, n_rep)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    return _decode_attention_cuda(q, ck, cv, pos, n_rep)
 
 
 # -- ring attention (sequence parallelism over the sp mesh axis) ------------------

@@ -3,7 +3,9 @@
 Counterpart of ``tpusched/jaxbridge/decode.py``. One (b, max_seq, kv_heads,
 head_dim) K and V per layer, exact or (``cfg.kv_cache_dtype="int8"``) int8
 with one f32 scale per (row, KV head) in planes ``ks``/``vs``; queries
-attend the cache through a position mask. Unlike the reference, whose
+attend the cache through a position mask. On the card one query token in
+bf16 or fp16 attends through K4 (``attention.decode_attention``), which
+reads each slot's live rows in place instead. Unlike the reference, whose
 arrays are immutable, the cache is written IN PLACE: ``cache_update`` and
 every function that takes a cache mutate it and return the same object.
 
@@ -152,9 +154,23 @@ def cache_kv(c: Dict[str, torch.Tensor], dtype: torch.dtype
 
 def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                       pos, n_rep: int) -> torch.Tensor:
-    """q (b, s_q, h, hd) against the GQA cache up to ``pos + s_q - 1``; later
-    rows are masked with the finite NEG_INF, so an idle slot decoding at a
-    stale cursor stays finite. The group axis is folded, never expanded."""
+    """q (b, s_q, h, hd) against the GQA cache up to ``pos + s_q - 1``. One
+    query token on the card in bf16 or fp16 at a head dim K4 is built for
+    (``attention.decode_kernel_takes``) goes through K4, which reads each
+    slot's live rows in place; everything else, the CPU included, through
+    :func:`_einsum_attention`."""
+    if attention.decode_kernel_takes(q.device, q.shape[1], ck.dtype,
+                                     q.shape[3]):
+        return attention.decode_attention(q, ck, cv, pos, n_rep)
+    return _einsum_attention(q, ck, cv, pos, n_rep)
+
+
+def _einsum_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                      pos, n_rep: int) -> torch.Tensor:
+    """The reference's einsums over the whole cache: rows past ``pos +
+    s_q - 1`` are masked with the finite NEG_INF, so an idle slot decoding
+    at a stale cursor stays finite. The group axis is folded, never
+    expanded."""
     b, s_q, h, hd = q.shape
     kv = ck.shape[2]
     qg = q.reshape(b, s_q, kv, n_rep, hd)

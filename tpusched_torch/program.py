@@ -51,12 +51,13 @@ draw advances it by nothing), so each replay draws at the generator's
 current offset and advances it, as the body called eagerly would, instead
 of replaying one frozen draw.
 
-The flash kernels' launch counters (``attention.FLASH_*_LAUNCHES``)
-count the wrappers' Python calls, which a replay does not make. So a
-program counts the launches its capture recorded, over all its segments,
-leaves the counters as they were before its warm-up calls, and adds the
-recorded launches on every replay: the counts stay those of the kernels
-that ran for the program's results.
+The kernels' launch counters (``attention.FLASH_*_LAUNCHES`` and
+``attention.DECODE_ATTN_LAUNCHES``) count the wrappers' Python calls,
+which a replay does not make. So a program counts the launches its
+capture recorded, over all its segments, leaves the counters as they were
+before its warm-up calls, and adds the recorded launches on every replay:
+the counts stay those of the kernels that ran for the program's
+results.
 
 A program counts its ``captures`` and its ``replays``: the calls that ran
 its step without capturing it (replaying its graphs, or where it is not
@@ -79,7 +80,7 @@ import torch
 from . import attention, mesh, tracing
 
 _COUNTERS = ("FLASH_FWD_LAUNCHES", "FLASH_BWD_DKDV_LAUNCHES",
-             "FLASH_BWD_DQ_LAUNCHES")
+             "FLASH_BWD_DQ_LAUNCHES", "DECODE_ATTN_LAUNCHES")
 
 
 def _counts() -> Tuple[int, ...]:

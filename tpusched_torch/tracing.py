@@ -53,8 +53,8 @@ an ordinary host span.
 
 Counters (:func:`counters`) report the recorder's own and read the port's
 existing ones where they live: ``attention.FLASH_*_LAUNCHES``,
-``mesh.COLLECTIVES_RUN`` and each program's ``replays``, ``captures`` and
-``breaks_run``.
+``attention.DECODE_ATTN_LAUNCHES``, ``mesh.COLLECTIVES_RUN`` and each
+program's ``replays``, ``captures`` and ``breaks_run``.
 
 One switch, :func:`enable`, on by default. The recorder expects its host
 spans from one thread; a collection on another thread only adds its
@@ -373,7 +373,7 @@ def track(program) -> None:
 
 
 def counters() -> dict:
-    """The recorder's counters, the flash kernels' launches, the
+    """The recorder's counters, the flash kernels' and K4's launches, the
     collectives run, and per program name (summed over the live programs
     of that name) its replays, captures and breaks run."""
     from . import attention, mesh
@@ -382,7 +382,8 @@ def counters() -> dict:
            "collectives_run": mesh.COLLECTIVES_RUN,
            "flash_fwd_launches": attention.FLASH_FWD_LAUNCHES,
            "flash_bwd_dkdv_launches": attention.FLASH_BWD_DKDV_LAUNCHES,
-           "flash_bwd_dq_launches": attention.FLASH_BWD_DQ_LAUNCHES}
+           "flash_bwd_dq_launches": attention.FLASH_BWD_DQ_LAUNCHES,
+           "decode_attn_launches": attention.DECODE_ATTN_LAUNCHES}
     programs: Dict[str, Dict[str, int]] = {}
     for p in list(_programs):
         c = programs.setdefault(p.name, {"replays": 0, "captures": 0,
