@@ -46,7 +46,8 @@ def run(ctx) -> dict:
     mix = ctx.mix
     parts = {}
     t = time.perf_counter()
-    cfg = model.port_config(ctx.conf, seq=mix["seq"], remat=mix["remat"])
+    cfg = model.arch(ctx.conf).port_config(ctx.conf, seq=mix["seq"],
+                                          remat=mix["remat"])
     tx = optim.adamw(mix["lr"], mu_dtype=getattr(torch, mix["mu_dtype"]))
     step, init_opt, _, _ = make_optax_train_step(None, cfg, tx)
     params = ctx.weights

@@ -4,9 +4,11 @@ judged against the plain reference, and the result as one JSON line.
 
 What a cell is made of, each found by name and none edited to add another:
 ``BENCHMARK.json``'s entry (config, traffic, chips), ``configs/<config>
-.json``, ``traffic/<mix>.json`` (its ``driver`` names
-``drivers/<driver>.py``), ``cells/<cell>.json`` (the engine's geometry,
-the offered rate, the limits of the check) and, for each per-layer metric
+.json`` and its architecture's two files (its ``model_type`` names
+``archs/<model_type>.py`` and ``reference/<model_type>.py``),
+``traffic/<mix>.json`` (its ``driver`` names ``drivers/<driver>.py``),
+``cells/<cell>.json`` (the engine's geometry, the offered rate, the
+limits of the check) and, for each per-layer metric
 whose ``workloads`` list the cell, its reader in ``metrics/`` (one a
 quantity, shared by the metric's variants; ``Bench.reader``).
 """
@@ -82,7 +84,7 @@ def _records(out: dict, conf: dict, device_name: Optional[str]) -> dict:
     """What a per-layer metric reads (``readers``): the driver's records
     (``ticks`` of a serving cell, ``steps`` of a train cell) and these."""
     return dict(out.get("records", {}), conf=conf,
-                shapes=flops.Shapes(conf),
+                counts=model.arch(conf).counts(conf),
                 peak=flops.peaks(device_name) if device_name else None,
                 window=out["window"], trace=out["trace"], e2e=out["e2e"])
 
@@ -108,8 +110,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     ctx = types.SimpleNamespace(
-        conf=conf, cfg=model.port_config(conf), mix=mix, cell=cell,
-        seed=seed, seconds=seconds, trace=trace, device=device,
+        conf=conf, cfg=model.arch(conf).port_config(conf), mix=mix,
+        cell=cell, seed=seed, seconds=seconds, trace=trace, device=device,
         on_card=on_card, t_start=t_start, sync=_sync(device),
         weights=model.make_weights(conf, seed, device))
     ctx.sync()

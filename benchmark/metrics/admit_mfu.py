@@ -6,13 +6,13 @@ from benchmark import flops, readers
 
 
 def read(records):
-    tr, peak, sh = records["trace"], records["peak"], records["shapes"]
+    tr, peak, c = records["trace"], records["peak"], records["counts"]
     if tr is None or peak is None:
         return None
     work = busy = 0.0
     for t, a, b in readers.traced_ticks(records, admitting=True):
-        work += sum(flops.prefill_flops(sh, n) for n, _ in t["admits"])
-        work += flops.decode_flops(sh, t["contexts"])
+        work += sum(flops.prefill_flops(c, n) for n, _ in t["admits"])
+        work += flops.decode_flops(c, t["contexts"])
         busy += tr.busy_in(a, b)
     if busy <= 0:
         return None

@@ -5,12 +5,12 @@ from benchmark import flops, readers
 
 
 def read(records):
-    tr, peak, sh = records["trace"], records["peak"], records["shapes"]
+    tr, peak, c = records["trace"], records["peak"], records["counts"]
     if tr is None or peak is None:
         return None
     need = busy = 0.0
     for t, a, b in readers.traced_ticks(records, admitting=False):
-        need += flops.decode_bytes(sh, t["contexts"])
+        need += flops.decode_bytes(c, t["contexts"])
         busy += tr.busy_in(a, b)
     if busy <= 0:
         return None

@@ -9,6 +9,6 @@ def read(records):
     peak, steps = records["peak"], records.get("steps")
     if peak is None or not steps:
         return None
-    work = flops.train_step_flops(records["shapes"], records["batch"],
+    work = flops.train_step_flops(records["counts"], records["batch"],
                                   records["seq"]) * len(steps)
     return 100.0 * work / records["span_s"] / peak[0]

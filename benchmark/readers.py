@@ -2,9 +2,9 @@
 ticks as the host clock saw them, and the traced ticks with their
 device-busy time.
 
-A metric reads ``records``: ``conf`` (the configuration file), ``shapes``
-(:class:`flops.Shapes`), ``peak`` ((FLOP/s, bytes/s) of the card, None
-off it), ``ticks`` (one dict a tick: host ``t0``/``t1``, ``admits`` as
+A metric reads ``records``: ``conf`` (the configuration file),
+``counts`` (:class:`flops.Counts`, the architecture's sizes a layer),
+``peak`` ((FLOP/s, bytes/s) of the card, None off it), ``ticks`` (one dict a tick: host ``t0``/``t1``, ``admits`` as
 (true prompt length, bucket) in the order the prefills ran, ``contexts``
 (each decoding slot's position), ``traced``, ``idx``), ``window``,
 ``trace_started`` (the host time the profiler started, None when

@@ -5,9 +5,10 @@ steps of a run layer by layer so that it fits beside nothing else.
 - The loss: the mean over every row's S - 1 positions of the negative log
   softmax of the next token (no auxiliary term: the model is dense).
 - The gradient: the forward keeps each layer's input; the backward
-  recomputes one layer at a time from it (``model.block`` under autograd)
-  and hands the layer's gradients to the caller before the next, so that
-  only one layer's float32 weights and gradients live at a time.
+  recomputes one layer at a time from it (the architecture's ``block``
+  under autograd) and hands the layer's gradients to the caller before
+  the next, so that only one layer's float32 weights and gradients live
+  at a time.
 - AdamW as published (Loshchilov and Hutter) with optax's defaults
   (b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4, bias-corrected moments,
   the decay added to the update before the learning rate): after step 1
@@ -37,18 +38,19 @@ def loss_and_grads(top: Dict[str, torch.Tensor], layer_weights: Callable,
     leaf's gradient goes to ``take(path, grad)`` (path ("layers", i,
     name) or (name,)), the layers' from the last to the first."""
     b, s = tokens.shape
+    arch = model.arch(conf)
     xs: List[torch.Tensor] = []
     with torch.no_grad():
         x = top["embed"][tokens]
         for i in range(n_layers):
             xs.append(x)
             w = layer_weights(i)
-            x = torch.stack([model.block(x[r], w, conf, quant)
+            x = torch.stack([arch.block(x[r], w, i, conf, quant)
                              for r in range(b)])
     x = x.detach().requires_grad_(True)
     ln_f = top["ln_f"].detach().requires_grad_(True)
     out = top["out"].detach().requires_grad_(True)
-    logits = model.head(x[:, :-1], ln_f, out, conf, quant)
+    logits = arch.head(x[:, :-1], ln_f, out, conf, quant)
     nll = -torch.log_softmax(logits, -1).gather(
         -1, tokens[:, 1:, None])[..., 0]
     loss = nll.sum() / (b * (s - 1))
@@ -61,7 +63,7 @@ def loss_and_grads(top: Dict[str, torch.Tensor], layer_weights: Callable,
         w = {k: v.detach().requires_grad_(True)
              for k, v in layer_weights(i).items()}
         xin = xs[i].detach().requires_grad_(True)
-        y = torch.stack([model.block(xin[r], w, conf, quant)
+        y = torch.stack([arch.block(xin[r], w, i, conf, quant)
                          for r in range(b)])
         y.backward(gx)
         for k, v in w.items():

@@ -18,6 +18,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from . import model
+
 
 class Served:
     """What one request got: its due time, and every tick that delivered
@@ -198,7 +200,7 @@ def check(out: dict, ctx, control: bool = False) -> dict:
                             "control": gap_stats(c),
                             "control_correct": as_program["correct"],
                             "control_compared": as_program["compared"]}
-        if ctx.conf.get("num_local_experts"):
+        if model.arch(ctx.conf).experts_per_token(ctx.conf):
             verdict["stats"]["routing"] = routing_look(ctx, items, g)
     return verdict
 
@@ -216,7 +218,7 @@ def routing_look(ctx, items, g) -> dict:
     import torch
     from tpusched_torch import workload
     from .reference import judge as ref
-    k = ctx.conf["num_experts_per_tok"]
+    k = model.arch(ctx.conf).experts_per_token(ctx.conf)
     original = workload._router_gates
     flips = decisions = flipped = tokens = 0
     programs = []

@@ -36,6 +36,7 @@ REFERENCE_ONLY = r'''
 import json, sys
 sys.path.insert(0, {repo!r})
 import benchmark.reference.model, benchmark.reference.judge
+import benchmark.reference.mistral, benchmark.reference.mixtral
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}}
                         & {{"jax", "jaxlib", "flax", "tpusched", "tpusched_torch"}})))
 '''

@@ -13,7 +13,7 @@ def test_reference_equals_port_forward(moe):
     from tpusched_torch import workload
     conf = tiny_conf(moe)
     w = model.make_weights(conf, 2**31 + 11, "cpu")
-    cfg = model.port_config(conf)
+    cfg = model.arch(conf).port_config(conf)
     tokens = torch.randint(0, conf["vocab_size"], (40,),
                            generator=torch.Generator().manual_seed(3))
     port = workload.forward(w, tokens[None], cfg, dropless=True)[0]

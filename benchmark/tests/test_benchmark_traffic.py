@@ -68,3 +68,29 @@ def test_arrivals_cluster_and_long_prompts_meet_as_under_poisson():
     assert counts.mean() == pytest.approx(2.0, rel=0.02)
     assert 0.9 < counts.var() / counts.mean() < 1.1
     assert pairs / n_pairs == pytest.approx(1 / 64, rel=0.25)
+
+
+@pytest.mark.parametrize("strata", [0, 32])
+def test_offline_order_uniform_or_stratified(strata):
+    """Without ``strata`` the lengths are the uniform shuffle; with it the
+    same lengths, each block of ``strata`` requests holding one of each
+    stratum, so that every seed's head of the queue meets the same work."""
+    mix = dict(traffic.load("traffic", "batch"), strata=strata)
+    n = mix["requests"]
+    want = traffic.quantile_lengths(mix["output"], n)
+    heads = []
+    for seed in (5, 2**33 + 1):
+        got = np.array([r["max_new"] for r in
+                        traffic.generate(mix, {}, seed, 40.0, 32000)])
+        assert sorted(got) == sorted(want)
+        if not strata:
+            assert np.array_equal(
+                got, traffic.rng(seed, 2).permutation(want))
+            continue
+        edges = np.sort(want).reshape(strata, -1)
+        for block in got.reshape(-1, strata):
+            assert all(edges[i, 0] <= v <= edges[i, -1]
+                       for i, v in enumerate(sorted(block)))
+        heads.append(got[:384].sum())
+    if strata:
+        assert abs(heads[0] - heads[1]) <= 0.01 * heads[0]

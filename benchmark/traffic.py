@@ -9,6 +9,9 @@ the prompts' token ids. A uniform shuffle of n quantiles is n independent
 draws held to their typical order statistics: short gaps still come in
 runs and long prompts side by side, as under Poisson arrivals, while every
 seed offers the same requests and tokens, so two seeds do the same work.
+An offline mix, whose window works through only the head of its queue,
+may ask for a stratified order instead (``strata``, ``arrange``), so that
+every seed's window meets the same lengths.
 """
 from __future__ import annotations
 
@@ -61,16 +64,38 @@ def request_count(mix: dict, cell: dict, seconds: float) -> int:
     return int(mix["requests"])
 
 
+def arrange(lengths: np.ndarray, gen: np.random.Generator,
+            strata: int = 0) -> np.ndarray:
+    """``lengths`` in the run's order: a uniform shuffle or, with
+    ``strata``, a stratified one: the sorted lengths cut into ``strata``
+    runs of neighbouring quantiles (sizes differing by one at most), and
+    each block of ``strata`` consecutive requests holding one length of
+    each (the last block one of each of the larger strata), every stratum
+    and every block shuffled on its own. A queue worked through from its
+    head then meets the same lengths on every seed, up to a stratum's
+    width."""
+    if not strata:
+        return gen.permutation(lengths)
+    rows = [gen.permutation(row)
+            for row in np.array_split(np.sort(lengths), strata)]
+    blocks = [[row[i] for row in rows if i < len(row)]
+              for i in range(len(rows[0]))]
+    return np.concatenate([gen.permutation(block) for block in blocks])
+
+
 def generate(mix: dict, cell: dict, seed: int, seconds: float,
              vocab: int) -> List[dict]:
     """The run's requests in order of arrival: ``rid``, ``due_s`` (seconds
     after the arrivals begin; 0 for a preloaded request and for every
     request of an offline mix),
     ``prompt`` (int32 token ids) and ``max_new`` (the output length; no
-    EOS, so a request emits exactly that many tokens)."""
+    EOS, so a request emits exactly that many tokens). The lengths are in
+    the order ``arrange`` gives, stratified where the mix names
+    ``strata``."""
     n = request_count(mix, cell, seconds)
-    prompts = rng(seed, 1).permutation(quantile_lengths(mix["prompt"], n))
-    outputs = rng(seed, 2).permutation(quantile_lengths(mix["output"], n))
+    strata = mix.get("strata", 0)
+    prompts = arrange(quantile_lengths(mix["prompt"], n), rng(seed, 1), strata)
+    outputs = arrange(quantile_lengths(mix["output"], n), rng(seed, 2), strata)
     if mix["driver"] == "open_loop":
         if mix["arrivals"] != "poisson":
             raise ValueError(f"unknown arrivals {mix['arrivals']!r}")
